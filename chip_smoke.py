@@ -17,7 +17,20 @@ result line):
      8 frames (bf16); the launch counts, cleared just before, must show K1
      for every head and K2 for every batch; the kernel-decoded heads are
      held against the plain decode of the same raw heads; and an fp32 run
-     on a small input is held against the port's CPU path.
+     on a small input is held against the port's CPU path. K3 and K4 must
+     not launch on this model;
+  6. K3 (stem conv) against its plain version at the flagship's shape, bs
+     8, (8, 512, 640, 32) -> 64 channels, bf16 for mish and leaky, and once
+     in fp32 (TF32 off);
+  7. K4 (int8 GEMM) against its plain version at the flagship's ten chain
+     1x1 shapes at bs 8, each with the requant flag its int8 plan gives it;
+  8. end to end: the flagship Double-YOLOv4-Fshare-Global-CSE3 at full
+     width and depth with seeded weights, served in bf16 and then in int8
+     (two calibration requests of 8 frames, then int8 requests of 1, 3 and
+     8); the launch counts of each request must show K3 twice per forward,
+     K4 ten times per int8 forward and never otherwise, K1 per head and K2
+     per batch; an int8 fp32 run on the card on a small input is held
+     against the port's int8 CPU path on the same quantized weights.
 Then a JSON line of kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
@@ -25,7 +38,9 @@ Times come from CUDA events (kernels) or the host clock around a
 synchronised request (end to end), after warm-up; each is the median of
 several runs. bound_ms is the least time the card could take: the larger of
 bytes moved (each input read once, each output written once) at 3.35 TB/s
-and operations at 67 TFLOP/s fp32 (H100 SXM data sheet, 700 W).
+and operations at the peak rate of the work's own type (H100 SXM data
+sheet, dense, 700 W): 67 TFLOP/s fp32 on the CUDA cores for K1 and K2,
+989 TFLOP/s bf16 on the tensor cores for K3, 1979 TOP/s int8 for K4.
 """
 
 from __future__ import annotations
@@ -45,9 +60,16 @@ MNV3_CFG = os.path.join(
     ROOT, "configs", "kaist_dyolov4_mobilenetv3_fshare_global_cse3.cfg")
 MNV3_NPZ = os.path.join(ROOT, "tests", "fixtures", "fullparity",
                         "mnv3_selftrained.fp16.npz")
+FLAGSHIP_CFG = os.path.join(ROOT, "configs",
+                            "kaist_dyolov4_fshare_global_concat_se3.cfg")
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 67e12            # CUDA cores
+BF16_OPS_PER_S = 989e12           # tensor cores, dense
+INT8_OPS_PER_S = 1979e12          # tensor cores, dense
 SEED = 0
+# kaiming-uniform kernels times this gain keep the flagship's heads input-
+# dependent and finite through its 185 convs (tests/test_torch_slice.py)
+FLAGSHIP_GAIN = 2.2
 
 
 def _fail(msg: str) -> int:
@@ -108,9 +130,12 @@ def _device_ms(torch, fn, name: str, iters=20):
     return total if total > 0 else None
 
 
-def _bound_ms(n_bytes: float, n_ops: float):
+def _bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
+    """The larger of bytes at the HBM rate and operations at ``ops_per_s``,
+    the peak of the work's own type: FP32_OPS_PER_S (K1, K2),
+    BF16_OPS_PER_S (K3), INT8_OPS_PER_S (K4)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -164,7 +189,7 @@ def phase_decode(torch, ir, dev):
     plain_ms = _time_ms(torch, lambda: plain(bf))
     device_ms = _device_ms(torch, lambda: kernel(bf), "decode_head_kernel")
     elems = bs * sum(rows) * no
-    bound, by = _bound_ms(elems * (2 + 4), elems * 8)
+    bound, by = _bound_ms(elems * (2 + 4), elems * 8, FP32_OPS_PER_S)
     print(f"K1 {bf} bs {bs}, 3 heads: kernel {ms:.4f} ms (device "
           f"{device_ms} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
           f"({by})", flush=True)
@@ -204,7 +229,7 @@ def phase_nms(torch, dev):
     # (~14 flops) per kept winner and candidate, one compare per round and
     # candidate
     bound, by = _bound_ms(bs * k * 20 + bs * max_det * 8,
-                          kept * k * 14 + (kept + bs) * k)
+                          kept * k * 14 + (kept + bs) * k, FP32_OPS_PER_S)
     print(f"K2: kernel {ms:.4f} ms (device {device_ms} ms), plain "
           f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by})", flush=True)
     return {"max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
@@ -246,6 +271,8 @@ def phase_end_to_end(torch, ir, dev, launches):
                                     np.isfinite(s).all() for b, s, _ in out):
             raise AssertionError(f"request of {n}: bad output")
     counts = dict(launches)                 # read just after the run
+    if counts.get("stem_conv_s2", 0) or counts.get("qgemm", 0):
+        raise AssertionError(f"MNv3 launched K3 or K4: {counts}")
 
     times = {}
     for n in (1, 3, 8):
@@ -316,6 +343,423 @@ def phase_end_to_end(torch, ir, dev, launches):
          torch.backends.cuda.matmul.allow_tf32) = prev
     return counts, times
 
+class _NoTF32:
+    """TF32 off for cuDNN and matmuls inside the block (fp32 checks)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.prev = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = self.prev
+
+
+def phase_stem(torch, dev):
+    """K3 at the flagship's stem shape, bs 8: bf16 (mish, leaky) and fp32."""
+    import torch.nn.functional as F
+
+    from double_yolo_kaist_torch.models import layers as L
+    from double_yolo_kaist_torch.ops.stem import (stem_conv_s2,
+                                                  stem_conv_s2_plain)
+    bs, h, w, c, o = 8, 512, 640, 32, 64
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x32 = torch.rand((bs, c, h, w), generator=g, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    w32 = torch.randn((o, c, 3, 3), generator=g, device=dev) * 0.06
+    b32 = torch.randn((o,), generator=g, device=dev) * 0.1
+    err = 0.0
+    with _NoTF32(torch):
+        for dtype, act, rtol, atol in (
+                (torch.bfloat16, "mish", 2 ** -7, 1e-5),
+                (torch.bfloat16, "leaky", 2 ** -7, 1e-5),
+                (torch.float32, "mish", 1e-5, 1e-5)):
+            x, wt = x32.to(dtype), w32.to(dtype)
+            got = stem_conv_s2(x, wt, b32, act)
+            want = stem_conv_s2_plain(x, wt, b32, act)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            bad = int((d > rtol * want.float().abs() + atol).sum())
+            e = float(d.max())
+            print(f"K3 {dtype} {act}: max_abs_err {e:.3e} (bound {rtol:.3g} "
+                  f"rel + {atol:g}), {bad} elements over", flush=True)
+            if bad or not torch.isfinite(got).all():
+                raise AssertionError(f"K3 {dtype} {act} disagrees with its "
+                                     f"plain version")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+        x, wt = x32.to(torch.bfloat16), w32.to(torch.bfloat16)
+        b16 = b32.to(torch.bfloat16)
+        ms = _time_ms(torch, lambda: stem_conv_s2(x, wt, b32, "mish"))
+        device_ms = _device_ms(torch, lambda: stem_conv_s2(x, wt, b32, "mish"),
+                               "stem_bf16_kernel")
+        plain_ms = _time_ms(torch, lambda: stem_conv_s2_plain(
+            x, wt, b32, "mish"), iters=5, reps=5)
+        library_ms = _time_ms(torch, lambda: L.activate("mish", F.conv2d(
+            x, wt, b16, stride=2, padding=1)))
+        ms32 = _time_ms(torch, lambda: stem_conv_s2(x32, w32, b32, "mish"),
+                        iters=5, reps=5)
+    n_bytes = (x.numel() + bs * o * (h // 2) * (w // 2) + wt.numel()) * 2 \
+        + o * 4
+    bound, by = _bound_ms(n_bytes, 2 * bs * o * (h // 2) * (w // 2) * 9 * c,
+                          BF16_OPS_PER_S)
+    print(f"K3 bf16 mish bs {bs} (8, 32, 512, 640) -> 64: kernel {ms:.4f} "
+          f"ms (device {device_ms} ms), plain {plain_ms:.4f} ms, library "
+          f"(cuDNN conv + eager mish) {library_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}); fp32 kernel {ms32:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def _k4_shapes(ir, bs, hw):
+    """(node, M, K, N, requant) of the chain 1x1 convs K4 computes on the
+    flagship at batch ``bs`` and input size ``hw``."""
+    from double_yolo_kaist_torch.config.ir import infer_shapes
+    from double_yolo_kaist_torch.models import quantize as Q
+    targets, emits = Q.plan_quantization(ir, "chain")
+    shapes = infer_shapes(ir, *hw)
+    out = []
+    for i in sorted(targets):
+        node = ir.nodes[i]
+        if Q._gemm_conv(node):
+            _, ho, wo = shapes[i]
+            out.append((i, bs * ho * wo, node.in_ch, node.out_ch,
+                        i in emits))
+    return out
+
+
+def phase_qgemm(torch, ir, dev):
+    """K4 at the flagship's ten chain 1x1 shapes, bs 8, bf16 epilogue."""
+    from double_yolo_kaist_torch.ops.qgemm import (epilogue_plain, qgemm,
+                                                   qgemm_plain)
+    shapes = _k4_shapes(ir, 8, (512, 640))
+    if len(shapes) != 10:
+        raise AssertionError(f"expected 10 chain 1x1 convs, got {shapes}")
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for i, m, k, n, rq in shapes:
+        x = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+        wq = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+        scale = torch.from_numpy((rng.random(n) * 1e-3 + 1e-5)
+                                 .astype(np.float32))
+        bias = torch.from_numpy((rng.normal(size=n) * 0.1).astype(np.float32))
+        inv = np.float32(rng.random() * 20 + 5) if rq else None
+        cases.append((i, x.to(dev), wq.to(dev), scale.to(dev), bias.to(dev),
+                      inv, wq.t().contiguous().to(dev)))
+    n_bad = 0
+    for i, x, wq, sc, bi, inv, _ in cases:
+        got = qgemm(x, wq, sc, bi, "leaky", out_inv_s=inv)
+        want = qgemm_plain(x, wq, sc, bi, "leaky", out_inv_s=inv)
+        torch.cuda.synchronize()
+        if inv is not None:
+            d = (got.int() - want.int()).abs()
+            ok = int(d.max()) <= 1 and float((d != 0).float().mean()) < 0.05
+            n_bad += int((d != 0).sum())
+        else:
+            ok = torch.equal(got, want)
+            n_bad += int((got != want).sum())
+        if not ok:
+            raise AssertionError(f"K4 at l{i} disagrees with its plain "
+                                 f"version")
+    print(f"K4 10 shapes, bs 8, leaky, bf16 epilogue: {n_bad} elements "
+          f"differ (bound: bf16 outputs equal, s8 within 1 LSB on < 5%)",
+          flush=True)
+
+    def run_all(fn):
+        for i, x, wq, sc, bi, inv, _ in cases:
+            fn(x, wq, sc, bi, "leaky", out_inv_s=inv)
+
+    def library(x, wq, sc, bi, act, out_inv_s, wt):
+        return epilogue_plain(torch._int_mm(x, wt.t()), sc, bi, act,
+                              out_inv_s, torch.bfloat16)
+
+    ms = _time_ms(torch, lambda: run_all(qgemm))
+    device_ms = _device_ms(torch, lambda: run_all(qgemm), "qgemm_kernel")
+    plain_ms = _time_ms(torch, lambda: run_all(qgemm_plain), iters=5)
+    library_ms = _time_ms(torch, lambda: [
+        library(*c[1:5], "leaky", c[5], c[6]) for c in cases], iters=5)
+    tot_bytes = tot_ops = 0
+    for (i, m, k, n, rq), (_, x, *_r) in zip(shapes, cases):
+        nb = m * k + k * n + m * n * (1 if rq else 2) + n * 8
+        nops = 2 * m * k * n
+        b1, by1 = _bound_ms(nb, nops, INT8_OPS_PER_S)
+        print(f"K4 l{i}: M {m} K {k} N {n} requant {rq}: bound {b1:.5f} ms "
+              f"({by1}; {nb / 1e6:.2f} MB, {nops / 1e9:.2f} GOP)", flush=True)
+        tot_bytes += nb
+        tot_ops += nops
+    bound, by = _bound_ms(tot_bytes, tot_ops, INT8_OPS_PER_S)
+    print(f"K4 10 shapes: kernel {ms:.4f} ms (device {device_ms} ms), plain "
+          f"{plain_ms:.4f} ms, library (_int_mm + eager epilogue) "
+          f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+          f"{tot_bytes / 1e6:.1f} MB, {tot_ops / 1e9:.1f} GOP)", flush=True)
+    return {"max_abs_err": 0.0 if n_bad == 0 else 1.0, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms}
+
+
+def seeded_variables(torch, ir, seed: int, gain: float = FLAGSHIP_GAIN):
+    """The port's variables for ``ir`` drawn from numpy: conv kernels
+    U(+-gain * sqrt(1 / fan_in)), BN statistics in the ranges of
+    tests/test_torch_slice._perturb_bn, SE and head biases U(+-sqrt(1 /
+    fan_in)) with graph.init's obj / cls prior on the heads, weighted
+    shortcuts at 0 (graph.init's)."""
+    import math
+    rng = np.random.default_rng(seed)
+
+    def uniform(bound, shape):
+        return torch.from_numpy(rng.uniform(-bound, bound, shape)
+                                .astype(np.float32))
+
+    def normal(std, n):
+        return torch.from_numpy(rng.normal(0, std, n).astype(np.float32))
+
+    params, state = {}, {}
+    for node in ir.nodes:
+        key = f"l{node.index}"
+        if node.kind == "conv":
+            fan_in = node.in_ch // node.groups * node.kernel ** 2
+            p = {"w": uniform(gain * math.sqrt(1 / fan_in),
+                              (node.out_ch, node.in_ch // node.groups,
+                               node.kernel, node.kernel))}
+            if node.bn:
+                c = node.out_ch
+                p["bn"] = {"scale": torch.from_numpy(
+                    rng.uniform(0.5, 1.5, c).astype(np.float32)),
+                    "bias": normal(0.2, c)}
+                state[key] = {"mean": normal(0.2, c), "var": torch.from_numpy(
+                    rng.uniform(0.5, 2.0, c).astype(np.float32))}
+            else:
+                p["b"] = uniform(math.sqrt(1 / fan_in), (node.out_ch,))
+            params[key] = p
+        elif node.kind == "se":
+            c, sq = node.in_ch, node.squeeze_ch
+            params[key] = {
+                "fc1": {"w": uniform(math.sqrt(1 / c), (sq, c, 1, 1)),
+                        "b": uniform(math.sqrt(1 / c), (sq,))},
+                "fc2": {"w": uniform(math.sqrt(1 / sq), (c, sq, 1, 1)),
+                        "b": uniform(math.sqrt(1 / sq), (c,))}}
+        elif node.kind == "shortcut" and node.weighted:
+            params[key] = {"w": torch.zeros(len(node.inputs) + 1)}
+        elif node.kind in ("dwconv", "inception"):
+            raise ValueError(f"no seeded init for {node.kind}")
+    for yi in ir.yolo_indices:              # graph.init's smart bias
+        head, pred = ir.nodes[yi], ir.nodes[yi - 1]
+        b = params[f"l{pred.index}"]["b"].reshape(len(head.anchors), -1)
+        b[:, 4] -= 4.5
+        b[:, 5:] += math.log(0.6 / (head.nc - 0.99))
+    return {"params": params, "state": state}
+
+
+def _serve(torch, pred, frames, launches, n, want):
+    """One request of ``n`` frames; launch counts must equal ``want``."""
+    before = dict(launches)
+    t0 = time.perf_counter()
+    out = pred(*frames[n])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    got = {k: launches[k] - before.get(k, 0) for k in want}
+    print(f"  request of {n}: {dt:.3f} ms, detections per image "
+          f"{[len(b) for b, _, _ in out]}, launches {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"request of {n}: want launches {want}, got "
+                             f"{got}")
+    if len(out) != n or not all(np.isfinite(b).all() and np.isfinite(s).all()
+                                for b, s, _ in out):
+        raise AssertionError(f"request of {n}: bad output")
+
+
+def _medians(torch, pred, frames, label):
+    times = {}
+    for n in (1, 3, 8):
+        ts = []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            pred(*frames[n])
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times[n] = statistics.median(ts)
+        print(f"{label}: ms per request of {n} frames, 12 requests: median "
+              f"{times[n]:.3f}, min {min(ts):.3f}, max {max(ts):.3f}",
+              flush=True)
+    for n in (1, 8):
+        prof = _profile(torch, lambda: pred(*frames[n]))
+        busy = sum(prof.values())
+        top = sorted(prof.items(), key=lambda kv: -kv[1])[:8]
+        print(f"{label} profile, request of {n}: device busy {busy:.3f} ms, "
+              f"{100 * busy / times[n]:.1f}% of the median request time; "
+              f"{len(prof)} kernel names; top: "
+              + "; ".join(f"{k[:50]} {v:.3f}" for k, v in top), flush=True)
+    return times
+
+
+def phase_flagship(torch, dev, launches):
+    """The flagship end to end: bf16, then int8 (chain PTQ)."""
+    from double_yolo_kaist_torch.config.ir import compile_cfg
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.models import quantize as Q
+    from double_yolo_kaist_torch.serving import Predictor
+
+    ir = compile_cfg(FLAGSHIP_CFG)
+    t0 = time.perf_counter()
+    variables = seeded_variables(torch, ir, SEED)
+    print(f"flagship: {len(ir.nodes)} nodes, seeded weights in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED + 1)
+    frames = {n: (rng.integers(0, 256, (n, 512, 640, 3), dtype=np.uint8),
+                  rng.integers(0, 256, (n, 512, 640, 3), dtype=np.uint8))
+              for n in (1, 3, 8)}
+    n_heads = len(ir.yolo_indices)
+    fwd = {"stem_conv_s2": 2, "qgemm": 0, "decode_head": n_heads,
+           "nms_indices": 1}
+    q_fwd = dict(fwd, qgemm=10)
+    counts = {}
+
+    pred = Predictor(ir, variables, img_size=640, device=dev)
+    for n in (1, 8):
+        pred.warmup((512, 640), batch=n)
+    torch.cuda.synchronize()
+    print("flagship bf16:", flush=True)
+    launches.clear()                        # the bf16 path's run
+    for n in (1, 3, 8):
+        _serve(torch, pred, frames, launches, n, fwd)
+    counts["bf16"] = dict(launches)          # read just after it
+    times = {"bf16": _medians(torch, pred, frames, "flagship bf16")}
+
+    with torch.inference_mode():            # largest head value, bs 8
+        fn, _, _ = pred._preprocess((512, 640))
+        v = torch.from_numpy(frames[8][0]).to(dev)
+        l = torch.from_numpy(frames[8][1]).to(dev)
+        xv, xl = fn(v, l)
+        io_bf16, raw = graph.apply_folded(ir, pred.folded, xv, xl,
+                                          compute_dtype=torch.bfloat16)
+        print(f"flagship bf16 bs 8: largest |raw head| "
+              f"{max(float(r.float().abs().max()) for r in raw):.3f}, "
+              f"finite {all(bool(torch.isfinite(r).all()) for r in raw)}",
+              flush=True)
+
+    qpred = Predictor(ir, variables, img_size=640, device=dev, int8=True)
+    for n in (1, 8):
+        qpred.warmup((512, 640), batch=n)
+    torch.cuda.synchronize()
+    if qpred.qvars is not None or qpred._cal_batches:
+        raise AssertionError("warmup touched the int8 calibration state")
+    print("flagship int8 (chain), two calibration requests of 8 then int8 "
+          "requests:", flush=True)
+    launches.clear()                        # the int8 path's run
+    _serve(torch, qpred, frames, launches, 8, fwd)
+    # the second calibration request runs two calibration forwards (K3
+    # only), quantizes, then serves int8
+    _serve(torch, qpred, frames, launches, 8,
+           dict(q_fwd, stem_conv_s2=3 * 2))
+    for n in (1, 3, 8):
+        _serve(torch, qpred, frames, launches, n, q_fwd)
+    counts["int8"] = dict(launches)          # read just after it
+    times["int8"] = _medians(torch, qpred, frames, "flagship int8")
+
+    with torch.inference_mode():
+        io_q, _ = Q.apply_quantized(ir, qpred.qvars, xv, xl,
+                                    compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        d = (io_q - io_bf16).abs()
+        obj = slice(4, 5)
+        print(f"flagship bs 8, int8 vs bf16 decoded heads: mean |diff| "
+              f"{float(d.mean()):.4f}, max {float(d.max()):.3f}; objectness "
+              f"mean |diff| {float(d[..., obj].mean()):.5f}; int8 finite "
+              f"{bool(torch.isfinite(io_q).all())}", flush=True)
+        if not torch.isfinite(io_q).all():
+            raise AssertionError("int8 forward is not finite")
+
+    phase_flagship_int8_vs_cpu(torch, ir, variables, qpred, dev)
+    return counts, times
+
+
+def phase_flagship_int8_vs_cpu(torch, ir, variables, qpred, dev):
+    """The int8 path on the card against the port's int8 path on the CPU:
+    the same quantized weights, fp32 compute, TF32 off, 2 frames of 64x96.
+
+    1. Every quantized conv (K4 for the 1x1s, im2col + ``_int_mm`` for the
+       3x3s) on the same input, its input in the CPU fp32 forward: fp
+       outputs within 1e-5 relative + 1e-5, requantized s8 outputs within
+       one step on under 1% of the elements.
+    2. The whole int8 forward: finite, and its mean raw-head difference at
+       most twice the mean int8 error (int8 against fp32 on the card). An
+       ulp on an int8 rounding boundary moves a value by one step, and at
+       full width these steps compound to the size of the int8 error
+       itself (tests/test_torch_quantize.py), so only a gross fault (a
+       wrong scale or layout) fails this bound; step 1 holds the math."""
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.models import quantize as Q
+
+    stats = Q.calibrate(ir, qpred.folded, [(
+        torch.rand((2, 64, 96, 3), device=dev),
+        torch.rand((2, 64, 96, 3), device=dev))],
+        compute_dtype=torch.bfloat16)
+    qv = Q.quantize(ir, qpred._folded_cpu, stats, mode="chain")
+    targets, emits = Q.plan_quantization(ir, "chain")
+    rng = np.random.default_rng(SEED + 2)
+    xv = torch.from_numpy(rng.random((2, 64, 96, 3), dtype=np.float32))
+    xl = torch.from_numpy(rng.random((2, 64, 96, 3), dtype=np.float32))
+    with _NoTF32(torch), torch.inference_mode():
+        qp = {str(w): Q.place_quantized(ir, qv, w, torch.float32)
+              for w in ("cpu", dev)}
+        inputs = {}
+
+        def record(node, inp, p):
+            if node.index in targets:
+                inputs[node.index] = inp
+            return graph.conv_folded(node, inp, p)
+
+        graph.run_graph(ir, graph.place_folded(
+            ir, qpred._folded_cpu, "cpu", torch.float32)["params"], xv, xl,
+            dtype=torch.float32, conv=record)
+        worst = (0.0, 0.0)
+        for i in sorted(targets):
+            node, x = ir.nodes[i], inputs[i]
+            ref = Q.qconv(node, x, qp["cpu"]["params"][f"l{i}"]["q"],
+                          torch.float32)
+            got = Q.qconv(node, x.to(dev), qp[str(dev)]["params"][
+                f"l{i}"]["q"], torch.float32).cpu()
+            if i in emits:
+                d = (got.int() - ref.int()).abs()
+                share = float((d != 0).float().mean())
+                ok = int(d.max()) <= 1 and share < 0.01
+                worst = (worst[0], max(worst[1], share))
+            else:
+                d = (got - ref).abs()
+                ok = bool((d <= 1e-5 * ref.abs() + 1e-5).all())
+                worst = (max(worst[0], float(d.max())), worst[1])
+            if not ok:
+                raise AssertionError(f"int8 conv l{i}: card disagrees with "
+                                     f"the CPU path")
+        print(f"int8 fp32, each of {len(targets)} quantized convs, card vs "
+              f"CPU on the same input: max abs err {worst[0]:.3e} (fp "
+              f"outputs), largest share of s8 codes one step off "
+              f"{worst[1]:.2e}", flush=True)
+
+        raws = {}
+        for where in ("cpu", dev):
+            _, raw = Q.apply_quantized(ir, qp[str(where)], xv.to(where),
+                                       xl.to(where),
+                                       compute_dtype=torch.float32)
+            raws[str(where)] = [r.float().cpu() for r in raw]
+        fold = graph.place_folded(ir, qpred._folded_cpu, dev, torch.float32)
+        _, fp = graph.apply_folded(ir, fold, xv.to(dev), xl.to(dev))
+        fp = [r.float().cpu() for r in fp]
+    for i, (mine, ref, f) in enumerate(zip(raws[str(dev)], raws["cpu"], fp)):
+        d = (mine - ref).abs()
+        q_err = float((mine - f).abs().mean())
+        print(f"int8 fp32 forward, card vs CPU, head {i}: median |diff| "
+              f"{float(d.median()):.2e}, mean {float(d.mean()):.2e}, max "
+              f"{float(d.max()):.3e}; mean int8 error {q_err:.3e}",
+              flush=True)
+        if not (torch.isfinite(mine).all() and float(d.mean()) <= 2 * q_err):
+            raise AssertionError("int8 card run disagrees with the CPU path")
+
 
 def main() -> int:
     import torch
@@ -347,34 +791,57 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     ir = compile_cfg(MNV3_CFG)
+    flagship_ir = compile_cfg(FLAGSHIP_CFG)
     results = {}
     for name, fn in (("K1", lambda: phase_decode(torch, ir, dev)),
-                     ("K2", lambda: phase_nms(torch, dev))):
+                     ("K2", lambda: phase_nms(torch, dev)),
+                     ("K3", lambda: phase_stem(torch, dev)),
+                     ("K4", lambda: phase_qgemm(torch, flagship_ir, dev))):
         try:
             results[name] = fn()
         except Exception:                  # noqa: BLE001 — report, go on
             traceback.print_exc()
             failed.append(name)
+    counts = {}
     try:
-        counts, _ = phase_end_to_end(torch, ir, dev, _build.launches)
+        counts["mnv3"], _ = phase_end_to_end(torch, ir, dev, _build.launches)
     except Exception:                      # noqa: BLE001
         traceback.print_exc()
         failed.append("end to end")
-        counts = {}
+    try:
+        flagship_counts, _ = phase_flagship(torch, dev, _build.launches)
+        counts.update(flagship_counts)
+    except Exception:                      # noqa: BLE001
+        traceback.print_exc()
+        failed.append("flagship end to end")
     if failed:
         return _fail(f"phases failed: {failed}")
+
+    def launched(kernel):
+        """Launches of ``kernel`` summed over the main-path runs (MNv3,
+        flagship bf16, flagship int8), each counted from 0 just before its
+        run and read just after it."""
+        return sum(c.get(kernel, 0) for c in counts.values())
 
     kernels = [
         {"name": "K1 head decode", "route": "cuda",
          "source": "double_yolo_kaist_torch/ops/csrc/decode.cu",
          "replaces": "double_yolo_kaist_tpu/ops/pallas_decode.py:28",
-         "launches": counts.get("decode_head", 0), **results["K1"],
+         "launches": launched("decode_head"), **results["K1"],
          "library_ms": None},
         {"name": "K2 greedy NMS", "route": "cuda",
          "source": "double_yolo_kaist_torch/ops/csrc/nms.cu",
          "replaces": "double_yolo_kaist_tpu/ops/pallas_nms.py:34",
-         "launches": counts.get("nms_indices", 0), **results["K2"],
+         "launches": launched("nms_indices"), **results["K2"],
          "library_ms": None},
+        {"name": "K3 stem conv 3x3 s2", "route": "cuda",
+         "source": "double_yolo_kaist_torch/ops/csrc/stem.cu",
+         "replaces": "double_yolo_kaist_tpu/ops/pallas_stem.py:138",
+         "launches": launched("stem_conv_s2"), **results["K3"]},
+        {"name": "K4 int8 GEMM + epilogue", "route": "cuda",
+         "source": "double_yolo_kaist_torch/ops/csrc/qgemm.cu",
+         "replaces": "double_yolo_kaist_tpu/ops/pallas_qgemm.py:101",
+         "launches": launched("qgemm"), **results["K4"]},
     ]
     if any(k["launches"] < 1 for k in kernels):
         return _fail(f"a kernel of the main path never launched: {counts}")

@@ -3,14 +3,20 @@
 Counterpart of the inference half of ``double_yolo_kaist_tpu/models/
 graph.py``: :func:`fold_batchnorm` and :func:`apply_folded`, with
 :func:`reshape_head` and :func:`decode_head` (the plain version of kernel K1,
-:mod:`..ops.decode`). The JAX package's stem-fusion, s2d-region and
+:mod:`..ops.decode`), and :func:`stem_fusion_pairs` (a pure IR analysis the
+int8 planner needs). The JAX package's stem-fusion, s2d-region and
 split-concat rewrites are left out: they are exact rewrites for the TPU's
-128 lanes, and the plain path computes the same function.
+128 lanes, and the plain path computes the same function. The stem convs
+(3x3, stride 2, C_in 32) run through kernel K3 (:mod:`..ops.stem`).
 
 Activations are NCHW in shape and channels-last in memory, so the convs run
 on cuDNN's NHWC kernels and the NHWC images the caller passes in are read
 without a copy. Dual-stream semantics: the conv at ``second_index`` reads
 the LWIR image instead of the running activation.
+
+:func:`run_graph` walks the graph for every executor of the port (this
+module's fp forward, calibration and the int8 forward of
+:mod:`.quantize`); they differ only in how a standard conv is computed.
 """
 
 from __future__ import annotations
@@ -19,9 +25,32 @@ import torch
 
 from ..config.ir import GraphIR
 from ..ops import decode as K1
+from ..ops import stem as K3
 from ..ops.decode import decode_head_plain as decode_head  # noqa: F401
 from ..ops.decode import reshape_head  # noqa: F401
 from . import layers as L
+
+
+def stem_fusion_pairs(ir: GraphIR) -> dict:
+    """Map {first conv index -> second conv index} of the stem pairs: each
+    stream's 3x3 s1 conv on the image followed by a 3x3 s2 conv (JAX
+    graph.py:281-296). The port runs such a pair as two convs; the int8
+    planner keeps both out of its targets, as the JAX package does with its
+    default fused stem."""
+    pairs = {}
+    for n1 in ir.nodes:
+        if not (n1.kind == "conv" and n1.kernel == 3 and n1.stride == (1, 1)
+                and n1.pad == 1 and n1.groups == 1
+                and (n1.index == 0 or n1.takes_second_input)
+                and n1.index not in ir.consumed
+                and n1.index + 1 < len(ir.nodes)):
+            continue
+        n2 = ir.nodes[n1.index + 1]
+        if (n2.kind == "conv" and n2.kernel == 3 and n2.stride == (2, 2)
+                and n2.pad == 1 and n2.groups == 1
+                and not n2.takes_second_input and n2.in_ch == n1.out_ch):
+            pairs[n1.index] = n2.index
+    return pairs
 
 
 def fold_batchnorm(ir: GraphIR, variables: dict) -> dict:
@@ -79,22 +108,23 @@ def place_folded(ir: GraphIR, folded: dict, device, compute_dtype) -> dict:
     return {"params": params, "state": {}}
 
 
-def apply_folded(ir: GraphIR, variables: dict, xv, xl=None, *,
-                 compute_dtype=None):
-    """Inference forward on BN-folded params.
+def conv_folded(node, inp, p):
+    """One BN-folded standard conv + activation. The convs K3 takes (3x3,
+    stride 2, pad 1, C_in 32, mish or leaky) go through it; the rest go to
+    ``F.conv2d``."""
+    if K3.matches(node):
+        return K3.stem_conv_s2(inp, p["w"], p["b"], node.act)
+    return L.activate(node.act, L.conv2d(inp, p["w"], p["b"],
+                                         stride=node.stride, pad=node.pad,
+                                         groups=node.groups))
 
-    Args:
-      xv / xl: visible / LWIR images, NHWC float in [0, 1]; ``xl`` is
-        required for dual-stream graphs.
-      compute_dtype: dtype the activations run in (default: ``xv``'s).
 
-    Returns (decoded (bs, total rows, no) fp32, raw heads), raw heads as
-    (bs, na, ny, nx, no) views of the head convs' outputs. Each head is
-    decoded by :func:`..ops.decode.decode_head` into its slice of the
-    decoded output (kernel K1 on CUDA, the plain version on the CPU).
-    """
-    params = variables["params"]
-    dtype = compute_dtype or xv.dtype
+def run_graph(ir: GraphIR, params: dict, xv, xl=None, *, dtype,
+              conv=conv_folded):
+    """Walk the graph on NHWC images ``xv`` / ``xl`` in ``dtype``.
+    ``conv(node, input, params)`` computes each standard conv node; every
+    other node kind reads ``params["l<i>"]`` as BN-folded fp params.
+    Returns [(head conv output (bs, na*no, ny, nx), yolo node)]."""
     # NHWC -> NCHW shape over channels-last memory: a view, no copy
     x = xv.to(dtype).permute(0, 3, 1, 2)
     x2 = None if xl is None else xl.to(dtype).permute(0, 3, 1, 2)
@@ -107,11 +137,7 @@ def apply_folded(ir: GraphIR, variables: dict, xv, xl=None, *,
         kind = node.kind
         p = params.get(f"l{node.index}")
         if kind == "conv":
-            inp = x2 if node.takes_second_input else x
-            x = L.activate(node.act, L.conv2d(inp, p["w"], p["b"],
-                                              stride=node.stride,
-                                              pad=node.pad,
-                                              groups=node.groups))
+            x = conv(node, x2 if node.takes_second_input else x, p)
         elif kind == "dwconv":
             y = L.conv2d(x, p["dw"]["w"], p["dw"]["b"], stride=node.stride,
                          pad=1, groups=node.in_ch)
@@ -141,12 +167,18 @@ def apply_folded(ir: GraphIR, variables: dict, xv, xl=None, *,
             raise ValueError(f"unknown node kind {kind}")
         if node.index in ir.consumed:
             cache[node.index] = x
+    return heads
 
-    bs = xv.shape[0]
+
+def decode_heads(heads, bs: int, device):
+    """Head conv outputs -> (decoded (bs, total rows, no) fp32, raw heads as
+    (bs, na, ny, nx, no) views). Each head is decoded by
+    :func:`..ops.decode.decode_head` into its slice of the decoded output
+    (kernel K1 on CUDA, the plain version on the CPU)."""
     rows = [len(n.anchors) * h.shape[2] * h.shape[3] for h, n in heads]
     no = heads[0][1].nc + 5
     decoded = torch.empty((bs, sum(rows), no), dtype=torch.float32,
-                          device=xv.device)
+                          device=device)
     raw_heads, offset = [], 0
     for (h, node), n in zip(heads, rows):
         K1.decode_head(h, node.anchors, node.yolo_stride, node.bf_type,
@@ -154,3 +186,20 @@ def apply_folded(ir: GraphIR, variables: dict, xv, xl=None, *,
         raw_heads.append(reshape_head(h, len(node.anchors), node.nc + 5))
         offset += n
     return decoded, raw_heads
+
+
+def apply_folded(ir: GraphIR, variables: dict, xv, xl=None, *,
+                 compute_dtype=None):
+    """Inference forward on BN-folded params.
+
+    Args:
+      xv / xl: visible / LWIR images, NHWC float in [0, 1]; ``xl`` is
+        required for dual-stream graphs.
+      compute_dtype: dtype the activations run in (default: ``xv``'s).
+
+    Returns (decoded (bs, total rows, no) fp32, raw heads), raw heads as
+    (bs, na, ny, nx, no) views of the head convs' outputs.
+    """
+    heads = run_graph(ir, variables["params"], xv, xl,
+                      dtype=compute_dtype or xv.dtype)
+    return decode_heads(heads, xv.shape[0], xv.device)

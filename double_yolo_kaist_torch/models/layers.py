@@ -26,13 +26,19 @@ def _mish(x):
     return x * torch.tanh(_softplus(x))
 
 
+def _leaky(x):
+    """max(x, 0.1 x) with 0.1 in ``x``'s dtype: JAX types the Python scalar
+    weakly, so in bf16 it multiplies by bf16(0.1), not by fp32(0.1)."""
+    return torch.maximum(x, x * torch.tensor(0.1, dtype=x.dtype))
+
+
 def _hard_sigmoid(x):
     return torch.clamp((x + 3.0) / 6.0, 0.0, 1.0)
 
 
 ACTIVATIONS = {
     "linear": lambda x: x,
-    "leaky": lambda x: torch.maximum(x, 0.1 * x),
+    "leaky": _leaky,
     "relu": torch.relu,
     "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
     "mish": _mish,

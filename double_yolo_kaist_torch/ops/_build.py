@@ -25,8 +25,10 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # source -> extra nvcc flags. nms.cu keeps its IoU test free of FMA
-# contraction so that `IoU > thres` decides exactly as the plain version.
-SOURCES = {"decode.cu": [], "nms.cu": ["--fmad=false"]}
+# contraction so that `IoU > thres` decides exactly as the plain version;
+# qgemm.cu writes its epilogue with round-to-nearest intrinsics instead.
+SOURCES = {"decode.cu": [], "nms.cu": ["--fmad=false"], "stem.cu": [],
+           "qgemm.cu": []}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,109 @@
+"""K3: 3x3 stride-2 stem conv for C_in = 32 — the CUDA kernel's wrapper and
+its plain version.
+
+Replaces the TPU kernel ``double_yolo_kaist_tpu/ops/pallas_stem.py``
+(``_kernel_packed`` via ``stem_conv_s2_packed``; ``_kernel_acc`` /
+``_kernel_scratch`` via ``stem_conv_s2``): conv 3x3, stride 2, pad 1, C_in
+32 -> O, summed in fp32, + bias and the activation (mish or leaky) in fp32,
+then one rounding to the input's dtype. On the flagship it is the second
+conv of each stream, 32 -> 64 at 512x640 -> 256x320 (nodes 1 and 56). The
+kernel (``csrc/stem.cu``) is bound by bytes on the H100; its design notes
+are in the source.
+
+Tensors are NCHW in shape and channels-last in memory (the port's layout),
+so the kernel reads and writes NHWC as the TPU kernel did. Kernels are OIHW.
+:func:`stem_conv_s2` launches the kernel for a CUDA tensor and takes
+:func:`stem_conv_s2_plain` only for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from ..models import layers as L
+from . import _build
+
+C_IN = 32
+ACTS = {"leaky": 1, "mish": 2}     # act codes of csrc/stem.cu
+MAX_OUT = 128                      # the kernel holds O <= 128 channels
+# dyk_stem_conv_s2's C signature (csrc/stem.cu)
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
+             + [ctypes.c_void_p])
+
+
+def matches(node) -> bool:
+    """True for the convs that K3 computes: 3x3, stride 2, pad 1, groups 1,
+    C_in 32, mish or leaky."""
+    return (node.kind == "conv" and node.kernel == 3
+            and tuple(node.stride) == (2, 2) and node.pad == 1
+            and node.groups == 1 and node.in_ch == C_IN and node.act in ACTS)
+
+
+def stem_conv_s2_plain(x, w, b, act: str):
+    """Plain PyTorch version: the conv in fp32, + bias in fp32, the
+    activation in fp32, cast to ``x.dtype``. x (B, 32, H, W), w OIHW
+    (O, 32, 3, 3), b (O,). On a CUDA device, fp32 here means fp32 only
+    with TF32 off (``torch.backends.cudnn.allow_tf32``)."""
+    y = F.conv2d(x.float(), w.float(), stride=2, padding=1)
+    y = L.activate(act, y + b.float().reshape(1, -1, 1, 1))
+    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _check(x, w, b, act: str):
+    if x.dim() != 4 or x.shape[1] != C_IN:
+        raise ValueError(f"stem conv takes (B, {C_IN}, H, W), got "
+                         f"{tuple(x.shape)}")
+    if w.dim() != 4 or tuple(w.shape[1:]) != (C_IN, 3, 3):
+        raise ValueError(f"stem conv kernel must be (O, {C_IN}, 3, 3), got "
+                         f"{tuple(w.shape)}")
+    if b.shape != (w.shape[0],):
+        raise ValueError(f"bias {tuple(b.shape)} for {w.shape[0]} outputs")
+    if act not in ACTS:
+        raise ValueError(f"stem conv activation must be one of "
+                         f"{sorted(ACTS)}, got {act!r}")
+
+
+def stem_conv_s2(x, w, b, act: str):
+    """3x3 s2 p1 conv + bias + act for C_in = 32. Returns (B, O, ceil(H/2),
+    ceil(W/2)) in ``x.dtype``, channels-last. A CPU tensor goes to
+    :func:`stem_conv_s2_plain`; a CUDA tensor to the kernel, or this
+    raises."""
+    _check(x, w, b, act)
+    if x.device.type == "cpu":
+        return stem_conv_s2_plain(x, w, b, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"stem_conv_s2 runs on cpu or cuda, not {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype:
+        raise TypeError(f"stem kernel takes bf16 or fp32 input and kernel "
+                        f"of the same type, got {x.dtype} and {w.dtype}")
+    if w.device != x.device or b.device != x.device:
+        raise ValueError("stem conv: input, kernel and bias on different "
+                         "devices")
+    B, _, H, W = x.shape
+    O = w.shape[0]
+    if O > MAX_OUT or B * H * W >= 2 ** 31 or B == 0:
+        raise ValueError(f"stem kernel: unsupported shape {tuple(x.shape)} "
+                         f"-> {O} channels")
+    xc = x.contiguous(memory_format=torch.channels_last)   # NHWC memory
+    if xc.data_ptr() % 16:             # the kernel reads 16-byte vectors
+        xc = xc.clone(memory_format=torch.channels_last)
+    wk = w.permute(2, 3, 1, 0).contiguous()                # (3, 3, 32, O)
+    bias = b.float().contiguous()
+    y = torch.empty((B, O, (H + 1) // 2, (W + 1) // 2), dtype=x.dtype,
+                    device=x.device, memory_format=torch.channels_last)
+    lib = _build.library("stem.cu")
+    fn = lib.dyk_stem_conv_s2
+    if fn.argtypes is None:
+        fn.restype, fn.argtypes = ctypes.c_int, _ARGTYPES
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = fn(xc.data_ptr(), int(x.dtype == torch.bfloat16),
+                    wk.data_ptr(), bias.data_ptr(), y.data_ptr(), B, H, W, O,
+                    ACTS[act], stream)
+    _build.check(lib, status, "stem_conv_s2")
+    _build.launches["stem_conv_s2"] += 1
+    return y

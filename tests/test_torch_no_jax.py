@@ -23,7 +23,9 @@ def _port_modules():
 def test_port_imports_no_jax():
     modules = _port_modules() + ["chip_smoke"]
     assert "double_yolo_kaist_torch.serving" in modules
-    assert "double_yolo_kaist_torch.ops.nms_kernel" in modules
+    for name in ("ops.nms_kernel", "ops.stem", "ops.qgemm",
+                 "models.quantize"):
+        assert f"double_yolo_kaist_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
