@@ -83,7 +83,9 @@ def fold_batchnorm(ir: GraphIR, variables: dict) -> dict:
 def place_folded(ir: GraphIR, folded: dict, device, compute_dtype) -> dict:
     """Move folded variables to ``device`` once. Conv kernels (channels-last)
     and biases go to ``compute_dtype``; SE and fusion weights stay fp32, as
-    the JAX package computes those paths in fp32."""
+    the JAX package computes those paths in fp32. The stem convs also
+    get ``"k3"``: their kernel and bias with the packed form kernel K3 reads
+    (:func:`..ops.stem.pack_weights`), made once here."""
     def conv(p):
         return {"w": p["w"].to(device, compute_dtype).contiguous(
                     memory_format=torch.channels_last),
@@ -97,6 +99,8 @@ def place_folded(ir: GraphIR, folded: dict, device, compute_dtype) -> dict:
             continue
         if node.kind == "conv":
             params[key] = conv(p)
+            if K3.matches(node):
+                params[key]["k3"] = K3.pack_weights(**params[key])
         elif node.kind in ("dwconv", "inception"):
             params[key] = {name: conv(q) for name, q in p.items()}
         else:                                    # se, weighted shortcut
@@ -113,7 +117,7 @@ def conv_folded(node, inp, p):
     stride 2, pad 1, C_in 32, mish or leaky) go through it; the rest go to
     ``F.conv2d``."""
     if K3.matches(node):
-        return K3.stem_conv_s2(inp, p["w"], p["b"], node.act)
+        return K3.stem_conv_s2(inp, p["k3"], node.act)
     return L.activate(node.act, L.conv2d(inp, p["w"], p["b"],
                                          stride=node.stride, pad=node.pad,
                                          groups=node.groups))

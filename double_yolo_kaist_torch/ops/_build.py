@@ -27,6 +27,8 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # source -> extra nvcc flags. nms.cu keeps its IoU test free of FMA
 # contraction so that `IoU > thres` decides exactly as the plain version;
 # qgemm.cu writes its epilogue with round-to-nearest intrinsics instead.
+# stem.cu (cp.async, wgmma) and nms.cu (clusters, distributed shared memory)
+# need sm_90a and nothing beyond the CUDA runtime: no flag of their own.
 SOURCES = {"decode.cu": [], "nms.cu": ["--fmad=false"], "stem.cu": [],
            "qgemm.cu": []}
 

@@ -4,9 +4,11 @@ plain version.
 Replaces the TPU kernel ``double_yolo_kaist_tpu/ops/pallas_nms.py``
 (``_nms_kernel``) and computes ``double_yolo_kaist_tpu/ops/nms.py::
 nms_indices`` for each image of a batch. The kernel (``csrc/nms.cu``) is
-bound by launch and latency on the H100, not by bytes or flops: one block
-per image keeps the pool and its (K, K) IoU bitmask in shared memory and runs
-the ``max_det`` dependent argmax rounds there.
+bound by launch and latency on the H100, not by bytes or flops: a cluster
+of 8 blocks per image ranks the pool once by counting, computes the upper
+triangle of the IoU bitmask in rank order into one block's shared memory,
+and one warp there runs the dependent rounds as a scan for the first rank
+still alive.
 
 :func:`nms_indices` launches the kernel for CUDA tensors and takes
 :func:`nms_indices_plain` only for CPU tensors.
@@ -77,7 +79,7 @@ def nms_indices(boxes, scores, iou_thres: float, max_det: int):
                          f"max_det={max_det}")
 
     idx = torch.empty((bs, max_det), dtype=torch.int32, device=boxes.device)
-    valid = torch.empty((bs, max_det), dtype=torch.int32, device=boxes.device)
+    valid = torch.empty((bs, max_det), dtype=torch.bool, device=boxes.device)
     lib = _build.library("nms.cu")
     fn = lib.dyk_nms
     if fn.argtypes is None:
@@ -89,4 +91,4 @@ def nms_indices(boxes, scores, iou_thres: float, max_det: int):
                     valid.data_ptr(), stream)
     _build.check(lib, status, "nms_indices")
     _build.launches["nms_indices"] += 1
-    return idx, valid.bool()
+    return idx, valid
