@@ -8,8 +8,10 @@ result line):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. the build: every kernel in double_yolo_kaist_torch/ops/csrc with nvcc
      for sm_90a, one nvcc per source, all started together;
-  3. K1 (head decode) against its plain version at the three MNv3 head
-     shapes at 512x640, bs 8, bf16 in, both decode formulas;
+  3. K1 (head decode), one launch for the three MNv3 heads at 512x640,
+     bf16 in, against its plain version at bs 8 (the shape that is timed)
+     and bs 1, both decode formulas; and a (2, 21, 13, 17) fp32 NCHW input
+     that takes the kernel's general path;
   4. K2 (greedy NMS) against its plain version, max_det = 100, scores in
      random order: index-exact at K = 512 with 8 images (the shape that is
      timed and reported, also with the pool sorted as the serving path
@@ -18,10 +20,10 @@ result line):
   5. end to end: the MNv3 Fshare-Global-CSE3 Predictor with the trained
      fixture weights serves 512x640 uint8 visible+LWIR requests of 1, 3 and
      8 frames (bf16); the launch counts, cleared just before, must show K1
-     for every head and K2 for every batch; the kernel-decoded heads are
-     held against the plain decode of the same raw heads; and an fp32 run
-     on a small input is held against the port's CPU path. K3 and K4 must
-     not launch on this model;
+     once per forward (decoding every head) and K2 for every batch; the
+     kernel-decoded heads are held against the plain decode of the same
+     raw heads; and an fp32 run on a small input is held against the
+     port's CPU path. K3 and K4 must not launch on this model;
   6. K3 (stem conv) against its plain version at the flagship's shape, bs
      8, (8, 512, 640, 32) -> 64 channels, bf16 for mish and leaky, and once
      in fp32 (TF32 off); and at an odd-sized input, (1, 37, 141, 32) -> 24;
@@ -31,13 +33,16 @@ result line):
      stores, MMAs and epilogue. The probes' launches are counted over one
      run of their own entry point, ops.stem_probe.breakdown;
   7. K4 (int8 GEMM) against its plain version at the flagship's ten chain
-     1x1 shapes at bs 8, each with the requant flag its int8 plan gives it;
+     1x1 shapes at bs 8 and at bs 1, each with the requant flag its int8
+     plan gives it, bf16 epilogue and once fp32, and at a shape off every
+     tile (M 1000, K 144, N 80); times per family of shapes (A: K 1024,
+     B: K 512, C: K 256) beside each bound and the library call's time;
   8. end to end: the flagship Double-YOLOv4-Fshare-Global-CSE3 at full
      width and depth with seeded weights, served in bf16 and then in int8
      (two calibration requests of 8 frames, then int8 requests of 1, 3 and
      8); the launch counts of each request must show K3 twice per forward,
-     K4 ten times per int8 forward and never otherwise, K1 per head and K2
-     per batch; the profile of one stem conv as the forward calls it must
+     K4 ten times per int8 forward and never otherwise, K1 once per
+     forward for its three heads and K2 per batch; the profile of one stem conv as the forward calls it must
      show K3's kernel and nothing else (the weights are packed when they
      are placed); an int8 fp32 run on the card on a small input is held
      against the port's int8 CPU path on the same quantized weights.
@@ -179,62 +184,96 @@ def _bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_decode(torch, ir, dev):
-    """K1 on the three MNv3 heads at 512x640, bs 8, bf16 in."""
-    from double_yolo_kaist_torch.ops.decode import (decode_head,
-                                                    decode_head_plain,
-                                                    reshape_head)
-    bs, (h, w) = 8, (512, 640)
+def _k1_hold(torch, got, want, what):
+    """K1's bound: 1e-5 relative + 1e-5 (the same fp32 formulas; expf and
+    the library's exp differ by a few ulp). Returns the max abs error."""
+    torch.cuda.synchronize()
+    bad = (got - want).abs() > 1e-5 * want.abs() + 1e-5
+    e = float((got - want).abs().max())
+    print(f"K1 {what}: max_abs_err {e:.3e} (bound 1e-5 rel + 1e-5), "
+          f"{int(bad.sum())} elements over", flush=True)
+    if bad.any() or not torch.isfinite(got).all():
+        raise AssertionError(f"K1 {what} disagrees with its plain version")
+    return e
+
+
+def phase_decode(torch, ir, dev, launches):
+    """K1, one launch for the three MNv3 heads at 512x640, bf16 in: bs 8
+    (timed) and bs 1, both formulas; and one input on the general path."""
+    from double_yolo_kaist_torch.ops import decode as K1
+    (h, w), no = (512, 640), ir.nc + 5
     g = torch.Generator(device=dev).manual_seed(SEED)
-    heads = []
-    for node in ir.head_nodes():
-        s = node.yolo_stride
-        c = len(node.anchors) * (node.nc + 5)
-        x = torch.randn((bs, c, h // s, w // s), generator=g, device=dev)
-        heads.append((x.to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last), node))
-    rows = [len(n.anchors) * x.shape[2] * x.shape[3] for x, n in heads]
-    no = ir.nc + 5
-    out = torch.empty((bs, sum(rows), no), device=dev)
 
-    def kernel(bf_type):
-        off = 0
-        for (x, node), n in zip(heads, rows):
-            decode_head(x, node.anchors, node.yolo_stride, bf_type, out=out,
-                        row_offset=off)
-            off += n
-        return out
+    def make(bs):
+        heads = []
+        for node in ir.head_nodes():
+            s = node.yolo_stride
+            x = torch.randn((bs, len(node.anchors) * no, h // s, w // s),
+                            generator=g, device=dev)
+            heads.append((x.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last), node.anchors, s))
+        return heads
 
-    def plain(bf_type):
-        return torch.cat([decode_head_plain(
-            reshape_head(x, len(n.anchors), n.nc + 5), n.anchors,
-            n.yolo_stride, bf_type) for x, n in heads], dim=1)
+    def plain(heads, bf_type):
+        return torch.cat([K1.decode_head_plain(
+            K1.reshape_head(x, len(a), x.shape[1] // len(a)), a, s, bf_type)
+            for x, a, s in heads], dim=1)
 
     err = 0.0
+    for bs in (8, 1):
+        heads = make(bs)
+        if not all(K1.fast_path(x.shape, x.stride(), x.dtype, len(a))
+                   for x, a, _ in heads):
+            raise AssertionError("an MNv3 head is off K1's 16-byte path")
+        for bf_type in ("yolov3", "yolov4"):
+            n0 = launches["decode_head"]
+            got = K1.decode_heads(heads, bf_type)
+            if launches["decode_head"] != n0 + 1:
+                raise AssertionError("K1 took more than one launch for "
+                                     "three heads")
+            err = max(err, _k1_hold(torch, got, plain(heads, bf_type),
+                                    f"{bf_type} bs {bs}, 3 heads, 1 launch"))
+    # the general path: NCHW fp32, a grid off the warps, 2 classes
+    anchors = ir.head_nodes()[0].anchors
+    xg = torch.randn((2, len(anchors) * 7, 13, 17), generator=g, device=dev)
+    if K1.fast_path(xg.shape, xg.stride(), xg.dtype, len(anchors)):
+        raise AssertionError("the general-path input took the fast path")
     for bf_type in ("yolov3", "yolov4"):
-        got, want = kernel(bf_type).clone(), plain(bf_type)
-        torch.cuda.synchronize()
-        # bound: 1e-5 relative (+1e-5): the same fp32 formulas; expf and
-        # the library's exp differ by a few ulp
-        bad = (got - want).abs() > 1e-5 * want.abs() + 1e-5
-        e = float((got - want).abs().max())
-        print(f"K1 {bf_type}: max_abs_err {e:.3e} (bound 1e-5 rel + 1e-5), "
-              f"{int(bad.sum())} elements over", flush=True)
-        if bad.any():
-            raise AssertionError(f"K1 {bf_type} disagrees with its plain "
-                                 f"version")
-        err = max(err, e)
+        err = max(err, _k1_hold(
+            torch, K1.decode_heads([(xg, anchors, 8)], bf_type),
+            plain([(xg, anchors, 8)], bf_type),
+            f"{bf_type} (2, {xg.shape[1]}, 13, 17) fp32 NCHW, general path"))
+
     bf = ir.head_nodes()[0].bf_type
-    ms = _time_ms(torch, lambda: kernel(bf))
-    plain_ms = _time_ms(torch, lambda: plain(bf))
-    device_ms = _device_ms(torch, lambda: kernel(bf), "decode_head_kernel")
-    elems = bs * sum(rows) * no
-    bound, by = _bound_ms(elems * (2 + 4), elems * 8, FP32_OPS_PER_S)
-    print(f"K1 {bf} bs {bs}, 3 heads: kernel {ms:.4f} ms (device "
-          f"{device_ms} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-          f"({by})", flush=True)
-    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+    res = {}
+    for bs in (8, 1):
+        heads = make(bs)
+        rows = sum(len(a) * x.shape[2] * x.shape[3] for x, a, _ in heads)
+        out = torch.empty((bs, rows, no), device=dev)
+
+        def kernel():
+            return K1.decode_heads(heads, bf, out=out)
+
+        def kernel_replanned():             # what the kept plan saves
+            K1._plan.cache_clear()
+            return K1.decode_heads(heads, bf, out=out)
+
+        ms = _time_ms(torch, kernel)
+        replanned_ms = _time_ms(torch, kernel_replanned)
+        device_ms = _device_ms(torch, kernel, "decode_heads_kernel")
+        plain_ms = _time_ms(torch, lambda: plain(heads, bf))
+        elems = bs * rows * no
+        bound, by = _bound_ms(elems * (2 + 4), elems * 8, FP32_OPS_PER_S)
+        print(f"K1 {bf} bs {bs}, 3 heads in 1 launch: kernel {ms:.4f} ms by "
+              f"events ({replanned_ms:.4f} ms with the plan made anew each "
+              f"call; device {device_ms} ms), plain {plain_ms:.4f} ms, "
+              f"bound {bound:.5f} ms ({by})", flush=True)
+        res[bs] = {"ms": ms, "replanned_ms": replanned_ms,
+                   "device_ms": device_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": by}
+    return {"max_abs_err": err, **res[8], "bs1_ms": res[1]["ms"],
+            "bs1_device_ms": res[1]["device_ms"],
+            "bs1_bound_ms": res[1]["bound_ms"]}
 
 
 def _nms_pool(torch, dev, bs, k, seed):
@@ -254,7 +293,7 @@ def phase_nms(torch, dev):
     from double_yolo_kaist_torch.ops.nms_kernel import (nms_indices,
                                                         nms_indices_plain)
     max_det, iou = 100, 0.5
-    out = {}
+    out, err = {}, 0.0
     for bs, k in ((8, 512), (2, 1024), (32, 512)):
         boxes, scores = _nms_pool(torch, dev, bs, k, SEED + k + bs)
         idx, valid = nms_indices(boxes, scores, iou, max_det)
@@ -263,6 +302,10 @@ def phase_nms(torch, dev):
         same = (torch.equal(valid, rvalid)
                 and torch.equal(torch.where(valid, idx, 0),
                                 torch.where(rvalid, ridx, 0)))
+        # the largest difference of a kept index (0 where index-exact)
+        err = max(err, float((torch.where(valid, idx, 0).long()
+                              - torch.where(rvalid, ridx, 0).long())
+                             .abs().max()))
         print(f"K2 bs {bs} K {k} max_det {max_det}: index-exact {same}, "
               f"kept per image {valid.sum(1).tolist()}; then {K2_REPEATS} "
               f"launches on the same pool, each held against the first",
@@ -323,7 +366,7 @@ def phase_nms(torch, dev):
                   if n in ("plain_ms", "sorted_ms", "sorted_device_ms")),
               flush=True)
     main = out[(8, 512)]
-    return {"max_abs_err": 0.0, **main,
+    return {"max_abs_err": err, **main,
             "k1024_bs2_ms": out[(2, 1024)]["ms"],
             "k1024_bs2_device_ms": out[(2, 1024)]["device_ms"],
             "k512_bs32_ms": out[(32, 512)]["ms"],
@@ -332,6 +375,7 @@ def phase_nms(torch, dev):
 
 def phase_end_to_end(torch, ir, dev, launches):
     from double_yolo_kaist_torch.models import graph, weights
+    from double_yolo_kaist_torch.ops import decode as K1
     from double_yolo_kaist_torch.ops.decode import decode_head_plain
     from double_yolo_kaist_torch.serving import Predictor
 
@@ -355,12 +399,14 @@ def phase_end_to_end(torch, ir, dev, launches):
         dt = (time.perf_counter() - t0) * 1e3
         d1 = launches["decode_head"] - before.get("decode_head", 0)
         d2 = launches["nms_indices"] - before.get("nms_indices", 0)
+        dh = launches[K1.HEADS_DECODED] - before.get(K1.HEADS_DECODED, 0)
         print(f"request of {n} (bucket {pred._bucket(n)}): {dt:.3f} ms, "
               f"detections per image {[len(b) for b, _, _ in out]}, "
-              f"K1 launches {d1}, K2 launches {d2}", flush=True)
-        if d1 != n_heads or d2 != 1:
-            raise AssertionError(f"request of {n}: want {n_heads} K1 and 1 "
-                                 f"K2 launches, got {d1} and {d2}")
+              f"K1 launches {d1} ({dh} heads), K2 launches {d2}", flush=True)
+        if d1 != 1 or dh != n_heads or d2 != 1:
+            raise AssertionError(f"request of {n}: want 1 K1 launch for "
+                                 f"{n_heads} heads and 1 K2 launch, got {d1} "
+                                 f"for {dh} and {d2}")
         if len(out) != n or not all(np.isfinite(b).all() and
                                     np.isfinite(s).all() for b, s, _ in out):
             raise AssertionError(f"request of {n}: bad output")
@@ -665,73 +711,159 @@ def _k4_shapes(ir, bs, hw):
     return out
 
 
-def phase_qgemm(torch, ir, dev):
-    """K4 at the flagship's ten chain 1x1 shapes, bs 8, bf16 epilogue."""
-    from double_yolo_kaist_torch.ops.qgemm import (epilogue_plain, qgemm,
-                                                   qgemm_plain)
-    shapes = _k4_shapes(ir, 8, (512, 640))
-    if len(shapes) != 10:
-        raise AssertionError(f"expected 10 chain 1x1 convs, got {shapes}")
+def _k4_case(torch, rng, dev, m, k, n, rq):
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    scale = torch.from_numpy((rng.random(n) * 1e-3 + 1e-5)
+                             .astype(np.float32))
+    bias = torch.from_numpy((rng.normal(size=n) * 0.1).astype(np.float32))
+    inv = np.float32(rng.random() * 20 + 5) if rq else None
+    return {"x": x.to(dev), "w": wq.to(dev), "scale": scale.to(dev),
+            "bias": bias.to(dev), "inv": inv, "mkn": (m, k, n)}
+
+
+def _k4_hold(torch, case, what, out_dtype):
+    """K4 against its plain version on one case: bf16 / fp32 outputs equal,
+    s8 within 1 LSB on < 5%. Returns (the number of differing elements,
+    the largest |kernel - plain|: in s8 steps where the output is s8)."""
+    from double_yolo_kaist_torch.ops import qgemm as K4
+    c = case
+    got = K4.qgemm(c["x"], c["packed"], c["scale"], c["bias"], "leaky",
+                   out_inv_s=c["inv"], out_dtype=out_dtype)
+    want = K4.qgemm_plain(c["x"], c["w"], c["scale"], c["bias"], "leaky",
+                          out_inv_s=c["inv"], out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    if c["inv"] is not None:
+        d = (got.int() - want.int()).abs()
+        ok = int(d.max()) <= 1 and float((d != 0).float().mean()) < 0.05
+    else:
+        d = (got.float() - want.float()).abs()
+        ok = torch.equal(got, want)
+    n_bad, err = int((got != want).sum()), float(d.max())
+    if not ok or got.dtype != want.dtype:
+        raise AssertionError(f"K4 at {what} disagrees with its plain version "
+                             f"({n_bad} elements, max abs {err})")
+    return n_bad, err
+
+
+def phase_qgemm(torch, ir, dev, launches):
+    """K4 at the flagship's ten chain 1x1 shapes at bs 8 and bs 1 and at one
+    ragged shape; times per family (A: K 1024, B: K 512, C: K 256) at bs 8."""
+    from double_yolo_kaist_torch.ops import qgemm as K4
     rng = np.random.default_rng(SEED)
-    cases = []
-    for i, m, k, n, rq in shapes:
-        x = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
-        wq = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
-        scale = torch.from_numpy((rng.random(n) * 1e-3 + 1e-5)
-                                 .astype(np.float32))
-        bias = torch.from_numpy((rng.normal(size=n) * 0.1).astype(np.float32))
-        inv = np.float32(rng.random() * 20 + 5) if rq else None
-        cases.append((i, x.to(dev), wq.to(dev), scale.to(dev), bias.to(dev),
-                      inv, wq.t().contiguous().to(dev)))
-    n_bad = 0
-    for i, x, wq, sc, bi, inv, _ in cases:
-        got = qgemm(x, wq, sc, bi, "leaky", out_inv_s=inv)
-        want = qgemm_plain(x, wq, sc, bi, "leaky", out_inv_s=inv)
-        torch.cuda.synchronize()
-        if inv is not None:
-            d = (got.int() - want.int()).abs()
-            ok = int(d.max()) <= 1 and float((d != 0).float().mean()) < 0.05
-            n_bad += int((d != 0).sum())
-        else:
-            ok = torch.equal(got, want)
-            n_bad += int((got != want).sum())
-        if not ok:
-            raise AssertionError(f"K4 at l{i} disagrees with its plain "
-                                 f"version")
-    print(f"K4 10 shapes, bs 8, leaky, bf16 epilogue: {n_bad} elements "
-          f"differ (bound: bf16 outputs equal, s8 within 1 LSB on < 5%)",
+    cases = {}
+    for bs in (8, 1):
+        shapes = _k4_shapes(ir, bs, (512, 640))
+        if len(shapes) != 10:
+            raise AssertionError(f"expected 10 chain 1x1 convs, got {shapes}")
+        cases[bs] = []
+        for i, m, k, n, rq in shapes:
+            c = _k4_case(torch, rng, dev, m, k, n, rq)
+            c.update(layer=i, rq=rq, packed=K4.pack_weights(c["w"]),
+                     w_t=c["w"].t().contiguous(),
+                     family={1024: "A", 512: "B", 256: "C"}[k])
+            cases[bs].append(c)
+    n0 = launches["qgemm"]
+    held = []                               # (elements differing, max abs)
+
+    def hold(cs, what, dt):
+        """Holds the cases; returns how many elements differ in them."""
+        got = [_k4_hold(torch, c, what(c), dt) for c in cs]
+        held.extend(got)
+        return sum(n for n, _ in got)
+
+    for bs in (8, 1):
+        n_bad = hold(cases[bs], lambda c: f"l{c['layer']} bs {bs}",
+                     torch.bfloat16)
+        tiles = sorted({(c["family"], K4.choose_tile(*c["mkn"]))
+                        for c in cases[bs]})
+        print(f"K4 10 shapes, bs {bs}, leaky, bf16 epilogue: {n_bad} "
+              f"elements differ (bound: bf16 outputs equal, s8 within 1 LSB "
+              f"on < 5%); tiles {tiles}", flush=True)
+    n_bad = hold(cases[8], lambda c: f"l{c['layer']} bs 8 fp32",
+                 torch.float32)
+    print(f"K4 10 shapes, bs 8, fp32 epilogue: {n_bad} elements differ",
           flush=True)
+    # M off every tile, K off the 128-byte stage, N off the tile
+    for rq in (False, True):
+        c = _k4_case(torch, rng, dev, 1000, 144, 80, rq)
+        c["packed"] = K4.pack_weights(c["w"])
+        for dt in (torch.bfloat16, torch.float32):
+            n_bad = hold([c], lambda c: f"M 1000 K 144 N 80 {dt}", dt)
+            print(f"K4 ragged M 1000 K 144 N 80, requant {rq}, {dt}: tile "
+                  f"{K4.choose_tile(1000, 144, 80)}, {n_bad} elements differ",
+                  flush=True)
+    if launches["qgemm"] - n0 != 34 or len(held) != 34:
+        raise AssertionError("a K4 check did not launch the kernel once")
+    err = max(e for _, e in held)
+    n_differ = sum(n for n, _ in held)
+    print(f"K4 34 checks: max_abs_err {err} (an s8 output's in s8 steps), "
+          f"{n_differ} elements differ in all", flush=True)
 
-    def run_all(fn):
-        for i, x, wq, sc, bi, inv, _ in cases:
-            fn(x, wq, sc, bi, "leaky", out_inv_s=inv)
+    def run(cs, fn):
+        for c in cs:
+            fn(c)
 
-    def library(x, wq, sc, bi, act, out_inv_s, wt):
-        return epilogue_plain(torch._int_mm(x, wt.t()), sc, bi, act,
-                              out_inv_s, torch.bfloat16)
+    def kernel(c):
+        return K4.qgemm(c["x"], c["packed"], c["scale"], c["bias"], "leaky",
+                        out_inv_s=c["inv"])
 
-    ms = _time_ms(torch, lambda: run_all(qgemm))
-    device_ms = _device_ms(torch, lambda: run_all(qgemm), "qgemm_kernel")
-    plain_ms = _time_ms(torch, lambda: run_all(qgemm_plain), iters=5)
-    library_ms = _time_ms(torch, lambda: [
-        library(*c[1:5], "leaky", c[5], c[6]) for c in cases], iters=5)
+    def plain(c):
+        return K4.qgemm_plain(c["x"], c["w"], c["scale"], c["bias"], "leaky",
+                              out_inv_s=c["inv"])
+
+    def library(c):
+        return K4.epilogue_plain(torch._int_mm(c["x"], c["w_t"].t()),
+                                 c["scale"], c["bias"], "leaky", c["inv"],
+                                 torch.bfloat16)
+
+    all8 = cases[8]
+    ms = _time_ms(torch, lambda: run(all8, kernel))
+    plain_ms = _time_ms(torch, lambda: run(all8, plain), iters=5)
+    fam = {}
     tot_bytes = tot_ops = 0
-    for (i, m, k, n, rq), (_, x, *_r) in zip(shapes, cases):
-        nb = m * k + k * n + m * n * (1 if rq else 2) + n * 8
-        nops = 2 * m * k * n
-        b1, by1 = _bound_ms(nb, nops, INT8_OPS_PER_S)
-        print(f"K4 l{i}: M {m} K {k} N {n} requant {rq}: bound {b1:.5f} ms "
-              f"({by1}; {nb / 1e6:.2f} MB, {nops / 1e9:.2f} GOP)", flush=True)
+    for name in "ABC":
+        cs = [c for c in all8 if c["family"] == name]
+        nb = nops = 0
+        for c in cs:
+            m, k, n = c["mkn"]
+            nb += m * k + k * n + m * n * (1 if c["rq"] else 2) + n * 8
+            nops += 2 * m * k * n
+        bound, by = _bound_ms(nb, nops, INT8_OPS_PER_S)
+        fam[name] = {
+            "shapes": len(cs), "mkn": cs[0]["mkn"],
+            "device_ms": _device_ms(torch, lambda: run(cs, kernel),
+                                    "qgemm_wg_kernel"),
+            "ms": _time_ms(torch, lambda: run(cs, kernel)),
+            "library_ms": _time_ms(torch, lambda: run(cs, library), iters=5),
+            "bound_ms": bound, "bound_by": by}
+        m, k, n = cs[0]["mkn"]
+        print(f"K4 family {name}, {len(cs)} shapes M {m} K {k} N {n} "
+              f"(requant {[c['rq'] for c in cs]}), tile "
+              f"{K4.choose_tile(m, k, n)}: device {fam[name]['device_ms']} "
+              f"ms, by events {fam[name]['ms']:.4f} ms, bound {bound:.5f} ms "
+              f"({by}; {nb / 1e6:.2f} MB, {nops / 1e9:.2f} GOP), library "
+              f"(_int_mm + eager epilogue) {fam[name]['library_ms']:.4f} ms",
+              flush=True)
         tot_bytes += nb
         tot_ops += nops
     bound, by = _bound_ms(tot_bytes, tot_ops, INT8_OPS_PER_S)
-    print(f"K4 10 shapes: kernel {ms:.4f} ms (device {device_ms} ms), plain "
-          f"{plain_ms:.4f} ms, library (_int_mm + eager epilogue) "
+    parts = [f["device_ms"] for f in fam.values()]
+    device_ms = None if None in parts else sum(parts)
+    library_ms = sum(f["library_ms"] for f in fam.values())
+    bs1 = cases[1]
+    bs1_device_ms = _device_ms(torch, lambda: run(bs1, kernel),
+                               "qgemm_wg_kernel")
+    print(f"K4 10 shapes, bs 8: kernel {ms:.4f} ms by events (device "
+          f"{device_ms} ms), plain {plain_ms:.4f} ms, library "
           f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-          f"{tot_bytes / 1e6:.1f} MB, {tot_ops / 1e9:.1f} GOP)", flush=True)
-    return {"max_abs_err": 0.0 if n_bad == 0 else 1.0, "ms": ms,
-            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": library_ms}
+          f"{tot_bytes / 1e6:.1f} MB, {tot_ops / 1e9:.1f} GOP); bs 1: device "
+          f"{bs1_device_ms} ms", flush=True)
+    return {"max_abs_err": err, "n_differ": n_differ, "ms": ms,
+            "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms, "families": fam,
+            "bs1_device_ms": bs1_device_ms}
 
 
 def seeded_variables(torch, ir, seed: int, gain: float = FLAGSHIP_GAIN):
@@ -787,19 +919,24 @@ def seeded_variables(torch, ir, seed: int, gain: float = FLAGSHIP_GAIN):
     return {"params": params, "state": state}
 
 
-def _serve(torch, pred, frames, launches, n, want):
-    """One request of ``n`` frames; launch counts must equal ``want``."""
+def _serve(torch, pred, frames, launches, n, want, n_heads):
+    """One request of ``n`` frames; launch counts must equal ``want``, and
+    K1's launches must have decoded ``n_heads`` heads each."""
+    from double_yolo_kaist_torch.ops import decode as K1
     before = dict(launches)
     t0 = time.perf_counter()
     out = pred(*frames[n])
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) * 1e3
     got = {k: launches[k] - before.get(k, 0) for k in want}
+    dh = launches[K1.HEADS_DECODED] - before.get(K1.HEADS_DECODED, 0)
     print(f"  request of {n}: {dt:.3f} ms, detections per image "
-          f"{[len(b) for b, _, _ in out]}, launches {got}", flush=True)
-    if got != want:
-        raise AssertionError(f"request of {n}: want launches {want}, got "
-                             f"{got}")
+          f"{[len(b) for b, _, _ in out]}, launches {got}, heads decoded "
+          f"{dh}", flush=True)
+    if got != want or dh != n_heads * want["decode_head"]:
+        raise AssertionError(f"request of {n}: want launches {want} and "
+                             f"{n_heads} heads a K1 launch, got {got} and "
+                             f"{dh} heads")
     if len(out) != n or not all(np.isfinite(b).all() and np.isfinite(s).all()
                                 for b, s, _ in out):
         raise AssertionError(f"request of {n}: bad output")
@@ -846,7 +983,7 @@ def phase_flagship(torch, dev, launches):
                   rng.integers(0, 256, (n, 512, 640, 3), dtype=np.uint8))
               for n in (1, 3, 8)}
     n_heads = len(ir.yolo_indices)
-    fwd = {"stem_conv_s2": 2, "qgemm": 0, "decode_head": n_heads,
+    fwd = {"stem_conv_s2": 2, "qgemm": 0, "decode_head": 1,
            "nms_indices": 1}
     q_fwd = dict(fwd, qgemm=10)
     counts = {}
@@ -858,7 +995,7 @@ def phase_flagship(torch, dev, launches):
     print("flagship bf16:", flush=True)
     launches.clear()                        # the bf16 path's run
     for n in (1, 3, 8):
-        _serve(torch, pred, frames, launches, n, fwd)
+        _serve(torch, pred, frames, launches, n, fwd, n_heads)
     counts["bf16"] = dict(launches)          # read just after it
     times = {"bf16": _medians(torch, pred, frames, "flagship bf16")}
 
@@ -917,13 +1054,13 @@ def phase_flagship(torch, dev, launches):
     print("flagship int8 (chain), two calibration requests of 8 then int8 "
           "requests:", flush=True)
     launches.clear()                        # the int8 path's run
-    _serve(torch, qpred, frames, launches, 8, fwd)
+    _serve(torch, qpred, frames, launches, 8, fwd, n_heads)
     # the second calibration request runs two calibration forwards (K3
     # only), quantizes, then serves int8
     _serve(torch, qpred, frames, launches, 8,
-           dict(q_fwd, stem_conv_s2=3 * 2))
+           dict(q_fwd, stem_conv_s2=3 * 2), n_heads)
     for n in (1, 3, 8):
-        _serve(torch, qpred, frames, launches, n, q_fwd)
+        _serve(torch, qpred, frames, launches, n, q_fwd, n_heads)
     counts["int8"] = dict(launches)          # read just after it
     times["int8"] = _medians(torch, qpred, frames, "flagship int8")
 
@@ -1059,12 +1196,14 @@ def main() -> int:
     ir = compile_cfg(MNV3_CFG)
     flagship_ir = compile_cfg(FLAGSHIP_CFG)
     results = {}
-    for name, fn in (("K1", lambda: phase_decode(torch, ir, dev)),
+    for name, fn in (("K1", lambda: phase_decode(torch, ir, dev,
+                                                 _build.launches)),
                      ("K2", lambda: phase_nms(torch, dev)),
                      ("K3", lambda: phase_stem(torch, dev)),
                      ("K3 probes", lambda: phase_probes(torch, dev,
                                                         _build.launches)),
-                     ("K4", lambda: phase_qgemm(torch, flagship_ir, dev))):
+                     ("K4", lambda: phase_qgemm(torch, flagship_ir, dev,
+                                                _build.launches))):
         try:
             results[name] = fn()
         except Exception:                  # noqa: BLE001 — report, go on

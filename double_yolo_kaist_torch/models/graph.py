@@ -176,20 +176,17 @@ def run_graph(ir: GraphIR, params: dict, xv, xl=None, *, dtype,
 
 def decode_heads(heads, bs: int, device):
     """Head conv outputs -> (decoded (bs, total rows, no) fp32, raw heads as
-    (bs, na, ny, nx, no) views). Each head is decoded by
-    :func:`..ops.decode.decode_head` into its slice of the decoded output
-    (kernel K1 on CUDA, the plain version on the CPU)."""
-    rows = [len(n.anchors) * h.shape[2] * h.shape[3] for h, n in heads]
-    no = heads[0][1].nc + 5
-    decoded = torch.empty((bs, sum(rows), no), dtype=torch.float32,
-                          device=device)
-    raw_heads, offset = [], 0
-    for (h, node), n in zip(heads, rows):
-        K1.decode_head(h, node.anchors, node.yolo_stride, node.bf_type,
-                       out=decoded, row_offset=offset)
-        raw_heads.append(reshape_head(h, len(node.anchors), node.nc + 5))
-        offset += n
-    return decoded, raw_heads
+    (bs, na, ny, nx, no) views). One call of
+    :func:`..ops.decode.decode_heads` decodes every head into its slice of
+    the decoded output (kernel K1 on CUDA, one launch; the plain version on
+    the CPU)."""
+    rows = sum(len(n.anchors) * h.shape[2] * h.shape[3] for h, n in heads)
+    decoded = torch.empty((bs, rows, heads[0][1].nc + 5),
+                          dtype=torch.float32, device=device)
+    K1.decode_heads([(h, n.anchors, n.yolo_stride) for h, n in heads],
+                    [n.bf_type for _, n in heads], out=decoded)
+    return decoded, [reshape_head(h, len(n.anchors), n.nc + 5)
+                     for h, n in heads]
 
 
 def apply_folded(ir: GraphIR, variables: dict, xv, xl=None, *,

@@ -224,9 +224,11 @@ def _gemm_conv(node) -> bool:
 def place_quantized(ir: GraphIR, qvars: dict, device,
                     compute_dtype) -> dict:
     """Move :func:`quantize`'s output to ``device`` once, in the layouts the
-    executor reads: a 1x1 int8 kernel as (K, N) for K4, a kxk one as
-    (N, kh*kw*C) in (kh, kw, c) order for the im2col product; scale and
-    bias fp32; fp entries as :func:`.graph.place_folded` places them.
+    executor reads: a 1x1 int8 kernel packed for K4 (``"k4"``:
+    :func:`..ops.qgemm.pack_weights`, the (N, K) form, made once here), a
+    kxk one as (N, kh*kw*C) in (kh, kw, c) order for the im2col product
+    (``"w_nk"``); scale and bias fp32, contiguous; fp entries as
+    :func:`.graph.place_folded` places them.
     Returns ``{"params": {"l<i>": {"q": ...} or fp params}}``."""
     entries = qvars["params"]
     fp = {k: e["fp"] for k, e in entries.items() if "fp" in e}
@@ -242,13 +244,13 @@ def place_quantized(ir: GraphIR, qvars: dict, device,
             params[key] = placed[key]
             continue
         qp, wq = e["q"], e["q"]["wq"]
-        ent = {"scale": qp["scale"].to(device, torch.float32),
-               "b": qp["b"].to(device, torch.float32),
+        ent = {"scale": qp["scale"].to(device, torch.float32).contiguous(),
+               "b": qp["b"].to(device, torch.float32).contiguous(),
                "inv_sx": float(qp["inv_sx"])}
         if "out_inv_s" in qp:
             ent["out_inv_s"] = float(qp["out_inv_s"])
         if _gemm_conv(node):
-            ent["w_kn"] = wq[:, :, 0, 0].t().contiguous().to(device)
+            ent["k4"] = K4.pack_weights(wq[:, :, 0, 0].t().to(device))
         else:
             ent["w_nk"] = wq.permute(0, 2, 3, 1).reshape(
                 wq.shape[0], -1).contiguous().to(device)
@@ -286,8 +288,8 @@ def qconv(node, x, qp, out_dtype):
     xq = x if x.dtype == torch.int8 else _quantize_input(x, qp["inv_sx"])
     xn = xq.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
     inv = qp.get("out_inv_s")
-    if "w_kn" in qp:
-        y = K4.qgemm(xn, qp["w_kn"], qp["scale"], qp["b"], node.act,
+    if "k4" in qp:
+        y = K4.qgemm(xn, qp["k4"], qp["scale"], qp["b"], node.act,
                      out_inv_s=inv, out_dtype=out_dtype)
     else:
         a, ho, wo = _im2col(xn, node.kernel, node.stride, node.pad)

@@ -37,7 +37,8 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 # Launch counts by kernel name. Each wrapper adds one where it launches its
 # kernel and nowhere else; a caller clears it before a run and reads it
-# after, to show that the run went through the kernels.
+# after, to show that the run went through the kernels. (K1, whose launch
+# decodes several heads, also counts those heads, as "decode_heads_decoded".)
 launches: collections.Counter = collections.Counter()
 
 

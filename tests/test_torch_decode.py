@@ -1,6 +1,7 @@
 """K1 (head decode): the port's plain version against the Pallas kernel in
-interpret mode and against graph.decode_head; the CUDA kernel against the
-plain version on the card.
+interpret mode and against graph.decode_head; decode_heads (every head of a
+forward in one call) against graph.decode_head per head; the CUDA kernel
+against the plain version on the card.
 
 JAX is imported inside the tests that use it, so that the card, which has
 no JAX, can run the CUDA cases:
@@ -14,8 +15,10 @@ import pytest
 import torch
 
 from double_yolo_kaist_torch.ops import _build
+from double_yolo_kaist_torch.ops import decode as K1
 from double_yolo_kaist_torch.ops.decode import (decode_head,
                                                 decode_head_plain,
+                                                decode_heads, fast_path,
                                                 reshape_head)
 
 ANCHORS = np.asarray([[10., 13.], [33., 23.], [62., 45.]], np.float32)
@@ -92,6 +95,111 @@ def test_wrapper_rejects_bad_shapes():
                     out=torch.zeros((1, 10, 6)), row_offset=0)
 
 
+# three heads of one model: (ny, nx), stride, anchors
+HEADS = [((8, 12), 8, ANCHORS), ((4, 6), 16, ANCHORS * 2),
+         ((2, 3), 32, ANCHORS * 4)]
+
+
+def _three_heads(bs, seed, channels_last, dtype=torch.float32, device="cpu"):
+    raws, heads = [], []
+    for i, ((ny, nx), stride, anchors) in enumerate(HEADS):
+        raw = _raw((bs, 3, ny, nx, 6), seed=seed + i)
+        x = torch.from_numpy(_conv_out(raw)).to(device, dtype)
+        if channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
+        raws.append(raw)
+        heads.append((x, anchors, stride))
+    return raws, heads
+
+
+@pytest.mark.parametrize("bf_type", ["yolov3", "yolov4"])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_decode_heads_matches_graph_per_head(channels_last, bf_type):
+    """One call for three heads equals JAX's graph.decode_head per head and
+    writes each head's slice, and nothing else, of a larger output."""
+    jnp, jax_decode_head, _ = _jax_decoders()
+    raws, heads = _three_heads(2, 11, channels_last)
+    rows = [3 * ny * nx for (ny, nx), _, _ in HEADS]
+    out = torch.full((2, 10 + sum(rows) + 7, 6), -7.0)
+    got = decode_heads(heads, bf_type, out=out, row_offset=10)
+    assert got is out
+    offset = 10
+    for raw, (_, stride, anchors), n in zip(raws, HEADS, rows):
+        ref = np.asarray(jax_decode_head(jnp.asarray(raw), anchors, stride,
+                                         bf_type))
+        np.testing.assert_allclose(out[:, offset:offset + n].numpy(), ref,
+                                   **TOL)
+        offset += n
+    assert (out[:, :10] == -7).all() and (out[:, offset:] == -7).all()
+    # without `out`: exactly the heads' rows; one bf_type per head allowed
+    alone = decode_heads(heads, [bf_type] * 3)
+    assert alone.shape == (2, sum(rows), 6)
+    np.testing.assert_array_equal(alone.numpy(),
+                                  out[:, 10:10 + sum(rows)].numpy())
+
+
+def test_decode_heads_rejects_mismatched_heads():
+    _, heads = _three_heads(2, 3, True)
+    with pytest.raises(ValueError):
+        decode_heads([], "yolov4")
+    with pytest.raises(ValueError):
+        decode_heads(heads, ["yolov4", "yolov3"])
+    with pytest.raises(ValueError):          # another batch size
+        decode_heads(heads[:2] + [(heads[2][0][:1], ANCHORS, 32)], "yolov4")
+    with pytest.raises(ValueError):          # another number of outputs
+        decode_heads(heads[:2] + [(torch.zeros((2, 21, 2, 3)), ANCHORS, 32)],
+                     "yolov4")
+
+
+def test_fast_path_is_chosen_from_layout():
+    """The kernel's 16-byte path: channels-last bf16, six values a row, a
+    grid that fills whole warps; anything else goes the general way."""
+    x = torch.zeros((2, 18, 8, 16), dtype=torch.bfloat16)
+    cl = x.contiguous(memory_format=torch.channels_last)
+    assert fast_path(cl.shape, cl.stride(), cl.dtype, 3)
+    assert not fast_path(x.shape, x.stride(), x.dtype, 3)          # NCHW
+    assert not fast_path(cl.shape, cl.stride(), torch.float32, 3)  # fp32
+    assert not fast_path(cl.shape, cl.stride(), cl.dtype, 2)       # no = 9
+    odd = torch.zeros((2, 18, 6, 10), dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    assert not fast_path(odd.shape, odd.stride(), odd.dtype, 3)    # 60 cells
+    part = cl[:, :, :, :8]                                         # not dense
+    assert not fast_path(part.shape, part.stride(), part.dtype, 3)
+    # the flagship's and MNv3's heads at 512x640
+    for ny, nx in ((64, 80), (32, 40), (16, 20)):
+        h = torch.zeros((1, 18, ny, nx), dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        assert fast_path(h.shape, h.stride(), h.dtype, 3)
+
+
+def test_plan_is_kept_by_the_anchors_values():
+    """The kernel's arguments for a model's heads are worked out once and
+    found again by value: equal anchors in another array give the same
+    plan, anchors changed in place a new one with the new grid anchors."""
+    _, heads = _three_heads(2, 3, True, dtype=torch.bfloat16)
+    types = ("yolov4",) * 3
+    plan = K1._plan(K1._specs(heads), types, None, 0)
+    bs, no, total, launches = plan
+    assert (bs, no, total) == (2, 6, 3 * (96 + 24 + 6)) and len(launches) == 1
+    args, fast, part = launches[0]
+    assert args.n == 3 and list(part) == [0, 1, 2]
+    assert fast == [True, False, False]      # 96 cells fill warps, 24, 6 not
+    assert [args.h[i].row_offset for i in range(3)] == [0, 288, 360]
+    np.testing.assert_array_equal(
+        np.asarray(args.h[1].wh[:6], np.float32),
+        (HEADS[1][2] / np.float32(16)).reshape(-1))
+    copies = [(x, a.copy(), s) for x, a, s in heads]
+    assert K1._plan(K1._specs(copies), types, None, 0) is plan
+    copies[1][1][0, 0] = 100.0               # in place
+    changed = K1._plan(K1._specs(copies), types, None, 0)
+    assert changed is not plan
+    assert changed[3][0][0].h[1].wh[0] == np.float32(100.0) / np.float32(16)
+    assert plan[3][0][0].h[1].wh[0] == np.float32(20.0) / np.float32(16)
+    # another place in the output is another plan
+    assert K1._plan(K1._specs(heads), types, 6000, 10)[3][0][0].h[0] \
+        .row_offset == 10
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("bf_type", ["yolov3", "yolov4"])
@@ -112,3 +220,62 @@ def test_kernel_matches_plain_on_card(cuda, dtype, bf_type):
                                      bf_type)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# grids of three heads: 512x640 (every head on the 16-byte path when bf16
+# channels-last), and a ragged one (cells no multiple of 32: general path)
+GRIDS = {"aligned": ((64, 80), (32, 40), (16, 20)),
+         "ragged": ((13, 17), (7, 9), (4, 5))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bf_type", ["yolov3", "yolov4"])
+def test_one_launch_matches_plain_on_card(cuda, bf_type, dtype,
+                                          channels_last, grid):
+    """Three heads in one launch, into a slice of a larger output, against
+    the plain version per head: 1e-5 relative + 1e-5 (the same fp32
+    formulas; expf and the library's exp differ by a few ulp)."""
+    bs = 3
+    heads, want = [], []
+    for i, (ny, nx) in enumerate(GRIDS[grid]):
+        raw = _raw((bs, 3, ny, nx, 6), seed=5 + i) * 3
+        x = torch.from_numpy(_conv_out(raw)).to(cuda, dtype)
+        if channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
+        stride, anchors = 8 * 2 ** i, ANCHORS * (i + 1)
+        heads.append((x, anchors, stride))
+        want.append(decode_head_plain(reshape_head(x, 3, 6), anchors, stride,
+                                      bf_type))
+    want = torch.cat(want, dim=1)
+    rows = want.shape[1]
+    for offset in (0, 6, 5):          # 5: rows off the 16-byte store
+        out = torch.full((bs, offset + rows + 3, 6), -7.0, device=cuda)
+        n0 = _build.launches["decode_head"]
+        h0 = _build.launches[K1.HEADS_DECODED]
+        decode_heads(heads, bf_type, out=out, row_offset=offset)
+        assert _build.launches["decode_head"] == n0 + 1
+        assert _build.launches[K1.HEADS_DECODED] == h0 + 3
+        torch.cuda.synchronize()
+        got = out[:, offset:offset + rows]
+        assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5).all())
+        assert (out[:, :offset] == -7).all()
+        assert (out[:, offset + rows:] == -7).all()
+
+
+@pytest.mark.cuda
+def test_more_heads_than_a_launch_takes_on_card(cuda):
+    """Five heads: two launches, every slice written."""
+    raw = _raw((2, 3, 8, 16, 6), seed=9)
+    x = torch.from_numpy(_conv_out(raw)).to(cuda, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    heads = [(x, ANCHORS * (i + 1), 8) for i in range(5)]
+    n0 = _build.launches["decode_head"]
+    got = decode_heads(heads, "yolov4")
+    assert _build.launches["decode_head"] == n0 + 2
+    want = torch.cat([decode_head_plain(reshape_head(x, 3, 6), a, s, "yolov4")
+                      for _, a, s in heads], dim=1)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5).all())

@@ -192,6 +192,38 @@ def test_quantize_matches_jax(flagship, monkeypatch):
     assert (n_q, n_emit) == (80, 15)
 
 
+def test_place_quantized_packs_gemm_weights(flagship, monkeypatch):
+    """Every quantized 1x1 conv is placed with K4's packed weights (the
+    (N, K) form of its int8 kernel, contiguous, made once), every kxk one
+    with the im2col matrix; scale and bias are contiguous fp32."""
+    _, _, tir, _, _, _, _ = flagship
+    _, tq = _quantized_pair(flagship, monkeypatch)
+    qp = TQ.place_quantized(tir, {"params": tq}, "cpu",
+                            torch.float32)["params"]
+    n_gemm = n_kxk = 0
+    for key, ent in tq.items():
+        if "q" not in ent:
+            continue
+        node, placed = tir.nodes[int(key[1:])], qp[key]["q"]
+        wq = ent["q"]["wq"]                        # (O, I, kh, kw) s8
+        if TQ._gemm_conv(node):
+            assert "w_nk" not in placed and "w_kn" not in placed
+            packed = placed["k4"]
+            assert packed.shape == (node.out_ch, node.in_ch)
+            assert packed.is_contiguous() and packed.dtype == torch.int8
+            assert torch.equal(packed, wq[:, :, 0, 0])
+            n_gemm += 1
+        else:
+            assert "k4" not in placed
+            assert torch.equal(placed["w_nk"], wq.permute(0, 2, 3, 1).reshape(
+                wq.shape[0], -1))
+            n_kxk += 1
+        for name in ("scale", "b"):
+            assert placed[name].dtype == torch.float32
+            assert placed[name].is_contiguous()
+    assert (n_gemm, n_kxk) == (10, 70)
+
+
 def test_every_qconv_matches_jax(flagship, monkeypatch):
     """Each of the 80 quantized convs, port vs JAX (``_qconv``), on the same
     fp32 input (the conv's input in the fp forward): fp outputs within
