@@ -45,7 +45,24 @@ result line):
      forward for its three heads and K2 per batch; the profile of one stem conv as the forward calls it must
      show K3's kernel and nothing else (the weights are packed when they
      are placed); an int8 fp32 run on the card on a small input is held
-     against the port's int8 CPU path on the same quantized weights.
+     against the port's int8 CPU path on the same quantized weights;
+  9. evaluate: an 80-pair KAIST-layout split of 640x512 frames from a seed
+     (JPEGs, or without cv2 the dataset's disk cache), labelled with the 5
+     most confident MNv3 fp32 detections of each frame, scored by
+     eval.evaluator.evaluate_dataset in rect batches of 32 at 416x512:
+     fp32 on the card against the port's CPU path on 8 frames (VOC-AP,
+     LAMR and the 12 COCO stats within 1e-3); MNv3 bf16 from the device
+     pool, the pinned host pool and streaming (identical predictions), with
+     fps, the device busy share of the batch loop and host ms per stage;
+     the flagship (seeded
+     weights) in bf16 and int8 chain, calibrating on the first 2 batches
+     and saving the artifact, then from the artifact (identical
+     predictions); launch counts per run (K1 once per forward, K2 once per
+     batch, K3 twice per flagship forward, K4 ten times per int8 forward);
+     K1-K4 held against their plain versions at the eval's shapes (K2 on
+     the pools the eval runs handed it); and the entry point
+     ``python -m double_yolo_kaist_torch.evaluate`` as a subprocess, whose
+     VOC-AP must be within 1e-3 of the in-process bf16 run's.
 Then a JSON line of kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
@@ -1164,6 +1181,562 @@ def phase_flagship_int8_vs_cpu(torch, ir, variables, qpred, dev):
             raise AssertionError("int8 card run disagrees with the CPU path")
 
 
+# ------------------------------------------------------------------ phase 9
+
+EVAL_FRAMES = 80
+EVAL_BS = 32
+EVAL_CAL_BATCHES = 2
+EVAL_HW = (512, 640)          # KAIST frames; rect eval at --img-size 512
+EVAL_IMG = 512                # gives batches of 416x512
+
+
+def _eval_split(root, cv2):
+    """An 80-pair KAIST-layout split of 640x512 uint8 frames from SEED under
+    ``root``: JPEG pairs (or, without cv2, the dataset's disk cache filled
+    with the arrays), the split files (all 80 frames and the first 8) with
+    their ``.shapes`` sidecars. Returns ({name: split path}, frames,
+    cache_images)."""
+    from double_yolo_kaist_torch.data.dataset import KaistDataset
+    rng = np.random.default_rng(SEED + 9)
+    frames = [tuple(rng.integers(0, 256, EVAL_HW + (3,), dtype=np.uint8)
+                    for _ in range(2)) for _ in range(EVAL_FRAMES)]
+    img_dir = os.path.join(root, "images", "eval")
+    os.makedirs(img_dir)
+    os.makedirs(os.path.join(root, "labels", "eval"))
+    logical = [os.path.join(img_dir, f"I{i:05d}.jpg")
+               for i in range(EVAL_FRAMES)]
+    splits = {}
+    for name, n in (("eval80", EVAL_FRAMES), ("eval8", 8)):
+        splits[name] = os.path.join(root, f"{name}.txt")
+        with open(splits[name], "w") as f:
+            f.write("\n".join(logical[:n]) + "\n")
+        with open(os.path.join(root, f"{name}.shapes"), "w") as f:
+            f.write(f"{EVAL_HW[1]} {EVAL_HW[0]}\n" * n)
+    if cv2 is not None:
+        for path, (v, l) in zip(logical, frames):
+            cv2.imwrite(path.replace(".jpg", "_visible.jpg"), v[..., ::-1])
+            cv2.imwrite(path.replace(".jpg", "_lwir.jpg"), l[..., ::-1])
+        return splits, None
+
+    class Seeded(KaistDataset):
+        def _decode_pair(self, index):
+            return frames[int(os.path.basename(self.img_files[index])[1:6])]
+
+    for name in splits:              # one disk cache a split file
+        ds = Seeded(splits[name], EVAL_IMG, EVAL_BS, rect=True,
+                    cache_images="disk")
+        for i in range(len(ds)):
+            ds.load_pair(i)
+    return splits, "disk"
+
+
+def _write_labels(ds, predictions, k=5):
+    """The ``k`` most confident detections of each image as its label file
+    (normalized ``cls cx cy w h``; boxes under 2 px dropped)."""
+    n = 0
+    for i, path in enumerate(ds.label_files):
+        boxes, scores = predictions.get(i, (np.zeros((0, 4)), np.zeros(0)))
+        w, h = ds.shapes[i]
+        rows = []
+        for b in np.asarray(boxes)[np.argsort(-scores, kind="stable")[:k]]:
+            bw, bh = b[2] - b[0], b[3] - b[1]
+            if bw >= 2 and bh >= 2:
+                rows.append(f"0 {(b[0] + bw / 2) / w:.6f} "
+                            f"{(b[1] + bh / 2) / h:.6f} {bw / w:.6f} "
+                            f"{bh / h:.6f}\n")
+        with open(path, "w") as f:
+            f.write("".join(rows))
+        n += len(rows)
+    return n
+
+
+class _PoolRecorder:
+    """Keeps a copy of the first pool each eval run hands K2 (boxes with
+    the class offset, scores), passing every call through to the kernel's
+    wrapper unchanged."""
+
+    def __init__(self):
+        from double_yolo_kaist_torch.ops import nms as NMS
+        self.module, self.inner, self.pool = NMS, NMS.nms_indices, None
+
+    def __enter__(self):
+        def record(boxes, scores, iou_thres, max_det):
+            if self.pool is None:
+                self.pool = (boxes.clone(), scores.clone(), iou_thres,
+                             max_det)
+            return self.inner(boxes, scores, iou_thres, max_det)
+        self.module.nms_indices = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.nms_indices = self.inner
+
+
+def _eval_run(torch, launches, label, ir, variables, ds, want, **kw):
+    """One evaluate_dataset run with the launch counts cleared just before
+    and read just after; they must equal ``want`` (per run). Returns (result,
+    counts, K2's first pool)."""
+    from double_yolo_kaist_torch.eval.evaluator import evaluate_dataset
+    from double_yolo_kaist_torch.ops import decode as K1
+    with _PoolRecorder() as rec:
+        launches.clear()
+        res = evaluate_dataset(ir, variables, ds, batch_size=EVAL_BS, **kw)
+        torch.cuda.synchronize()
+        counts = dict(launches)
+    got = {k: counts.get(k, 0) for k in want}
+    heads = counts.get(K1.HEADS_DECODED, 0)
+    s = res["seconds"]
+    print(f"eval {label}: AP {res['ap']:.6f}, LAMR {res['lamr']:.6f}, fps "
+          f"{res['fps']:.2f} ({res['batches']} batches; host s: infer "
+          f"{s['infer']:.4f}, loop {s['loop']:.4f}, metrics "
+          f"{s['metrics']:.4f}); launches {got}, heads decoded {heads}",
+          flush=True)
+    if got != want or heads != 3 * want["decode_head"]:
+        raise AssertionError(f"eval {label}: want launches {want} (3 heads a "
+                             f"K1 launch), got {got} and {heads} heads")
+    if not (np.isfinite(res["coco_stats"]).all() and 0 <= res["ap"] <= 1):
+        raise AssertionError(f"eval {label}: bad metrics")
+    return res, counts, rec.pool
+
+
+def _same_predictions(a, b, what):
+    pa, pb = a["predictions"], b["predictions"]
+    same = sorted(pa) == sorted(pb) and all(
+        np.array_equal(pa[k][0], pb[k][0]) and np.array_equal(pa[k][1],
+                                                             pb[k][1])
+        for k in pa)
+    print(f"eval {what}: predictions identical {same} "
+          f"({sum(len(s) for _, s in pa.values())} detections)", flush=True)
+    if not same or a["ap"] != b["ap"]:
+        raise AssertionError(f"eval {what}: predictions differ")
+
+
+def _busy(torch, res, fn, label):
+    """Device busy ms of the batch loop of one profiled eval run ``fn``: the
+    kernels and copies that start inside the evaluator's loop span (weights
+    placed before it, and calibration, are left out), over the host time of
+    the unprofiled run ``res``'s loop. Returns (busy ms, share %)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from double_yolo_kaist_torch.eval.evaluator import LOOP_SPAN
+    for tries in range(1, 4):               # a blind window is tried again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+
+        def on_card(e):
+            return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+        # the span is on the host's timeline; the trace repeats it on the
+        # card's as an annotation, which is no device work
+        spans = [e for e in events if e.name == LOOP_SPAN and not on_card(e)]
+        if len(spans) != 1:
+            raise AssertionError(f"{len(spans)} eval loop spans in a trace")
+        lo, hi = spans[0].time_range.start, spans[0].time_range.end
+        inside = {}
+        for e in events:
+            if (on_card(e) and e.name != LOOP_SPAN
+                    and lo <= e.time_range.start <= hi):
+                inside[e.name] = inside.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3
+        if inside:
+            break
+    if not inside:
+        raise AssertionError(f"eval {label}: the profiler showed no device "
+                             f"event in the batch loop in 3 windows")
+    busy = sum(inside.values())
+    loop_ms = res["seconds"]["loop"] * 1e3
+    top = sorted(inside.items(), key=lambda kv: -kv[1])[:6]
+    print(f"eval {label} profile: device busy {busy:.3f} ms in the batch "
+          f"loop (its span {(hi - lo) / 1e3:.3f} ms profiled), over the "
+          f"unprofiled loop's {loop_ms:.3f} ms: {100 * busy / loop_ms:.1f}% "
+          f"busy; top: " + "; ".join(f"{k[:50]} {v:.3f}" for k, v in top),
+          flush=True)
+    return busy, 100 * busy / loop_ms
+
+
+def _stage_ms(torch, ds, dev, res):
+    """Host ms per batch of each eval stage: load (decode a batch of pairs),
+    preprocess (gather + letterbox of a batch from the device pool,
+    synchronised), forward + NMS + fetch, and the metrics (whole split)."""
+    from double_yolo_kaist_torch.data import pipeline as P
+    n_b = -(-len(ds) // EVAL_BS)
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds.load_pair(i)
+    load = (time.perf_counter() - t0) * 1e3 / n_b
+    tier, pool = P.select_image_pool(ds, EVAL_HW, None, dev)
+    if tier != "hbm":
+        raise AssertionError(f"the 80-frame split took the {tier} tier")
+    fn, _, _ = P.make_eval_preprocess_fn(
+        EVAL_HW, tuple(int(x) for x in ds.batch_shapes[0]), EVAL_IMG,
+        from_pool=True)
+    idx = torch.arange(EVAL_BS, device=dev)
+    fn(pool[0], pool[1], idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn(pool[0], pool[1], idx)
+    torch.cuda.synchronize()
+    pre = (time.perf_counter() - t0) * 1e3 / 5
+    return {"load": load, "preprocess": pre,
+            "forward_nms_fetch": res["seconds"]["infer"] * 1e3
+            / res["batches"], "metrics": res["seconds"]["metrics"] * 1e3}
+
+
+def _k2_hold_pool(torch, pool, what):
+    """K2 on a pool an eval run handed it: index-exact against the plain
+    loop, then K2_REPEATS launches on it that must repeat the first.
+    Returns (device ms, kept per image)."""
+    from double_yolo_kaist_torch.ops.nms_kernel import (nms_indices,
+                                                        nms_indices_plain)
+    boxes, scores, iou, max_det = pool
+    idx, valid = nms_indices(boxes, scores, iou, max_det)
+    ridx, rvalid = nms_indices_plain(boxes, scores, iou, max_det)
+    torch.cuda.synchronize()
+    want = (rvalid, torch.where(rvalid, ridx, 0))
+    outs = [nms_indices(boxes, scores, iou, max_det)
+            for _ in range(K2_REPEATS)]
+    torch.cuda.synchronize()
+    bad = [n for n, (i, v) in enumerate([(idx, valid)] + outs)
+           if not (torch.equal(v, want[0])
+                   and torch.equal(torch.where(v, i, 0), want[1]))]
+    kept = valid.sum(1).tolist()
+    live = (scores > -1e9).sum(1).tolist()
+    print(f"K2 {what}: K {boxes.shape[1]}, bs {boxes.shape[0]}, IoU {iou}: "
+          f"index-exact and {K2_REPEATS} repeats agree {not bad}; kept per "
+          f"image {kept}; candidates above conf per image {live}; "
+          f"{sum(k < max_det for k in kept)} of {len(kept)} pools run out "
+          f"before max_det {max_det}", flush=True)
+    if bad:
+        raise AssertionError(f"K2 {what}: launches {bad[:10]} disagree with "
+                             f"the plain loop")
+    ms = _device_ms(torch, lambda: nms_indices(boxes, scores, iou, max_det),
+                    "nms_kernel")
+    # the kernel's events in one window of 20 calls: the ms above assumes
+    # one event a call (a profiler may lose one, or repeat them)
+    events = _kernel_events(torch, lambda: nms_indices(boxes, scores, iou,
+                                                       max_det), 20)
+    bs, k = scores.shape
+    # as phase 4 counts it, with the rounds this pool's data needs
+    bound, by = _bound_ms(bs * k * 20 + bs * max_det * 8,
+                          sum(kept) * k * 14 + (sum(kept) + bs) * k,
+                          FP32_OPS_PER_S)
+    print(f"K2 {what}: device {ms} ms a call, bound {bound:.6f} ms ({by}); "
+          f"profiler events in a window of 20 calls {events}", flush=True)
+    return ms, kept, bound
+
+
+def _eval_shape_kernels(torch, dev, mnv3_ir, placed, ds, flagship_ir, pools,
+                        results):
+    """K1, K2, K3 and K4 at the eval's shapes, each against its plain version
+    and timed on the device, beside the 512x640 figures of phases 3-7."""
+    from double_yolo_kaist_torch.data.pipeline import eval_batches
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.ops import decode as K1
+    from double_yolo_kaist_torch.ops import qgemm as K4
+    from double_yolo_kaist_torch.ops.stem import (pack_weights, stem_conv_s2,
+                                                  stem_conv_s2_plain)
+    out = {}
+    # K1 on the heads of a bs-32 MNv3 forward of the first eval batch
+    with torch.inference_mode():
+        xv, xl, _, _ = next(iter(eval_batches(ds, EVAL_BS, device=dev)))
+        heads = graph.run_graph(mnv3_ir, placed["params"], xv, xl,
+                                dtype=torch.bfloat16)
+        spec = [(h, n.anchors, n.yolo_stride) for h, n in heads]
+        bf = heads[0][1].bf_type
+        got = K1.decode_heads(spec, bf)
+        want = torch.cat([K1.decode_head_plain(
+            K1.reshape_head(h, len(n.anchors), n.nc + 5), n.anchors,
+            n.yolo_stride, bf) for h, n in heads], 1)
+    grids = [tuple(h.shape[2:]) for h, _ in heads]
+    fast = [K1.fast_path(h.shape, h.stride(), h.dtype, len(n.anchors))
+            for h, n in heads]
+    err = _k1_hold(torch, got, want, f"eval bs {EVAL_BS}, grids {grids}")
+    with torch.inference_mode():
+        ms = _device_ms(torch, lambda: K1.decode_heads(spec, bf),
+                        "decode_heads_kernel")
+    elems = got.numel()
+    bound, _ = _bound_ms(elems * (2 + 4), elems * 8, FP32_OPS_PER_S)
+    print(f"K1 eval bs {EVAL_BS} {grids}, 16-byte path {fast}: device {ms} "
+          f"ms, bound {bound:.5f} ms (512x640 bs 8: "
+          f"{results['K1']['device_ms']} ms)", flush=True)
+    if not all(fast):
+        raise AssertionError("an eval head is off K1's 16-byte path")
+    out["K1"] = {"eval_device_ms": ms, "eval_max_abs_err": err,
+                 "eval_bound_ms": bound}
+
+    # K2 on the pools the eval runs produced (first batch of each model)
+    k2, k2_bound = {}, {}
+    for name, pool in pools.items():
+        k2[name], _, k2_bound[name] = _k2_hold_pool(torch, pool,
+                                                    f"eval pool, {name}")
+    print(f"K2 eval pools device ms {k2} (512x640 bs 8 K 512: "
+          f"{results['K2']['device_ms']} ms)", flush=True)
+    out["K2"] = {"eval_device_ms": k2, "eval_bound_ms": k2_bound}
+
+    # K3 at the flagship's stem shape in eval, (32, 416, 512, 32) bf16
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    h, w = (int(x) for x in ds.batch_shapes[0])
+    x = torch.rand((EVAL_BS, 32, h, w), generator=g, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn((64, 32, 3, 3), generator=g, device=dev) * 0.06).to(
+        torch.bfloat16)
+    b = torch.randn((64,), generator=g, device=dev) * 0.1
+    weights = pack_weights(wt, b)
+    got = stem_conv_s2(x, weights, "mish")
+    want = stem_conv_s2_plain(x, wt, b, "mish")
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs()
+    bad = int((d > 2 ** -7 * want.float().abs() + 1e-5).sum())
+    ms = _device_ms(torch, lambda: stem_conv_s2(x, weights, "mish"),
+                    "stem_wg_kernel")
+    # as phase 6 counts it
+    bound, _ = _bound_ms((x.numel() + got.numel() + wt.numel()) * 2 + 64 * 4,
+                         2 * got.numel() * 9 * 32, BF16_OPS_PER_S)
+    print(f"K3 eval ({EVAL_BS}, {h}, {w}, 32) bf16 mish: max_abs_err "
+          f"{float(d.max()):.3e}, {bad} elements over 2^-7 rel + 1e-5; "
+          f"device {ms} ms, bound {bound:.4f} ms (512x640 bs 8: "
+          f"{results['K3']['device_ms']} ms)", flush=True)
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError("K3 disagrees with its plain version at the "
+                             "eval shape")
+    out["K3"] = {"eval_device_ms": ms, "eval_max_abs_err": float(d.max()),
+                 "eval_bound_ms": bound}
+    del x, got, want, d
+
+    # K4 at the ten chain shapes at bs 32 and at the partial batch's
+    rng = np.random.default_rng(SEED + 9)
+    partial = len(ds) % EVAL_BS or EVAL_BS
+    k4, k4_bound = {}, {}
+    for bs in (EVAL_BS, partial):
+        cases = []
+        for i, m, k, n, rq in _k4_shapes(flagship_ir, bs, (h, w)):
+            c = _k4_case(torch, rng, dev, m, k, n, rq)
+            c["packed"] = K4.pack_weights(c["w"])
+            _k4_hold(torch, c, f"eval l{i} bs {bs} (M {m})", torch.bfloat16)
+            cases.append(c)
+        if len(cases) != 10:
+            raise AssertionError(f"expected 10 chain 1x1 convs, got "
+                                 f"{len(cases)}")
+
+        def run(cs=cases):
+            for c in cs:
+                K4.qgemm(c["x"], c["packed"], c["scale"], c["bias"], "leaky",
+                         out_inv_s=c["inv"])
+
+        k4[bs] = _device_ms(torch, run, "qgemm_wg_kernel")
+        # as phase 7 counts it
+        k4_bound[bs], _ = _bound_ms(
+            sum(m * k + k * n + m * n * (1 if c["inv"] is not None else 2)
+                + n * 8 for c in cases for m, k, n in [c["mkn"]]),
+            sum(2 * m * k * n for c in cases for m, k, n in [c["mkn"]]),
+            INT8_OPS_PER_S)
+        print(f"K4 eval 10 shapes bs {bs} (M {[c['mkn'][0] for c in cases]})"
+              f": bit-equal to the plain version; device {k4[bs]} ms, bound "
+              f"{k4_bound[bs]:.5f} ms (512x640 bs 8: "
+              f"{results['K4']['device_ms']} ms)", flush=True)
+        del cases
+    out["K4"] = {"eval_device_ms": k4[EVAL_BS],
+                 "eval_partial_device_ms": k4[partial],
+                 "eval_bound_ms": k4_bound[EVAL_BS],
+                 "eval_partial_bound_ms": k4_bound[partial]}
+    return out
+
+
+def phase_eval(torch, dev, launches, mnv3_ir, flagship_ir, results):
+    """The offline evaluation path: evaluate_dataset on an 80-frame KAIST
+    split (MNv3 bf16, the flagship bf16 and int8), card against CPU, the
+    tiers, the calibration artifact, launch counts per run, K1-K4 at the
+    eval's shapes, and the entry point as a subprocess."""
+    import tempfile
+
+    from double_yolo_kaist_torch.data import pipeline as P
+    from double_yolo_kaist_torch.data.dataset import KaistDataset
+    from double_yolo_kaist_torch.eval.evaluator import evaluate_dataset
+    from double_yolo_kaist_torch.models import graph, weights
+    from double_yolo_kaist_torch.utils import native
+    from double_yolo_kaist_torch.utils.checkpoint import save_checkpoint
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    print(f"eval: host matcher {native.matcher()}, frames written with "
+          f"{'cv2 JPEGs' if cv2 is not None else 'the disk cache'}",
+          flush=True)
+    counts, numbers = {}, {}
+    with tempfile.TemporaryDirectory(prefix="dyk_eval_") as root:
+        splits, cache = _eval_split(root, cv2)
+
+        def dataset(name):
+            return KaistDataset(splits[name], EVAL_IMG, EVAL_BS, rect=True,
+                                cache_images=cache)
+
+        mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
+        unlabelled = dataset("eval80")
+        print(f"eval split: {len(unlabelled)} pairs {EVAL_HW}, batch shapes "
+              f"{sorted({tuple(s) for s in unlabelled.batch_shapes.tolist()})}",
+              flush=True)
+        with _NoTF32(torch):
+            res = evaluate_dataset(mnv3_ir, mnv3_vars, unlabelled,
+                                   batch_size=EVAL_BS, device_cache=False,
+                                   compute_dtype=torch.float32, device=dev)
+        n_labels = _write_labels(unlabelled, res["predictions"])
+        print(f"eval labels: {n_labels} boxes, the 5 most confident MNv3 "
+              f"fp32 detections of each frame", flush=True)
+        ds = dataset("eval80")            # reads the labels just written
+
+        # 1. card against the port's CPU path, fp32, the first 8 frames
+        fp = {}
+        with _NoTF32(torch):
+            for where in (dev, "cpu"):
+                fp[str(where)] = evaluate_dataset(
+                    mnv3_ir, mnv3_vars, dataset("eval8"), batch_size=8,
+                    compute_dtype=torch.float32, device=where)
+        card, cpu = fp[str(dev)], fp["cpu"]
+        d = max(abs(card["ap"] - cpu["ap"]), abs(card["lamr"] - cpu["lamr"]),
+                float(np.abs(card["coco_stats"] - cpu["coco_stats"]).max()))
+        print(f"eval fp32 8 frames, card vs CPU: AP {card['ap']:.6f} / "
+              f"{cpu['ap']:.6f}, LAMR {card['lamr']:.6f} / {cpu['lamr']:.6f}, "
+              f"largest difference over AP, LAMR and the 12 COCO stats "
+              f"{d:.2e} (bound 1e-3)", flush=True)
+        if d > 1e-3:
+            raise AssertionError("eval fp32: card disagrees with the CPU")
+
+        # 2. MNv3 bf16: device pool, then streaming
+        pools = {}
+        nb = -(-len(ds) // EVAL_BS)                 # batches a run
+        want = {"decode_head": nb, "nms_indices": nb, "stem_conv_s2": 0,
+                "qgemm": 0}
+        kw = dict(compute_dtype=torch.bfloat16, device=dev)
+        evaluate_dataset(mnv3_ir, mnv3_vars, ds, batch_size=EVAL_BS, **kw)
+        mnv3, counts["eval mnv3 bf16"], pools["MNv3"] = _eval_run(
+            torch, launches, "MNv3 bf16 (device pool)", mnv3_ir, mnv3_vars,
+            ds, want, **kw)
+        streamed, counts["eval mnv3 bf16 streaming"], _ = _eval_run(
+            torch, launches, "MNv3 bf16 (streaming)", mnv3_ir, mnv3_vars,
+            dataset("eval80"), want, device_cache=False, **kw)
+        _same_predictions(mnv3, streamed, "MNv3 bf16, device pool vs "
+                          "streaming")
+        budget = os.environ.get("DYK_DEVICE_CACHE_GB")
+        os.environ["DYK_DEVICE_CACHE_GB"] = "0"   # declines the device pool
+        try:
+            pinned_ds = dataset("eval80")
+            # pinned before the run, as the device pool of ``ds`` was
+            P.select_image_pool(pinned_ds, EVAL_HW, None, dev)
+            pinned, counts["eval mnv3 bf16 pinned"], _ = _eval_run(
+                torch, launches, "MNv3 bf16 (pinned host pool)", mnv3_ir,
+                mnv3_vars, pinned_ds, want, **kw)
+        finally:
+            if budget is None:
+                del os.environ["DYK_DEVICE_CACHE_GB"]
+            else:
+                os.environ["DYK_DEVICE_CACHE_GB"] = budget
+        if getattr(pinned_ds, "_host_pool", None) is None:
+            raise AssertionError("the pinned host tier was not taken")
+        _same_predictions(mnv3, pinned, "MNv3 bf16, device pool vs pinned "
+                          "host pool")
+        del pinned_ds
+        busy = _busy(torch, mnv3, lambda: evaluate_dataset(
+            mnv3_ir, mnv3_vars, ds, batch_size=EVAL_BS, **kw), "MNv3 bf16")
+        stages = _stage_ms(torch, dataset("eval80"), dev, mnv3)
+        print(f"eval MNv3 bf16, host ms per batch of {EVAL_BS}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items())
+            + " (metrics: whole split)", flush=True)
+        numbers["MNv3 bf16"] = {"ap": mnv3["ap"], "lamr": mnv3["lamr"],
+                                "fps": mnv3["fps"],
+                                "streaming_fps": streamed["fps"],
+                                "pinned_fps": pinned["fps"],
+                                "busy_ms": busy[0], "busy_pct": busy[1],
+                                "stage_ms": stages}
+
+        # 3. the flagship at full width and depth, seeded weights
+        fl_vars = seeded_variables(torch, flagship_ir, SEED)
+        want = dict(want, stem_conv_s2=2 * nb)
+        evaluate_dataset(flagship_ir, fl_vars, ds, batch_size=EVAL_BS, **kw)
+        fl, counts["eval flagship bf16"], pools["flagship bf16"] = _eval_run(
+            torch, launches, "flagship bf16", flagship_ir, fl_vars, ds, want,
+            **kw)
+        busy = _busy(torch, fl, lambda: evaluate_dataset(
+            flagship_ir, fl_vars, ds, batch_size=EVAL_BS, **kw),
+            "flagship bf16")
+        numbers["flagship bf16"] = {"ap": fl["ap"], "fps": fl["fps"],
+                                    "busy_ms": busy[0], "busy_pct": busy[1]}
+        cal = os.path.join(root, "calibration.npz")
+        qkw = dict(kw, int8=True, calibration=cal,
+                   calibration_batches=EVAL_CAL_BATCHES)
+        want = dict(want, stem_conv_s2=2 * (nb + EVAL_CAL_BATCHES),
+                    qgemm=10 * nb)
+        q1, counts["eval flagship int8 calibrating"], pools[
+            "flagship int8"] = _eval_run(
+            torch, launches, "flagship int8 (calibrating, saves the "
+            "artifact)", flagship_ir, fl_vars, ds, want, **qkw)
+        if not os.path.exists(cal):
+            raise AssertionError("the calibration artifact was not saved")
+        want = dict(want, stem_conv_s2=2 * nb)
+        q2, counts["eval flagship int8 from artifact"], _ = _eval_run(
+            torch, launches, "flagship int8 (from the artifact)",
+            flagship_ir, fl_vars, ds, want, **qkw)
+        _same_predictions(q1, q2, "flagship int8, calibrating vs from the "
+                          "artifact")
+        busy = _busy(torch, q2, lambda: evaluate_dataset(
+            flagship_ir, fl_vars, ds, batch_size=EVAL_BS, **qkw),
+            "flagship int8")
+        numbers["flagship int8"] = {"ap": q2["ap"], "fps": q2["fps"],
+                                    "busy_ms": busy[0], "busy_pct": busy[1]}
+        del fl_vars
+
+        # 5. K1-K4 at the eval's shapes
+        placed = graph.place_folded(
+            mnv3_ir, graph.fold_batchnorm(mnv3_ir, mnv3_vars), dev,
+            torch.bfloat16)
+        kernels = _eval_shape_kernels(torch, dev, mnv3_ir, placed, ds,
+                                      flagship_ir, pools, results)
+        del placed
+
+        # 6. the entry point as a subprocess
+        ck = os.path.join(root, "mnv3_ckpt")
+        jx = weights.to_jax_variables(mnv3_vars)
+        save_checkpoint(ck, params=jx["params"], bn_state=jx["state"])
+        data = os.path.join(root, "eval.data")
+        with open(data, "w") as f:
+            f.write(f"classes=1\ntest={splits['eval80']}\n")
+        cmd = [sys.executable, "-m", "double_yolo_kaist_torch.evaluate",
+               "--cfg", MNV3_CFG, "--weights", ck, "--data", data,
+               "--img-size", str(EVAL_IMG), "--batch-size", str(EVAL_BS),
+               "--cache-images", "disk"]
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=600)
+        lines = r.stdout.splitlines()
+        print(f"entry point: exit {r.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; stdout:\n  "
+              + "\n  ".join(lines), flush=True)
+        if r.returncode != 0:
+            raise AssertionError(f"the entry point failed:\n"
+                                 f"{r.stderr[-3000:]}")
+        ap_line = [x for x in lines if x.startswith("VOC Average Precision")]
+        if (sum(x.startswith(("AP@", "AR@")) for x in lines) != 12
+                or len(ap_line) != 1
+                or not any(x.startswith("Log Average Miss Rate")
+                           for x in lines)
+                or not any(x.startswith("average detecting fps")
+                           for x in lines)):
+            raise AssertionError("the entry point did not print the CLI's "
+                                 "lines")
+        ap = float(ap_line[0].split("=")[-1].strip().rstrip("%")) / 100
+        print(f"entry point VOC-AP {ap:.4f}, in-process bf16 "
+              f"{mnv3['ap']:.6f} (bound 1e-3)", flush=True)
+        if abs(ap - mnv3["ap"]) > 1e-3:
+            raise AssertionError("the entry point's AP differs from the "
+                                 "in-process run's")
+    print("eval numbers: " + json.dumps(numbers), flush=True)
+    return counts, kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1221,13 +1794,22 @@ def main() -> int:
     except Exception:                      # noqa: BLE001
         traceback.print_exc()
         failed.append("flagship end to end")
+    eval_kernels = {}
+    if not failed:                         # it prints beside phases 3-7
+        try:
+            eval_counts, eval_kernels = phase_eval(
+                torch, dev, _build.launches, ir, flagship_ir, results)
+            counts.update(eval_counts)
+        except Exception:                  # noqa: BLE001
+            traceback.print_exc()
+            failed.append("evaluate")
     if failed:
         return _fail(f"phases failed: {failed}")
 
     def launched(kernel):
         """Launches of ``kernel`` summed over the main-path runs (MNv3,
-        flagship bf16, flagship int8), each counted from 0 just before its
-        run and read just after it."""
+        flagship bf16, flagship int8, and the eval runs of phase 9), each
+        counted from 0 just before its run and read just after it."""
         return sum(c.get(kernel, 0) for c in counts.values())
 
     kernels = [
@@ -1235,20 +1817,22 @@ def main() -> int:
          "source": "double_yolo_kaist_torch/ops/csrc/decode.cu",
          "replaces": "double_yolo_kaist_tpu/ops/pallas_decode.py:28",
          "launches": launched("decode_head"), **results["K1"],
-         "library_ms": None},
+         **eval_kernels["K1"], "library_ms": None},
         {"name": "K2 greedy NMS", "route": "cuda",
          "source": "double_yolo_kaist_torch/ops/csrc/nms.cu",
          "replaces": "double_yolo_kaist_tpu/ops/pallas_nms.py:34",
          "launches": launched("nms_indices"), **results["K2"],
-         "library_ms": None},
+         **eval_kernels["K2"], "library_ms": None},
         {"name": "K3 stem conv 3x3 s2", "route": "cuda",
          "source": "double_yolo_kaist_torch/ops/csrc/stem.cu",
          "replaces": "double_yolo_kaist_tpu/ops/pallas_stem.py:138",
-         "launches": launched("stem_conv_s2"), **results["K3"]},
+         "launches": launched("stem_conv_s2"), **results["K3"],
+         **eval_kernels["K3"]},
         {"name": "K4 int8 GEMM + epilogue", "route": "cuda",
          "source": "double_yolo_kaist_torch/ops/csrc/qgemm.cu",
          "replaces": "double_yolo_kaist_tpu/ops/pallas_qgemm.py:101",
-         "launches": launched("qgemm"), **results["K4"]},
+         "launches": launched("qgemm"), **results["K4"],
+         **eval_kernels["K4"]},
         # launches: one run of the probes' own entry point (breakdown)
         {"name": "K3 probes", "route": "cuda",
          "source": "double_yolo_kaist_torch/ops/csrc/stem.cu",

@@ -86,7 +86,11 @@ def adaptive_avg_pool(x, out_size: int):
 
 
 def upsample_nearest(x, scale: int):
-    return x.repeat_interleave(scale, dim=2).repeat_interleave(scale, dim=3)
+    """Nearest-neighbour upsampling by an integer ``scale`` (each value
+    copied into a scale x scale patch). Keeps the input's memory format, so
+    that the channels-last forward stays channels-last through the routes
+    that concatenate an upsample with a conv output, down to the heads."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
 def weighted_fusion(x, extras: list, w=None):

@@ -17,9 +17,11 @@ Flow (the same as the JAX package's):
 
 Quantized 1x1 stride-1 convs go through kernel K4 (:mod:`..ops.qgemm`);
 kxk int8 convs are an int8 im2col and ``torch._int_mm``, as the JAX package
-leaves them to XLA. Modes ``spine``, ``spineall`` and ``edge``, the
-calibration / quantized artifacts and the int8 stems are not ported yet
-(ROADMAP.md, queue 1 item 11).
+leaves them to XLA. Calibration stats are saved and loaded in the JAX
+package's ``.npz`` format (:func:`save_calibration`, :func:`load_calibration`).
+Modes ``spine``, ``spineall`` and ``edge``, the quantized-variables
+artifacts and the int8 stems are not ported yet (ROADMAP.md, queue 1 item
+11).
 """
 
 from __future__ import annotations
@@ -166,6 +168,31 @@ def calibrate(ir: GraphIR, folded: dict, batches,
             for k, v in zip(keys, values.tolist()):
                 acc[k] = max(acc.get(k, 0.0), v)
     return acc
+
+
+def save_calibration(path: str, stats: dict, *, pct: float = 100.0) -> None:
+    """Save :func:`calibrate` stats as a calibration artifact (``.npz``, the
+    JAX package's format: one array per stat key, and the percentile under
+    ``__pct__``)."""
+    arrs = {k: np.asarray(v) for k, v in stats.items()}
+    arrs["__pct__"] = np.asarray(float(pct), np.float64)
+    np.savez(path, **arrs)
+
+
+def load_calibration(path: str) -> tuple[dict, float]:
+    """Load a :func:`save_calibration` artifact (the port's or the JAX
+    package's) -> (stats, pct). Per-channel stats (the JAX package's ``edge``
+    mode writes ``l<i>.out`` vectors) come back as arrays; no mode of the
+    port reads them."""
+    with np.load(path) as z:
+        pct = float(z["__pct__"]) if "__pct__" in z.files else 100.0
+        stats = {}
+        for k in z.files:
+            if k == "__pct__":
+                continue
+            v = z[k]
+            stats[k] = float(v) if v.ndim == 0 else v
+    return stats, pct
 
 
 # ------------------------------------------------------------------- quantize

@@ -7,10 +7,13 @@ names — but holds torch tensors, and conv kernels in torch's OIHW layout
 
 * :func:`from_jax_variables` takes JAX variables (numpy arrays or anything
   ``np.asarray`` reads) and is the inverse of the JAX package's
-  ``import_weights._oihw_to_hwio``.
+  ``import_weights._oihw_to_hwio``; :func:`to_jax_variables` goes the other
+  way, so that checkpoints (:mod:`..utils.checkpoint`, kept in the JAX
+  layout) move between the packages in both directions.
 * :func:`from_torch_state_dict` is the port's copy of the JAX package's
   reference-checkpoint key mapping (``import_weights.from_torch_state_dict``),
-  kept in OIHW. It reads the fp16 ``.npz`` fixture directly.
+  kept in OIHW. It reads the fp16 ``.npz`` fixture directly, and
+  :func:`from_torch_checkpoint` reads a reference ``.pt`` / ``.pth``.
 """
 
 from __future__ import annotations
@@ -48,6 +51,26 @@ def from_jax_variables(ir: GraphIR, variables: dict) -> dict:
                 out[k] = _hwio_to_oihw(v)
             else:
                 out[k] = _tensor(v)
+        return out
+
+    return {"params": convert(variables["params"]),
+            "state": convert(variables.get("state", {}))}
+
+
+def to_jax_variables(variables: dict) -> dict:
+    """The port's variables (OIHW kernels) -> JAX ``{"params", "state"}``
+    (HWIO kernels, fp32 numpy arrays): the inverse of
+    :func:`from_jax_variables`."""
+    def convert(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                out[k] = convert(v)
+                continue
+            a = (v.detach().to("cpu", torch.float32).numpy()
+                 if isinstance(v, torch.Tensor) else np.asarray(v, np.float32))
+            out[k] = np.ascontiguousarray(
+                a.transpose(2, 3, 1, 0) if k == "w" and a.ndim == 4 else a)
         return out
 
     return {"params": convert(variables["params"]),
@@ -118,3 +141,13 @@ def load_state_dict_npz(ir: GraphIR, path: str) -> dict:
     (e.g. ``tests/fixtures/fullparity/mnv3_selftrained.fp16.npz``)."""
     with np.load(path) as sd:
         return from_torch_state_dict(ir, sd)
+
+
+def from_torch_checkpoint(ir: GraphIR, path: str) -> dict:
+    """The port's variables from a reference ``.pt`` / ``.pth`` checkpoint
+    (``{"model": state_dict, ...}`` or a bare state dict, reference
+    train.py:225-231). The file is unpickled: load only checkpoints this
+    project or the reference wrote."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
+    return from_torch_state_dict(ir, sd)

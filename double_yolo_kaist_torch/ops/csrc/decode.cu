@@ -18,9 +18,11 @@
 //     the cell index and the arguments: no geometry table in device memory
 //     (the TPU kernel read one);
 //   * the fast path, for the layout the model produces (channels-last bf16,
-//     no = 6, ny * nx a multiple of 32): a block takes 32 consecutive cells
-//     of one image. Their na * 6 values each are contiguous (1152 bytes for
-//     three anchors) and come in as 16-byte loads into shared memory; warp
+//     no = 6, ny * nx a multiple of 4): a block takes 32 consecutive cells
+//     of one image (the last block of an image fewer, a multiple of 4, as
+//     for the 13x16 head of a 416x512 eval batch). Their na * 6 values each
+//     are contiguous (1152 bytes for three anchors) and come in as 16-byte
+//     loads into shared memory; warp
 //     a then decodes anchor a, a lane a cell: the six values of a row have
 //     their place in the formula fixed at compile time, so a value costs
 //     its expf and its division and little else (the kernel is a few
@@ -31,9 +33,10 @@
 //     x 24 bytes = 768 contiguous bytes leave as 16-byte stores,
 //     consecutive threads consecutive addresses. One division a block
 //     places the cells on the grid;
-//   * any other input (NCHW strides, fp32, a ragged grid, another `no`, a
-//     misaligned base) takes the general path in the same launch: one
-//     thread per (image, anchor, cell) row reading through the strides,
+//   * any other input (NCHW strides, fp32, a grid of cells no multiple of
+//     4, another `no`, a misaligned base) takes the general path in the
+//     same launch: one thread per (image, anchor, cell) row reading through
+//     the strides,
 //     which folds reshape_head's transpose into the load. The host picks
 //     the path per head from shape, strides and alignment.
 // expf and the division are libm's: real heads reach |p| of 20 and more,
@@ -136,8 +139,9 @@ __device__ void decode_general(const Head& h, int block, int nblocks, int bs,
   }
 }
 
-// Fast path: block `item` of the head takes cells 32 c ... 32 c + 31 of
-// image b, item = b * (cells / 32) + c. Channels-last bf16, no = 6.
+// Fast path: block `item` of the head takes cells 32 c ... 32 c + n - 1 of
+// image b, item = b * ceil(cells / 32) + c, n = min(32, cells - 32 c), a
+// multiple of 4 (cells is). Channels-last bf16, no = 6.
 __device__ void decode_fast(const Head& h, int item,
                             float* __restrict__ out,
                             long long out_batch_stride) {
@@ -147,17 +151,18 @@ __device__ void decode_fast(const Head& h, int item,
   const int t = threadIdx.x;
   const int a = t >> 5, lane = t & 31;
   const int cells = h.ny * h.nx;
-  const int chunks_per_image = cells >> 5;
+  const int chunks_per_image = (cells + 31) >> 5;
   const int b = item / chunks_per_image;
   const int cell0 = (item - b * chunks_per_image) << 5;
+  const int n = min(32, cells - cell0);       // cells of this block
   const int rec = h.na * NO;                  // values of a cell
   const uint4* src = reinterpret_cast<const uint4*>(
       static_cast<const __nv_bfloat16*>(h.x) + b * h.s0 +
       static_cast<int64_t>(cell0) * rec);
-  const int n_in = 4 * rec;                   // 32 cells x rec x 2 B / 16 B
+  const int n_in = n * rec / 8;               // n cells x rec x 2 B / 16 B
   if (t < n_in) reinterpret_cast<uint4*>(patch)[t] = __ldg(src + t);
   __syncthreads();
-  if (a < h.na) {                             // anchor a of cell cell0 + lane
+  if (a < h.na && lane < n) {                 // anchor a of cell cell0 + lane
     const int gy0 = cell0 / h.nx;
     int gx = cell0 - gy0 * h.nx + lane, gy = gy0;
     while (gx >= h.nx) {
@@ -180,10 +185,11 @@ __device__ void decode_fast(const Head& h, int item,
     row[2] = make_float2(v[4], v[5]);
   }
   __syncthreads();
-  // anchor a's 32 rows are 32 * 6 floats = 48 float4, contiguous in out
+  // anchor a's n rows are n * 6 floats = 1.5 n float4, contiguous in out
   float* dst0 = out + b * out_batch_stride + (h.row_offset + cell0) * NO;
-  for (int i = t; i < h.na * 48; i += THREADS) {
-    const int a2 = i / 48, f = i - a2 * 48;
+  const int per = n * NO / 4;
+  for (int i = t; i < h.na * per; i += THREADS) {
+    const int a2 = i / per, f = i - a2 * per;
     *reinterpret_cast<float4*>(dst0 + static_cast<int64_t>(a2) * cells * NO +
                                4 * f) =
         *reinterpret_cast<const float4*>(rows[a2] + 4 * f);
@@ -222,7 +228,7 @@ extern "C" const char* dyk_error_string(int e) {
 // out_batch_stride elements per image, `no` values a row). The caller fills
 // everything but first_block and nblocks, and sets `fast` only for a head
 // that is channels-last and dense (s1 = 1, s3 = na * no, s2 = nx * s3, s0 =
-// ny * s2), bf16, no = 6, na <= 4, ny * nx a multiple of 32, with x 16-byte
+// ny * s2), bf16, no = 6, na <= 4, ny * nx a multiple of 4, with x 16-byte
 // aligned and every row run of out 16-byte aligned (out itself, an even
 // row_offset, out_batch_stride a multiple of 4). Returns cudaGetLastError().
 extern "C" int dyk_decode_heads(Heads* p, void* stream) {
@@ -238,11 +244,11 @@ extern "C" int dyk_decode_heads(Heads* p, void* stream) {
     const long long cells = (long long)h.ny * h.nx;
     long long need;
     if (h.fast) {
-      if (h.na > DYK_FAST_MAX_ANCHORS || p->no != DYK_FAST_NO || cells % 32 ||
+      if (h.na > DYK_FAST_MAX_ANCHORS || p->no != DYK_FAST_NO || cells % 4 ||
           !h.is_bf16) {
         return (int)cudaErrorInvalidValue;
       }
-      need = p->bs * (cells / 32);
+      need = p->bs * ((cells + 31) / 32);
     } else {
       need = (p->bs * h.na * cells + THREADS - 1) / THREADS;
       if (need > MAX_GENERAL_BLOCKS) need = MAX_GENERAL_BLOCKS;

@@ -100,12 +100,14 @@ def fast_path(shape, strides, dtype, na: int) -> bool:
     """True if a head conv output of this ``shape`` (bs, na*no, ny, nx),
     element ``strides`` and ``dtype`` has the layout the kernel's fast path
     reads: bf16, six values a row, at most four anchors, dense channels-last
-    memory, and a grid whose cells fill whole warps. (The launch also wants
-    16-byte aligned bases; :func:`decode_heads` checks those per call.)"""
+    memory, and a grid of a multiple of 4 cells (a block takes 32 cells, the
+    last of an image fewer; 4 cells keep its loads and stores 16-byte
+    aligned). (The launch also wants 16-byte aligned bases;
+    :func:`decode_heads` checks those per call.)"""
     _, c, ny, nx = shape
     return (dtype == torch.bfloat16 and c == na * _FAST_NO
             and na <= _FAST_MAX_ANCHORS and ny * nx > 0
-            and (ny * nx) % 32 == 0
+            and (ny * nx) % 4 == 0
             and tuple(strides) == (ny * nx * c, 1, nx * c, c))
 
 

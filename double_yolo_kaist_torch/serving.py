@@ -12,6 +12,7 @@ convs kernel K3 and the quantized 1x1 convs kernel K4.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -51,7 +52,8 @@ class Predictor:
                  batch_buckets: Sequence[int] = (1, 8, 32),
                  compute_dtype=torch.bfloat16, int8: bool = False,
                  int8_mode: str = "chain", calibration_batches: int = 2,
-                 calibration_pct: float = 100.0, device=None):
+                 calibration_pct: float = 100.0, calibration=None,
+                 device=None):
         """``cfg``: a ``.cfg`` path or a compiled :class:`GraphIR`.
         ``variables``: the port's ``{"params", "state"}`` (see
         :mod:`.models.weights`). ``device``: ``None`` means ``"cuda"``; the
@@ -64,7 +66,13 @@ class Predictor:
         then runs int8, as in the JAX package. ``calibration_pct``:
         percentile max-abs clipping (100 = exact max-abs). A model whose
         ``int8_mode`` plan is empty (the MobileNet family) is served in
-        ``compute_dtype`` with a warning."""
+        ``compute_dtype`` with a warning.
+
+        ``calibration``: path of a calibration artifact
+        (:func:`.models.quantize.save_calibration`, the JAX package's format
+        too). If the file exists, the activation scales load from it and
+        int8 serves from the first request; if not, the stats measured on
+        the first ``calibration_batches`` batches are written there."""
         self.ir: GraphIR = compile_cfg(cfg) if isinstance(cfg, str) else cfg
         self.device = resolve_device(device)
         self.img_size = img_size
@@ -86,6 +94,10 @@ class Predictor:
         self._cal_batches: list = []
         self._cal_needed = max(1, int(calibration_batches))
         self._cal_pct = float(calibration_pct)
+        self._cal_path = str(calibration) if calibration else None
+        if int8 and self._cal_path and os.path.exists(self._cal_path):
+            stats, _ = Q.load_calibration(self._cal_path)
+            self._quantize_from_stats(stats)
 
     def _bucket(self, n: int) -> int:
         for b in self.batch_buckets:
@@ -120,6 +132,8 @@ class Predictor:
             return False
         stats = Q.calibrate(self.ir, self.folded, self._cal_batches,
                             compute_dtype=self._dtype, pct=self._cal_pct)
+        if self._cal_path:
+            Q.save_calibration(self._cal_path, stats, pct=self._cal_pct)
         self._quantize_from_stats(stats)
         self._cal_batches = []
         return True

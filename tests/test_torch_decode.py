@@ -153,20 +153,22 @@ def test_decode_heads_rejects_mismatched_heads():
 
 def test_fast_path_is_chosen_from_layout():
     """The kernel's 16-byte path: channels-last bf16, six values a row, a
-    grid that fills whole warps; anything else goes the general way."""
+    grid of a multiple of 4 cells; anything else goes the general way."""
     x = torch.zeros((2, 18, 8, 16), dtype=torch.bfloat16)
     cl = x.contiguous(memory_format=torch.channels_last)
     assert fast_path(cl.shape, cl.stride(), cl.dtype, 3)
     assert not fast_path(x.shape, x.stride(), x.dtype, 3)          # NCHW
     assert not fast_path(cl.shape, cl.stride(), torch.float32, 3)  # fp32
     assert not fast_path(cl.shape, cl.stride(), cl.dtype, 2)       # no = 9
-    odd = torch.zeros((2, 18, 6, 10), dtype=torch.bfloat16).contiguous(
+    odd = torch.zeros((2, 18, 5, 7), dtype=torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
-    assert not fast_path(odd.shape, odd.stride(), odd.dtype, 3)    # 60 cells
+    assert not fast_path(odd.shape, odd.stride(), odd.dtype, 3)    # 35 cells
     part = cl[:, :, :, :8]                                         # not dense
     assert not fast_path(part.shape, part.stride(), part.dtype, 3)
-    # the flagship's and MNv3's heads at 512x640
-    for ny, nx in ((64, 80), (32, 40), (16, 20)):
+    # the flagship's and MNv3's heads at 512x640, and at 416x512 (rect
+    # eval), where 13 x 16 = 208 cells leave a last block of 16
+    for ny, nx in ((64, 80), (32, 40), (16, 20), (52, 64), (26, 32),
+                   (13, 16)):
         h = torch.zeros((1, 18, ny, nx), dtype=torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         assert fast_path(h.shape, h.stride(), h.dtype, 3)
@@ -183,7 +185,7 @@ def test_plan_is_kept_by_the_anchors_values():
     assert (bs, no, total) == (2, 6, 3 * (96 + 24 + 6)) and len(launches) == 1
     args, fast, part = launches[0]
     assert args.n == 3 and list(part) == [0, 1, 2]
-    assert fast == [True, False, False]      # 96 cells fill warps, 24, 6 not
+    assert fast == [True, True, False]       # 96 and 24 cells: 4s; 6 not
     assert [args.h[i].row_offset for i in range(3)] == [0, 288, 360]
     np.testing.assert_array_equal(
         np.asarray(args.h[1].wh[:6], np.float32),
@@ -223,8 +225,11 @@ def test_kernel_matches_plain_on_card(cuda, dtype, bf_type):
 
 
 # grids of three heads: 512x640 (every head on the 16-byte path when bf16
-# channels-last), and a ragged one (cells no multiple of 32: general path)
+# channels-last), 416x512 (rect eval: the 13x16 head's last block takes 16
+# cells), and a ragged one (221 and 63 cells: general path; 20 cells: one
+# short block of the 16-byte path)
 GRIDS = {"aligned": ((64, 80), (32, 40), (16, 20)),
+         "eval": ((52, 64), (26, 32), (13, 16)),
          "ragged": ((13, 17), (7, 9), (4, 5))}
 
 

@@ -109,6 +109,53 @@ def _pool(kind, k, seed):
     return boxes, scores.astype(np.float32)
 
 
+def _dense_pool(k, n_centres, seed, order="random"):
+    """An eval-like pool: ``k`` boxes jittered around ``n_centres`` centres
+    (every round suppresses a cluster); with few centres the pool runs out
+    before ``max_det`` rounds, with many it does not. ``order``: scores in
+    random order, or sorted descending as non_max_suppression hands them
+    over."""
+    rng = np.random.default_rng(seed)
+    centres = rng.random((n_centres, 2), dtype=np.float32) * [560, 432]
+    size = rng.random((n_centres, 2), dtype=np.float32) * [40, 80] + 20
+    c = rng.integers(0, n_centres, k)
+    xy = centres[c] + rng.normal(0, 3, (k, 2)).astype(np.float32)
+    wh = size[c] * rng.uniform(0.85, 1.15, (k, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    scores = rng.random(k).astype(np.float32) * 0.9 + 0.01
+    if order == "sorted":
+        scores = np.sort(scores)[::-1].copy()
+    return boxes, scores
+
+
+def _dense_batch(bs, k, order, seed=700):
+    """Images alternating 20 centres (the pool runs out before 100 rounds)
+    and 300 (it does not)."""
+    pools = [_dense_pool(k, 20 if s % 2 == 0 else 300, seed + s, order)
+             for s in range(bs)]
+    return np.stack([p[0] for p in pools]), np.stack([p[1] for p in pools])
+
+
+@pytest.mark.parametrize("order", ["random", "sorted"])
+def test_rank_scan_dense_pool_matches_jax_and_plain(order):
+    """Eval-like dense pools (K 512, IoU 0.6, max_det 100): every round
+    suppresses, and some pools run out before max_det."""
+    import jax.numpy as jnp
+    from double_yolo_kaist_tpu.ops import nms as JN
+    boxes, scores = _dense_batch(2, 512, order)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    i, v, _ = nms_indices_rank_scan(tb, ts, 0.6, 100)
+    pi, pv = nms_indices_plain(tb, ts, 0.6, 100)
+    _assert_same(i.numpy(), v.numpy(), pi.numpy(), pv.numpy())
+    for b in range(2):
+        ji, jv = JN.nms_indices(jnp.asarray(boxes[b]), jnp.asarray(scores[b]),
+                                iou_thres=0.6, max_det=100)
+        _assert_same(i[b].numpy(), v[b].numpy(), np.asarray(ji),
+                     np.asarray(jv))
+    kept = v.sum(1).tolist()
+    assert kept[0] < 100 and kept[1] == 100, kept
+
+
 def iou_over_with_margin(boxes, thres: float):
     """``IoU > thres`` for every pair of ``boxes`` (B, K, 4), decided as
     csrc/nms.cu decides it (iou_terms, iou_over): inter and den in box_iou's
@@ -355,3 +402,22 @@ def test_kernel_repeats_exactly_on_card(cuda, k, bs, order):
            if not (torch.equal(v, rv) and torch.equal(torch.where(v, i, 0),
                                                       want))]
     assert not bad, f"launches {bad[:10]} of 300 disagree"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("bs", [8, 32])
+def test_kernel_dense_pools_on_card(cuda, bs, order):
+    """K2 on eval-like dense pools (512 boxes around 20 or 300 centres, IoU
+    0.6, max_det 100): index-exact against the plain loop, with pools that
+    run out before max_det and pools that do not."""
+    boxes, scores = _dense_batch(bs, 512, order)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    scores = torch.from_numpy(scores).to(cuda)
+    i, v = nms_indices(boxes, scores, 0.6, 100)
+    ri, rv = nms_indices_plain(boxes, scores, 0.6, 100)
+    torch.cuda.synchronize()
+    _assert_same(i.cpu().numpy(), v.cpu().numpy(), ri.cpu().numpy(),
+                 rv.cpu().numpy())
+    kept = v.sum(1).tolist()
+    assert min(kept) < 100 and max(kept) == 100, kept

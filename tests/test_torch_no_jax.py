@@ -24,7 +24,9 @@ def test_port_imports_no_jax():
     modules = _port_modules() + ["chip_smoke"]
     assert "double_yolo_kaist_torch.serving" in modules
     for name in ("ops.nms_kernel", "ops.stem", "ops.qgemm",
-                 "models.quantize"):
+                 "models.quantize", "evaluate", "eval.evaluator",
+                 "eval.metrics", "eval.coco_map", "data.dataset",
+                 "data.pipeline", "utils.checkpoint", "utils.native"):
         assert f"double_yolo_kaist_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -150,6 +150,47 @@ def test_apply_folded_matches_jax(model):
                                atol=1e-3, err_msg=name)
 
 
+def test_forward_stays_channels_last(model):
+    """Every conv output and every head of the bf16 forward is channels-last
+    (the layout cuDNN's NHWC kernels and K1's 16-byte path read): the
+    upsamples keep it through the routes that concatenate them."""
+    _, _, _, tir, tv, hw, _ = model
+    placed = TG.place_folded(tir, TG.fold_batchnorm(tir, tv), "cpu",
+                             torch.bfloat16)
+    off = []
+
+    def conv(node, inp, p):
+        out = TG.conv_folded(node, inp, p)
+        if not out.is_contiguous(memory_format=torch.channels_last):
+            off.append(node.index)
+        return out
+
+    x = torch.rand((2,) + hw + (3,))
+    with torch.inference_mode():
+        heads = TG.run_graph(tir, placed["params"], x, x,
+                             dtype=torch.bfloat16, conv=conv)
+    assert not off
+    assert all(h.is_contiguous(memory_format=torch.channels_last)
+               for h, _ in heads)
+
+
+def test_eval_heads_take_the_fast_decode():
+    """MNv3 at the rect eval size, 416x512: all three heads (52x64, 26x32,
+    13x16) have the layout of K1's 16-byte path."""
+    from double_yolo_kaist_torch.ops.decode import fast_path
+    tir = compile_cfg(MNV3)
+    placed = TG.place_folded(tir, TG.fold_batchnorm(
+        tir, TW.load_state_dict_npz(tir, NPZ)), "cpu", torch.bfloat16)
+    x = torch.rand((1, 416, 512, 3))
+    with torch.inference_mode():
+        heads = TG.run_graph(tir, placed["params"], x, x,
+                             dtype=torch.bfloat16)
+    assert [tuple(h.shape[2:]) for h, _ in heads] == [(52, 64), (26, 32),
+                                                      (13, 16)]
+    assert all(fast_path(h.shape, h.stride(), h.dtype, len(n.anchors))
+               for h, n in heads)
+
+
 def test_predictor_matches_jax(model):
     """uint8 frames through both Predictors (fp32, CPU for the port); three
     frames in a bucket of four exercise the padding."""
