@@ -61,14 +61,32 @@ result line):
      batch, K3 twice per flagship forward, K4 ten times per int8 forward);
      K1-K4 held against their plain versions at the eval's shapes (K2 on
      the pools the eval runs handed it); and the entry point
-     ``python -m double_yolo_kaist_torch.evaluate`` as a subprocess, whose
-     VOC-AP must be within 1e-3 of the in-process bf16 run's.
+     ``python -m double_yolo_kaist_torch.evaluate`` as a subprocess, given
+     the model by its zoo name, whose VOC-AP must be within 1e-3 of the
+     in-process bf16 run's;
+ 10. serving from CUDA graphs, on the Predictors of phases 5 and 8 (MNv3
+     bf16, the flagship bf16 and int8): requests of 1, 3 and 8 frames
+     through ``Predictor.__call__``, each one replay of its bucket's graph,
+     must give exactly the detections of the eager path (``run_batch`` +
+     ``unpack_detections``) on the same frames; one torch.profiler window
+     around one replay must show K1 once, K2 once, K3 twice (flagship) and
+     K4 ten times (int8) by kernel name; the median (min-max) request ms of
+     graph and eager at bs 1 and 8 with their device busy shares;
+ 11. the entry points as subprocesses: ``serve`` (the MNv3 zoo name and a
+     checkpoint directory) answering 32 concurrent raw-frame ``/detect``
+     requests with the in-process Predictor's detections, its ``/healthz``
+     showing a mean micro-batch above 1; ``detect --no-figure`` on 8 pairs
+     of phase 9's split, its count per image the in-process Predictor's;
+     ``bench --bf16`` and ``bench --int8``, each printing its JSON line; and
+     in process a MicroBatcher over the flagship bf16 graph Predictor with
+     16 submitter threads, giving what unbatched requests give.
 Then a JSON line of kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
 Times come from CUDA events (kernels) or the host clock around a
 synchronised request (end to end), after warm-up; each is the median of
-several runs. bound_ms is the least time the card could take: the larger of
+several runs. A Predictor on the card serves each bucket from one CUDA
+graph (phases 5, 8, 10); a graph's kernels are counted on each replay. bound_ms is the least time the card could take: the larger of
 bytes moved (each input read once, each output written once) at 3.35 TB/s
 and operations at the peak rate of the work's own type (H100 SXM data
 sheet, dense, 700 W): 67 TFLOP/s fp32 on the CUDA cores for K1 and K2,
@@ -82,6 +100,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -99,9 +118,7 @@ FP32_OPS_PER_S = 67e12            # CUDA cores
 BF16_OPS_PER_S = 989e12           # tensor cores, dense
 INT8_OPS_PER_S = 1979e12          # tensor cores, dense
 SEED = 0
-# kaiming-uniform kernels times this gain keep the flagship's heads input-
-# dependent and finite through its 185 convs (tests/test_torch_slice.py)
-FLAGSHIP_GAIN = 2.2
+MNV3_NAME = "Double-YOLOv4-MNv3-Fshare-Global-CSE3"   # its zoo name
 K2_REPEATS = 200      # launches of K2 on one pool that must all agree
 
 
@@ -498,7 +515,7 @@ def phase_end_to_end(torch, ir, dev, launches):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = prev
-    return counts, times
+    return counts, times, (pred, frames, variables)
 
 class _NoTF32:
     """TF32 off for cuDNN and matmuls inside the block (fp32 checks)."""
@@ -883,59 +900,6 @@ def phase_qgemm(torch, ir, dev, launches):
             "bs1_device_ms": bs1_device_ms}
 
 
-def seeded_variables(torch, ir, seed: int, gain: float = FLAGSHIP_GAIN):
-    """The port's variables for ``ir`` drawn from numpy: conv kernels
-    U(+-gain * sqrt(1 / fan_in)), BN statistics in the ranges of
-    tests/test_torch_slice._perturb_bn, SE and head biases U(+-sqrt(1 /
-    fan_in)) with graph.init's obj / cls prior on the heads, weighted
-    shortcuts at 0 (graph.init's)."""
-    import math
-    rng = np.random.default_rng(seed)
-
-    def uniform(bound, shape):
-        return torch.from_numpy(rng.uniform(-bound, bound, shape)
-                                .astype(np.float32))
-
-    def normal(std, n):
-        return torch.from_numpy(rng.normal(0, std, n).astype(np.float32))
-
-    params, state = {}, {}
-    for node in ir.nodes:
-        key = f"l{node.index}"
-        if node.kind == "conv":
-            fan_in = node.in_ch // node.groups * node.kernel ** 2
-            p = {"w": uniform(gain * math.sqrt(1 / fan_in),
-                              (node.out_ch, node.in_ch // node.groups,
-                               node.kernel, node.kernel))}
-            if node.bn:
-                c = node.out_ch
-                p["bn"] = {"scale": torch.from_numpy(
-                    rng.uniform(0.5, 1.5, c).astype(np.float32)),
-                    "bias": normal(0.2, c)}
-                state[key] = {"mean": normal(0.2, c), "var": torch.from_numpy(
-                    rng.uniform(0.5, 2.0, c).astype(np.float32))}
-            else:
-                p["b"] = uniform(math.sqrt(1 / fan_in), (node.out_ch,))
-            params[key] = p
-        elif node.kind == "se":
-            c, sq = node.in_ch, node.squeeze_ch
-            params[key] = {
-                "fc1": {"w": uniform(math.sqrt(1 / c), (sq, c, 1, 1)),
-                        "b": uniform(math.sqrt(1 / c), (sq,))},
-                "fc2": {"w": uniform(math.sqrt(1 / sq), (c, sq, 1, 1)),
-                        "b": uniform(math.sqrt(1 / sq), (c,))}}
-        elif node.kind == "shortcut" and node.weighted:
-            params[key] = {"w": torch.zeros(len(node.inputs) + 1)}
-        elif node.kind in ("dwconv", "inception"):
-            raise ValueError(f"no seeded init for {node.kind}")
-    for yi in ir.yolo_indices:              # graph.init's smart bias
-        head, pred = ir.nodes[yi], ir.nodes[yi - 1]
-        b = params[f"l{pred.index}"]["b"].reshape(len(head.anchors), -1)
-        b[:, 4] -= 4.5
-        b[:, 5:] += math.log(0.6 / (head.nc - 0.99))
-    return {"params": params, "state": state}
-
-
 def _serve(torch, pred, frames, launches, n, want, n_heads):
     """One request of ``n`` frames; launch counts must equal ``want``, and
     K1's launches must have decoded ``n_heads`` heads each."""
@@ -985,6 +949,7 @@ def _medians(torch, pred, frames, label):
 
 def phase_flagship(torch, dev, launches):
     """The flagship end to end: bf16, then int8 (chain PTQ)."""
+    from double_yolo_kaist_torch.bench import seeded_variables
     from double_yolo_kaist_torch.config.ir import compile_cfg
     from double_yolo_kaist_torch.models import graph
     from double_yolo_kaist_torch.models import quantize as Q
@@ -992,7 +957,7 @@ def phase_flagship(torch, dev, launches):
 
     ir = compile_cfg(FLAGSHIP_CFG)
     t0 = time.perf_counter()
-    variables = seeded_variables(torch, ir, SEED)
+    variables = seeded_variables(ir, SEED)
     print(f"flagship: {len(ir.nodes)} nodes, seeded weights in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(SEED + 1)
@@ -1076,6 +1041,11 @@ def phase_flagship(torch, dev, launches):
     # only), quantizes, then serves int8
     _serve(torch, qpred, frames, launches, 8,
            dict(q_fwd, stem_conv_s2=3 * 2), n_heads)
+    # the first int8 request of a bucket captures its graph: one eager
+    # forward before the capture, then the replay
+    for n in (1, 8):
+        _serve(torch, qpred, frames, launches, n,
+               {k: 2 * v for k, v in q_fwd.items()}, n_heads)
     for n in (1, 3, 8):
         _serve(torch, qpred, frames, launches, n, q_fwd, n_heads)
     counts["int8"] = dict(launches)          # read just after it
@@ -1095,7 +1065,8 @@ def phase_flagship(torch, dev, launches):
             raise AssertionError("int8 forward is not finite")
 
     phase_flagship_int8_vs_cpu(torch, ir, variables, qpred, dev)
-    return counts, times
+    return counts, times, {"flagship bf16": (pred, frames),
+                           "flagship int8": (qpred, frames)}
 
 
 def phase_flagship_int8_vs_cpu(torch, ir, variables, qpred, dev):
@@ -1546,13 +1517,14 @@ def _eval_shape_kernels(torch, dev, mnv3_ir, placed, ds, flagship_ir, pools,
     return out
 
 
-def phase_eval(torch, dev, launches, mnv3_ir, flagship_ir, results):
+def phase_eval(torch, dev, launches, mnv3_ir, flagship_ir, results, root):
     """The offline evaluation path: evaluate_dataset on an 80-frame KAIST
-    split (MNv3 bf16, the flagship bf16 and int8), card against CPU, the
-    tiers, the calibration artifact, launch counts per run, K1-K4 at the
-    eval's shapes, and the entry point as a subprocess."""
-    import tempfile
-
+    split written under ``root`` (MNv3 bf16, the flagship bf16 and int8),
+    card against CPU, the tiers, the calibration artifact, launch counts
+    per run, K1-K4 at the eval's shapes, and the entry point as a
+    subprocess. Returns (counts, kernel numbers, the MNv3 checkpoint
+    directory it wrote)."""
+    from double_yolo_kaist_torch.bench import seeded_variables
     from double_yolo_kaist_torch.data import pipeline as P
     from double_yolo_kaist_torch.data.dataset import KaistDataset
     from double_yolo_kaist_torch.eval.evaluator import evaluate_dataset
@@ -1567,174 +1539,553 @@ def phase_eval(torch, dev, launches, mnv3_ir, flagship_ir, results):
           f"{'cv2 JPEGs' if cv2 is not None else 'the disk cache'}",
           flush=True)
     counts, numbers = {}, {}
-    with tempfile.TemporaryDirectory(prefix="dyk_eval_") as root:
-        splits, cache = _eval_split(root, cv2)
+    splits, cache = _eval_split(root, cv2)
 
-        def dataset(name):
-            return KaistDataset(splits[name], EVAL_IMG, EVAL_BS, rect=True,
-                                cache_images=cache)
+    def dataset(name):
+        return KaistDataset(splits[name], EVAL_IMG, EVAL_BS, rect=True,
+                            cache_images=cache)
 
-        mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
-        unlabelled = dataset("eval80")
-        print(f"eval split: {len(unlabelled)} pairs {EVAL_HW}, batch shapes "
-              f"{sorted({tuple(s) for s in unlabelled.batch_shapes.tolist()})}",
-              flush=True)
-        with _NoTF32(torch):
-            res = evaluate_dataset(mnv3_ir, mnv3_vars, unlabelled,
-                                   batch_size=EVAL_BS, device_cache=False,
-                                   compute_dtype=torch.float32, device=dev)
-        n_labels = _write_labels(unlabelled, res["predictions"])
-        print(f"eval labels: {n_labels} boxes, the 5 most confident MNv3 "
-              f"fp32 detections of each frame", flush=True)
-        ds = dataset("eval80")            # reads the labels just written
+    mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
+    unlabelled = dataset("eval80")
+    print(f"eval split: {len(unlabelled)} pairs {EVAL_HW}, batch shapes "
+          f"{sorted({tuple(s) for s in unlabelled.batch_shapes.tolist()})}",
+          flush=True)
+    with _NoTF32(torch):
+        res = evaluate_dataset(mnv3_ir, mnv3_vars, unlabelled,
+                               batch_size=EVAL_BS, device_cache=False,
+                               compute_dtype=torch.float32, device=dev)
+    n_labels = _write_labels(unlabelled, res["predictions"])
+    print(f"eval labels: {n_labels} boxes, the 5 most confident MNv3 "
+          f"fp32 detections of each frame", flush=True)
+    ds = dataset("eval80")            # reads the labels just written
 
-        # 1. card against the port's CPU path, fp32, the first 8 frames
-        fp = {}
-        with _NoTF32(torch):
-            for where in (dev, "cpu"):
-                fp[str(where)] = evaluate_dataset(
-                    mnv3_ir, mnv3_vars, dataset("eval8"), batch_size=8,
-                    compute_dtype=torch.float32, device=where)
-        card, cpu = fp[str(dev)], fp["cpu"]
-        d = max(abs(card["ap"] - cpu["ap"]), abs(card["lamr"] - cpu["lamr"]),
-                float(np.abs(card["coco_stats"] - cpu["coco_stats"]).max()))
-        print(f"eval fp32 8 frames, card vs CPU: AP {card['ap']:.6f} / "
-              f"{cpu['ap']:.6f}, LAMR {card['lamr']:.6f} / {cpu['lamr']:.6f}, "
-              f"largest difference over AP, LAMR and the 12 COCO stats "
-              f"{d:.2e} (bound 1e-3)", flush=True)
-        if d > 1e-3:
-            raise AssertionError("eval fp32: card disagrees with the CPU")
+    # 1. card against the port's CPU path, fp32, the first 8 frames
+    fp = {}
+    with _NoTF32(torch):
+        for where in (dev, "cpu"):
+            fp[str(where)] = evaluate_dataset(
+                mnv3_ir, mnv3_vars, dataset("eval8"), batch_size=8,
+                compute_dtype=torch.float32, device=where)
+    card, cpu = fp[str(dev)], fp["cpu"]
+    d = max(abs(card["ap"] - cpu["ap"]), abs(card["lamr"] - cpu["lamr"]),
+            float(np.abs(card["coco_stats"] - cpu["coco_stats"]).max()))
+    print(f"eval fp32 8 frames, card vs CPU: AP {card['ap']:.6f} / "
+          f"{cpu['ap']:.6f}, LAMR {card['lamr']:.6f} / {cpu['lamr']:.6f}, "
+          f"largest difference over AP, LAMR and the 12 COCO stats "
+          f"{d:.2e} (bound 1e-3)", flush=True)
+    if d > 1e-3:
+        raise AssertionError("eval fp32: card disagrees with the CPU")
 
-        # 2. MNv3 bf16: device pool, then streaming
-        pools = {}
-        nb = -(-len(ds) // EVAL_BS)                 # batches a run
-        want = {"decode_head": nb, "nms_indices": nb, "stem_conv_s2": 0,
-                "qgemm": 0}
-        kw = dict(compute_dtype=torch.bfloat16, device=dev)
-        evaluate_dataset(mnv3_ir, mnv3_vars, ds, batch_size=EVAL_BS, **kw)
-        mnv3, counts["eval mnv3 bf16"], pools["MNv3"] = _eval_run(
-            torch, launches, "MNv3 bf16 (device pool)", mnv3_ir, mnv3_vars,
-            ds, want, **kw)
-        streamed, counts["eval mnv3 bf16 streaming"], _ = _eval_run(
-            torch, launches, "MNv3 bf16 (streaming)", mnv3_ir, mnv3_vars,
-            dataset("eval80"), want, device_cache=False, **kw)
-        _same_predictions(mnv3, streamed, "MNv3 bf16, device pool vs "
-                          "streaming")
-        budget = os.environ.get("DYK_DEVICE_CACHE_GB")
-        os.environ["DYK_DEVICE_CACHE_GB"] = "0"   # declines the device pool
-        try:
-            pinned_ds = dataset("eval80")
-            # pinned before the run, as the device pool of ``ds`` was
-            P.select_image_pool(pinned_ds, EVAL_HW, None, dev)
-            pinned, counts["eval mnv3 bf16 pinned"], _ = _eval_run(
-                torch, launches, "MNv3 bf16 (pinned host pool)", mnv3_ir,
-                mnv3_vars, pinned_ds, want, **kw)
-        finally:
-            if budget is None:
-                del os.environ["DYK_DEVICE_CACHE_GB"]
-            else:
-                os.environ["DYK_DEVICE_CACHE_GB"] = budget
-        if getattr(pinned_ds, "_host_pool", None) is None:
-            raise AssertionError("the pinned host tier was not taken")
-        _same_predictions(mnv3, pinned, "MNv3 bf16, device pool vs pinned "
-                          "host pool")
-        del pinned_ds
-        busy = _busy(torch, mnv3, lambda: evaluate_dataset(
-            mnv3_ir, mnv3_vars, ds, batch_size=EVAL_BS, **kw), "MNv3 bf16")
-        stages = _stage_ms(torch, dataset("eval80"), dev, mnv3)
-        print(f"eval MNv3 bf16, host ms per batch of {EVAL_BS}: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in stages.items())
-            + " (metrics: whole split)", flush=True)
-        numbers["MNv3 bf16"] = {"ap": mnv3["ap"], "lamr": mnv3["lamr"],
-                                "fps": mnv3["fps"],
-                                "streaming_fps": streamed["fps"],
-                                "pinned_fps": pinned["fps"],
-                                "busy_ms": busy[0], "busy_pct": busy[1],
-                                "stage_ms": stages}
+    # 2. MNv3 bf16: device pool, then streaming
+    pools = {}
+    nb = -(-len(ds) // EVAL_BS)                 # batches a run
+    want = {"decode_head": nb, "nms_indices": nb, "stem_conv_s2": 0,
+            "qgemm": 0}
+    kw = dict(compute_dtype=torch.bfloat16, device=dev)
+    evaluate_dataset(mnv3_ir, mnv3_vars, ds, batch_size=EVAL_BS, **kw)
+    mnv3, counts["eval mnv3 bf16"], pools["MNv3"] = _eval_run(
+        torch, launches, "MNv3 bf16 (device pool)", mnv3_ir, mnv3_vars,
+        ds, want, **kw)
+    streamed, counts["eval mnv3 bf16 streaming"], _ = _eval_run(
+        torch, launches, "MNv3 bf16 (streaming)", mnv3_ir, mnv3_vars,
+        dataset("eval80"), want, device_cache=False, **kw)
+    _same_predictions(mnv3, streamed, "MNv3 bf16, device pool vs "
+                      "streaming")
+    budget = os.environ.get("DYK_DEVICE_CACHE_GB")
+    os.environ["DYK_DEVICE_CACHE_GB"] = "0"   # declines the device pool
+    try:
+        pinned_ds = dataset("eval80")
+        # pinned before the run, as the device pool of ``ds`` was
+        P.select_image_pool(pinned_ds, EVAL_HW, None, dev)
+        pinned, counts["eval mnv3 bf16 pinned"], _ = _eval_run(
+            torch, launches, "MNv3 bf16 (pinned host pool)", mnv3_ir,
+            mnv3_vars, pinned_ds, want, **kw)
+    finally:
+        if budget is None:
+            del os.environ["DYK_DEVICE_CACHE_GB"]
+        else:
+            os.environ["DYK_DEVICE_CACHE_GB"] = budget
+    if getattr(pinned_ds, "_host_pool", None) is None:
+        raise AssertionError("the pinned host tier was not taken")
+    _same_predictions(mnv3, pinned, "MNv3 bf16, device pool vs pinned "
+                      "host pool")
+    del pinned_ds
+    busy = _busy(torch, mnv3, lambda: evaluate_dataset(
+        mnv3_ir, mnv3_vars, ds, batch_size=EVAL_BS, **kw), "MNv3 bf16")
+    stages = _stage_ms(torch, dataset("eval80"), dev, mnv3)
+    print(f"eval MNv3 bf16, host ms per batch of {EVAL_BS}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items())
+        + " (metrics: whole split)", flush=True)
+    numbers["MNv3 bf16"] = {"ap": mnv3["ap"], "lamr": mnv3["lamr"],
+                            "fps": mnv3["fps"],
+                            "streaming_fps": streamed["fps"],
+                            "pinned_fps": pinned["fps"],
+                            "busy_ms": busy[0], "busy_pct": busy[1],
+                            "stage_ms": stages}
 
-        # 3. the flagship at full width and depth, seeded weights
-        fl_vars = seeded_variables(torch, flagship_ir, SEED)
-        want = dict(want, stem_conv_s2=2 * nb)
-        evaluate_dataset(flagship_ir, fl_vars, ds, batch_size=EVAL_BS, **kw)
-        fl, counts["eval flagship bf16"], pools["flagship bf16"] = _eval_run(
-            torch, launches, "flagship bf16", flagship_ir, fl_vars, ds, want,
-            **kw)
-        busy = _busy(torch, fl, lambda: evaluate_dataset(
-            flagship_ir, fl_vars, ds, batch_size=EVAL_BS, **kw),
-            "flagship bf16")
-        numbers["flagship bf16"] = {"ap": fl["ap"], "fps": fl["fps"],
-                                    "busy_ms": busy[0], "busy_pct": busy[1]}
-        cal = os.path.join(root, "calibration.npz")
-        qkw = dict(kw, int8=True, calibration=cal,
-                   calibration_batches=EVAL_CAL_BATCHES)
-        want = dict(want, stem_conv_s2=2 * (nb + EVAL_CAL_BATCHES),
-                    qgemm=10 * nb)
-        q1, counts["eval flagship int8 calibrating"], pools[
-            "flagship int8"] = _eval_run(
-            torch, launches, "flagship int8 (calibrating, saves the "
-            "artifact)", flagship_ir, fl_vars, ds, want, **qkw)
-        if not os.path.exists(cal):
-            raise AssertionError("the calibration artifact was not saved")
-        want = dict(want, stem_conv_s2=2 * nb)
-        q2, counts["eval flagship int8 from artifact"], _ = _eval_run(
-            torch, launches, "flagship int8 (from the artifact)",
-            flagship_ir, fl_vars, ds, want, **qkw)
-        _same_predictions(q1, q2, "flagship int8, calibrating vs from the "
-                          "artifact")
-        busy = _busy(torch, q2, lambda: evaluate_dataset(
-            flagship_ir, fl_vars, ds, batch_size=EVAL_BS, **qkw),
-            "flagship int8")
-        numbers["flagship int8"] = {"ap": q2["ap"], "fps": q2["fps"],
-                                    "busy_ms": busy[0], "busy_pct": busy[1]}
-        del fl_vars
+    # 3. the flagship at full width and depth, seeded weights
+    fl_vars = seeded_variables(flagship_ir, SEED)
+    want = dict(want, stem_conv_s2=2 * nb)
+    evaluate_dataset(flagship_ir, fl_vars, ds, batch_size=EVAL_BS, **kw)
+    fl, counts["eval flagship bf16"], pools["flagship bf16"] = _eval_run(
+        torch, launches, "flagship bf16", flagship_ir, fl_vars, ds, want,
+        **kw)
+    busy = _busy(torch, fl, lambda: evaluate_dataset(
+        flagship_ir, fl_vars, ds, batch_size=EVAL_BS, **kw),
+        "flagship bf16")
+    numbers["flagship bf16"] = {"ap": fl["ap"], "fps": fl["fps"],
+                                "busy_ms": busy[0], "busy_pct": busy[1]}
+    cal = os.path.join(root, "calibration.npz")
+    qkw = dict(kw, int8=True, calibration=cal,
+               calibration_batches=EVAL_CAL_BATCHES)
+    want = dict(want, stem_conv_s2=2 * (nb + EVAL_CAL_BATCHES),
+                qgemm=10 * nb)
+    q1, counts["eval flagship int8 calibrating"], pools[
+        "flagship int8"] = _eval_run(
+        torch, launches, "flagship int8 (calibrating, saves the "
+        "artifact)", flagship_ir, fl_vars, ds, want, **qkw)
+    if not os.path.exists(cal):
+        raise AssertionError("the calibration artifact was not saved")
+    want = dict(want, stem_conv_s2=2 * nb)
+    q2, counts["eval flagship int8 from artifact"], _ = _eval_run(
+        torch, launches, "flagship int8 (from the artifact)",
+        flagship_ir, fl_vars, ds, want, **qkw)
+    _same_predictions(q1, q2, "flagship int8, calibrating vs from the "
+                      "artifact")
+    busy = _busy(torch, q2, lambda: evaluate_dataset(
+        flagship_ir, fl_vars, ds, batch_size=EVAL_BS, **qkw),
+        "flagship int8")
+    numbers["flagship int8"] = {"ap": q2["ap"], "fps": q2["fps"],
+                                "busy_ms": busy[0], "busy_pct": busy[1]}
+    del fl_vars
 
-        # 5. K1-K4 at the eval's shapes
-        placed = graph.place_folded(
-            mnv3_ir, graph.fold_batchnorm(mnv3_ir, mnv3_vars), dev,
-            torch.bfloat16)
-        kernels = _eval_shape_kernels(torch, dev, mnv3_ir, placed, ds,
-                                      flagship_ir, pools, results)
-        del placed
+    # 5. K1-K4 at the eval's shapes
+    placed = graph.place_folded(
+        mnv3_ir, graph.fold_batchnorm(mnv3_ir, mnv3_vars), dev,
+        torch.bfloat16)
+    kernels = _eval_shape_kernels(torch, dev, mnv3_ir, placed, ds,
+                                  flagship_ir, pools, results)
+    del placed
 
-        # 6. the entry point as a subprocess
-        ck = os.path.join(root, "mnv3_ckpt")
-        jx = weights.to_jax_variables(mnv3_vars)
-        save_checkpoint(ck, params=jx["params"], bn_state=jx["state"])
-        data = os.path.join(root, "eval.data")
-        with open(data, "w") as f:
-            f.write(f"classes=1\ntest={splits['eval80']}\n")
-        cmd = [sys.executable, "-m", "double_yolo_kaist_torch.evaluate",
-               "--cfg", MNV3_CFG, "--weights", ck, "--data", data,
-               "--img-size", str(EVAL_IMG), "--batch-size", str(EVAL_BS),
-               "--cache-images", "disk"]
-        env = dict(os.environ, PYTHONPATH=ROOT)
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                           text=True, timeout=600)
-        lines = r.stdout.splitlines()
-        print(f"entry point: exit {r.returncode} in "
-              f"{time.perf_counter() - t0:.1f} s; stdout:\n  "
-              + "\n  ".join(lines), flush=True)
-        if r.returncode != 0:
-            raise AssertionError(f"the entry point failed:\n"
-                                 f"{r.stderr[-3000:]}")
-        ap_line = [x for x in lines if x.startswith("VOC Average Precision")]
-        if (sum(x.startswith(("AP@", "AR@")) for x in lines) != 12
-                or len(ap_line) != 1
-                or not any(x.startswith("Log Average Miss Rate")
-                           for x in lines)
-                or not any(x.startswith("average detecting fps")
-                           for x in lines)):
-            raise AssertionError("the entry point did not print the CLI's "
-                                 "lines")
-        ap = float(ap_line[0].split("=")[-1].strip().rstrip("%")) / 100
-        print(f"entry point VOC-AP {ap:.4f}, in-process bf16 "
-              f"{mnv3['ap']:.6f} (bound 1e-3)", flush=True)
-        if abs(ap - mnv3["ap"]) > 1e-3:
-            raise AssertionError("the entry point's AP differs from the "
-                                 "in-process run's")
+    # 6. the entry point as a subprocess
+    ck = os.path.join(root, "mnv3_ckpt")
+    jx = weights.to_jax_variables(mnv3_vars)
+    save_checkpoint(ck, params=jx["params"], bn_state=jx["state"])
+    data = os.path.join(root, "eval.data")
+    with open(data, "w") as f:
+        f.write(f"classes=1\ntest={splits['eval80']}\n")
+    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.evaluate",
+           "--cfg", MNV3_NAME, "--weights", ck, "--data", data,
+           "--img-size", str(EVAL_IMG), "--batch-size", str(EVAL_BS),
+           "--cache-images", "disk"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    lines = r.stdout.splitlines()
+    print(f"entry point: exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; stdout:\n  "
+          + "\n  ".join(lines), flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"the entry point failed:\n"
+                             f"{r.stderr[-3000:]}")
+    ap_line = [x for x in lines if x.startswith("VOC Average Precision")]
+    if (sum(x.startswith(("AP@", "AR@")) for x in lines) != 12
+            or len(ap_line) != 1
+            or not any(x.startswith("Log Average Miss Rate")
+                       for x in lines)
+            or not any(x.startswith("average detecting fps")
+                       for x in lines)):
+        raise AssertionError("the entry point did not print the CLI's "
+                             "lines")
+    ap = float(ap_line[0].split("=")[-1].strip().rstrip("%")) / 100
+    print(f"entry point VOC-AP {ap:.4f}, in-process bf16 "
+          f"{mnv3['ap']:.6f} (bound 1e-3)", flush=True)
+    if abs(ap - mnv3["ap"]) > 1e-3:
+        raise AssertionError("the entry point's AP differs from the "
+                             "in-process run's")
     print("eval numbers: " + json.dumps(numbers), flush=True)
-    return counts, kernels
+    return counts, kernels, ck
+
+
+# ---------------------------------------------------------------- phase 10
+
+# the substring of each kernel's name in a profile
+KERNEL_NAMES = {"K1": "decode_heads_kernel", "K2": "nms_kernel",
+                "K3": "stem_wg_kernel", "K4": "qgemm_wg_kernel"}
+
+
+def _eager_request(torch, pred, v, l):
+    """A request on the eager path: the frames zero-padded into their bucket
+    on the device, ``run_batch``, one fetch of the packed output,
+    ``unpack_detections``."""
+    from double_yolo_kaist_torch.serving import pack, unpack_detections
+    n, src_hw = len(v), tuple(v.shape[1:3])
+    _, ratio, pad = pred._preprocess(src_hw)
+    pv = torch.zeros((pred._bucket(n),) + v.shape[1:], dtype=torch.uint8,
+                     device=pred.device)
+    pl = torch.zeros_like(pv)
+    pv[:n] = torch.from_numpy(v).to(pred.device)
+    pl[:n] = torch.from_numpy(l).to(pred.device)
+    packed = pack(*pred.run_batch(pv, pl)).cpu().numpy()
+    return unpack_detections(packed[..., :6], packed[..., 6] > 0.5, n,
+                             ratio[0], pad, src_hw)
+
+
+def _same_detections(got, want) -> bool:
+    return len(got) == len(want) and all(
+        np.array_equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+
+
+def _request_ms(torch, fn, reps=12):
+    """(median, min, max) host ms of ``reps`` synchronised calls."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), min(ts), max(ts)
+
+
+def _busy_ms(torch, fn):
+    """Device ms of one call of ``fn`` by torch.profiler (a blind window is
+    tried again); None if three windows show nothing."""
+    for _ in range(3):
+        busy = sum(_profile(torch, fn).values())
+        if busy > 0:
+            return busy
+    return None
+
+
+def phase_graphs(torch, launches, served):
+    """Serving from CUDA graphs. ``served``: [(label, Predictor, frames, the
+    launches one forward holds)]. Returns (counts per run, {label: {bs:
+    graph and eager ms and busy}})."""
+    counts, table = {}, {}
+    for label, pred, frames, held in served:
+        quant = pred._int8
+        hw = tuple(frames[1][0].shape[1:3])
+        launches.clear()                     # this run: graph + eager
+        for n in (1, 3, 8):
+            g = pred._graphs.get((pred._bucket(n), hw, quant))
+            replays = g.replays if g is not None else 0
+            got = pred(*frames[n])
+            g = pred._graphs.get((pred._bucket(n), hw, quant))
+            if g is None or g.replays != replays + 1:
+                raise AssertionError(f"{label}: a request of {n} was not one "
+                                     f"replay of its bucket's graph")
+            if {k: g.launches.get(k, 0) for k in held} != held:
+                raise AssertionError(f"{label}: the graph of bucket "
+                                     f"{pred._bucket(n)} holds {g.launches}, "
+                                     f"want {held}")
+            want = _eager_request(torch, pred, *frames[n])
+            same = _same_detections(got, want)
+            print(f"{label}, graph vs eager, request of {n} (bucket "
+                  f"{pred._bucket(n)}, replay {g.replays}): detections "
+                  f"{[len(b) for b, _, _ in got]} identical {same}",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"{label}: the graph's detections "
+                                     f"differ from the eager path's")
+        counts[f"graph {label}"] = dict(launches)     # read just after it
+        bad = {k: counts[f"graph {label}"].get(k, 0) for k in held
+               if counts[f"graph {label}"].get(k, 0) != 6 * held[k]}
+        if bad:
+            raise AssertionError(f"{label}: 3 replays and 3 eager forwards "
+                                 f"launched {bad}, want 6 x {held}")
+
+        # one replay in a profiler window: the kernels by name
+        g = pred._graphs[(pred._bucket(8), hw, quant)]
+        want = {"K1": 1, "K2": 1, "K3": held.get("stem_conv_s2", 0),
+                "K4": held.get("qgemm", 0)}
+        for tries in range(1, 7):               # a window may lose an event
+            events = _kernel_events(torch, g.graph.replay, 1)
+            got = {k: sum(c for name, c in events.items() if sub in name)
+                   for k, sub in KERNEL_NAMES.items()}
+            if got == want:
+                break
+        print(f"{label}, profile of one replay (bs 8), window {tries}: "
+              f"{got} of {sum(events.values())} device events, "
+              f"{len(events)} kernel names", flush=True)
+        if got != want:
+            raise AssertionError(f"{label}: one replay showed {got}, want "
+                                 f"{want}")
+
+        stage = pred._stages[(pred._bucket(8), hw)]
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            stage.load(*frames[8])
+        torch.cuda.synchronize()
+        print(f"{label}: staging 8 frames (host copy into pinned memory, "
+              f"then H2D): {(time.perf_counter() - t0) * 1e3:.3f} ms",
+              flush=True)
+        table[label] = {}
+        for n in (1, 8):
+            row = {}
+            for path, fn in (("graph", lambda: pred(*frames[n])),
+                             ("eager", lambda: _eager_request(
+                                 torch, pred, *frames[n]))):
+                med, lo, hi = _request_ms(torch, fn)
+                busy = _busy_ms(torch, fn)
+                row[path] = {"median_ms": med, "min_ms": lo, "max_ms": hi,
+                             "busy_ms": busy,
+                             "busy_pct": None if busy is None
+                             else 100 * busy / med}
+                print(f"{label}, {path}, request of {n}: median {med:.3f} "
+                      f"ms ({lo:.3f}-{hi:.3f}), device busy {busy} ms, "
+                      f"{row[path]['busy_pct']}% of the median", flush=True)
+            table[label][n] = row
+    print("graph numbers: " + json.dumps(table), flush=True)
+    return counts, table
+
+
+# ---------------------------------------------------------------- phase 11
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _http(url, body=None, timeout=300):
+    import urllib.request
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _alone(pred, v, l, buckets):
+    """One frame served alone in each bucket: {bucket: detections}."""
+    out = {}
+    for b in buckets:
+        fv = np.zeros((b,) + v.shape, np.uint8)
+        fl = np.zeros_like(fv)
+        fv[0], fl[0] = v, l
+        out[b] = pred(fv, fl)[0]
+    return out
+
+
+def _matching_bucket(got, alone):
+    """The buckets whose lone-frame detections equal ``got`` (boxes,
+    scores, classes as lists or arrays)."""
+    def equal(x, y):
+        y = np.asarray(y)
+        x = np.asarray(x, dtype=y.dtype)
+        return x.size == y.size and np.array_equal(x.reshape(y.shape), y)
+
+    return [b for b, want in alone.items()
+            if all(equal(x, y) for x, y in zip(got, want))]
+
+
+def _serve_subprocess(torch, dev, mnv3_ir, mnv3_vars, ckpt):
+    """``serve`` on MNv3 by its zoo name: 32 concurrent raw requests."""
+    import base64
+    import concurrent.futures
+
+    from double_yolo_kaist_torch.serving import Predictor
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.serve", "--cfg",
+           MNV3_NAME, "--weights", ckpt, "--img-size", "640",
+           "--warmup-hw", "512", "640", "--port", str(port)]
+    rng = np.random.default_rng(SEED + 11)
+    frames = [tuple(rng.integers(0, 256, (512, 640, 3), dtype=np.uint8)
+                    for _ in range(2)) for _ in range(32)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ,
+                                                    PYTHONPATH=ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        while True:
+            try:
+                if _http(f"{url}/healthz", timeout=2)["status"] == "ok":
+                    break
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError(f"serve exited {proc.returncode}:\n"
+                                         f"{proc.stdout.read()[-3000:]}")
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("serve did not come up in 300 s")
+                time.sleep(0.5)
+        up = time.perf_counter() - t0
+
+        def post(pair):
+            v, l = pair
+            return _http(f"{url}/detect", json.dumps({
+                "visible": base64.b64encode(v.tobytes()).decode(),
+                "lwir": base64.b64encode(l.tobytes()).decode(),
+                "encoding": "raw", "shape": [512, 640]}).encode())
+
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=32) as ex:
+            answers = list(ex.map(post, frames))
+        burst = time.perf_counter() - t1
+        stats = _http(f"{url}/healthz")["microbatch"]
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    print(f"serve: up in {up:.1f} s ({out.strip().splitlines()}); 32 "
+          f"concurrent raw requests in {burst:.3f} s; micro-batch stats "
+          f"{stats}", flush=True)
+    buckets = (1, 4, 16)
+    pred = Predictor(mnv3_ir, mnv3_vars, img_size=640, batch_buckets=buckets,
+                     device=dev)
+    matched = []
+    for (v, l), a in zip(frames, answers):
+        got = (a["boxes"], a["scores"], a["classes"])
+        alone = _alone(pred, v, l, buckets)
+        matched.append(_matching_bucket(got, alone))
+    print(f"serve: answers equal to the frame served alone in process, "
+          f"buckets matched per request {matched}; detections "
+          f"{[len(a['boxes']) for a in answers]}", flush=True)
+    if not all(matched):
+        raise AssertionError("serve answered other detections than the "
+                             "in-process Predictor")
+    if stats["frames"] != 32 or not stats["mean_batch"] > 1:
+        raise AssertionError(f"serve did not coalesce: {stats}")
+    return stats
+
+
+def _detect_subprocess(dev, mnv3_ir, mnv3_vars, ckpt, root):
+    """``detect --no-figure`` on 8 pairs of phase 9's split."""
+    import cv2
+
+    from double_yolo_kaist_torch.detect import get_pair_paths
+    from double_yolo_kaist_torch.serving import Predictor
+    src = os.path.join(root, "images", "eval")
+    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.detect", "--cfg",
+           MNV3_NAME, "--weights", ckpt, "--source", src, "--max-images",
+           "8", "--no-figure"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=600)
+    lines = r.stdout.splitlines()
+    print(f"detect: exit {r.returncode} in {time.perf_counter() - t0:.1f} "
+          f"s; stdout:\n  " + "\n  ".join(lines), flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"detect failed:\n{r.stderr[-3000:]}")
+    counts = {}
+    for x in lines[:-2]:
+        name, n = x.rsplit(": ", 1)
+        counts[name] = int(n.split()[0])
+    if len(counts) != 8 or not lines[-2].startswith("average fps: ") \
+            or not lines[-1].startswith("miss rate"):
+        raise AssertionError("detect did not print its lines")
+    pred = Predictor(mnv3_ir, mnv3_vars, img_size=512, conf_thres=0.1,
+                     iou_thres=0.5, batch_buckets=(1,), device=dev)
+    want = {}
+    for name in counts:
+        vp, lp = get_pair_paths(os.path.join(src, name))
+        v = cv2.imread(vp)[None, :, :, ::-1]
+        l = cv2.imread(lp)[None, :, :, ::-1]
+        want[name] = len(pred(v, l)[0][0])
+    print(f"detect: counts per image {counts}, in process {want}",
+          flush=True)
+    if counts != want:
+        raise AssertionError("detect's counts differ from the in-process "
+                             "Predictor's")
+
+
+def _bench_subprocess(leg):
+    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.bench", leg]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=600)
+    print(f"bench {leg}: exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; stderr "
+          f"{r.stderr.strip().splitlines()[-4:]}", flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"bench {leg} failed:\n{r.stderr[-3000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"bench {leg}: {json.dumps(line)}", flush=True)
+    if not ({"metric", "value", "unit", "vs_baseline", "repeats"}
+            <= set(line) and line["value"] > 0):
+        raise AssertionError(f"bench {leg} printed {line}")
+    return line
+
+
+def _microbatch(torch, launches, pred, counts):
+    """A MicroBatcher over the flagship bf16 graph Predictor, 16 submitter
+    threads, against the frames served alone."""
+    import threading
+
+    from double_yolo_kaist_torch.serving import MicroBatcher
+    rng = np.random.default_rng(SEED + 12)
+    frames = [tuple(rng.integers(0, 256, (512, 640, 3), dtype=np.uint8)
+                    for _ in range(2)) for _ in range(16)]
+    got = [None] * 16
+    mb = MicroBatcher(pred, max_batch=16)
+    try:
+        def submit(i):
+            got[i] = mb.submit(*frames[i])
+
+        threads = [threading.Thread(target=submit, args=(i,))
+                   for i in range(16)]
+        launches.clear()                     # the micro-batched run
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        counts["microbatch flagship bf16"] = dict(launches)
+        dt = (time.perf_counter() - t0) * 1e3
+        if any(t.is_alive() for t in threads) or None in got:
+            raise AssertionError("a MicroBatcher submitter did not finish")
+        stats = mb.stats
+    finally:
+        mb.close()
+    alone = [_alone(pred, v, l, pred.batch_buckets) for v, l in frames]
+    matched = [_matching_bucket(g, a) for g, a in zip(got, alone)]
+    print(f"MicroBatcher, flagship bf16 graphs, 16 threads: {dt:.1f} ms, "
+          f"stats {stats}, launches {counts['microbatch flagship bf16']}; "
+          f"buckets whose lone-frame detections each answer equals "
+          f"{matched}", flush=True)
+    if not all(matched):
+        raise AssertionError("the MicroBatcher's answers differ from "
+                             "unbatched requests")
+    # a frame served in a bigger bucket against the same frame in bucket 1
+    # (cuDNN may pick other kernels for another batch size). Near-equal
+    # scores may swap places, so detections are matched as sets: each box
+    # to the nearest box of the other answer, scores in sorted order.
+    same_n = d_box = d_score = 0
+    for g, a in zip(got, alone):
+        want = a[1]
+        if len(g[0]) == len(want[0]):
+            same_n += 1
+            if len(g[0]):
+                d = np.abs(g[0][:, None] - want[0][None]).max(-1)
+                d_box = max(d_box, float(d.min(1).max()), float(d.min(0).max()))
+                d_score = max(d_score, float(np.abs(
+                    np.sort(g[1]) - np.sort(want[1])).max()))
+    print(f"MicroBatcher answers against bucket 1 (unbatched): "
+          f"{sum(1 in m for m in matched)} of 16 bit-identical, {same_n} "
+          f"with the same count; every box within {d_box:.4f} px of one in "
+          f"the other answer, sorted scores within {d_score:.6f}", flush=True)
+
+
+def phase_entry_points(torch, dev, launches, mnv3_ir, mnv3_vars,
+                       flagship_pred, ckpt, root):
+    """The entry points as subprocesses, and the MicroBatcher in process.
+    Returns (launch counts of the in-process run, numbers)."""
+    counts, numbers = {}, {}
+    numbers["serve"] = _serve_subprocess(torch, dev, mnv3_ir, mnv3_vars,
+                                         ckpt)
+    _detect_subprocess(dev, mnv3_ir, mnv3_vars, ckpt, root)
+    numbers["bench"] = {leg: _bench_subprocess(leg)
+                        for leg in ("--bf16", "--int8")}
+    _microbatch(torch, launches, flagship_pred, counts)
+    return counts, numbers
 
 
 def main() -> int:
@@ -1782,33 +2133,63 @@ def main() -> int:
         except Exception:                  # noqa: BLE001 — report, go on
             traceback.print_exc()
             failed.append(name)
-    counts = {}
+    counts, served = {}, {}
     try:
-        counts["mnv3"], _ = phase_end_to_end(torch, ir, dev, _build.launches)
+        counts["mnv3"], _, served["mnv3"] = phase_end_to_end(
+            torch, ir, dev, _build.launches)
     except Exception:                      # noqa: BLE001
         traceback.print_exc()
         failed.append("end to end")
     try:
-        flagship_counts, _ = phase_flagship(torch, dev, _build.launches)
+        flagship_counts, _, flagship_served = phase_flagship(
+            torch, dev, _build.launches)
         counts.update(flagship_counts)
+        served.update(flagship_served)
     except Exception:                      # noqa: BLE001
         traceback.print_exc()
         failed.append("flagship end to end")
     eval_kernels = {}
-    if not failed:                         # it prints beside phases 3-7
-        try:
-            eval_counts, eval_kernels = phase_eval(
-                torch, dev, _build.launches, ir, flagship_ir, results)
-            counts.update(eval_counts)
-        except Exception:                  # noqa: BLE001
-            traceback.print_exc()
-            failed.append("evaluate")
+    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
+        ckpt = None
+        if not failed:                     # it prints beside phases 3-7
+            try:
+                eval_counts, eval_kernels, ckpt = phase_eval(
+                    torch, dev, _build.launches, ir, flagship_ir, results,
+                    root)
+                counts.update(eval_counts)
+            except Exception:              # noqa: BLE001
+                traceback.print_exc()
+                failed.append("evaluate")
+        if not failed:
+            held = {"decode_head": 1, "nms_indices": 1}
+            try:
+                graph_counts, _ = phase_graphs(torch, _build.launches, [
+                    ("MNv3 bf16", served["mnv3"][0], served["mnv3"][1],
+                     held),
+                    ("flagship bf16", *served["flagship bf16"],
+                     dict(held, stem_conv_s2=2)),
+                    ("flagship int8", *served["flagship int8"],
+                     dict(held, stem_conv_s2=2, qgemm=10))])
+                counts.update(graph_counts)
+            except Exception:              # noqa: BLE001
+                traceback.print_exc()
+                failed.append("graphs")
+        if not failed:
+            try:
+                entry_counts, _ = phase_entry_points(
+                    torch, dev, _build.launches, ir, served["mnv3"][2],
+                    served["flagship bf16"][0], ckpt, root)
+                counts.update(entry_counts)
+            except Exception:              # noqa: BLE001
+                traceback.print_exc()
+                failed.append("entry points")
     if failed:
         return _fail(f"phases failed: {failed}")
 
     def launched(kernel):
         """Launches of ``kernel`` summed over the main-path runs (MNv3,
-        flagship bf16, flagship int8, and the eval runs of phase 9), each
+        flagship bf16, flagship int8, the eval runs of phase 9, the graph
+        runs of phase 10 and the micro-batched run of phase 11), each
         counted from 0 just before its run and read just after it."""
         return sum(c.get(kernel, 0) for c in counts.values())
 

@@ -1,8 +1,9 @@
 """Offline evaluation entry point: COCO stats + VOC-AP@0.5 + LAMR + fps on a
 KAIST split (the reference's evaluate.py:126-145 surface).
 
-    python -m double_yolo_kaist_torch.evaluate --cfg <model.cfg> \\
-        --weights <checkpoint dir or reference .pt> --data <split.data> \\
+    python -m double_yolo_kaist_torch.evaluate --cfg <model.cfg or zoo name> \\
+        --weights <checkpoint dir, reference .pt or darknet .weights> \\
+        --data <split.data> \\
         [--test-type test] [--img-size 512] [--batch-size 32] [--fp32 | --int8]
 
 The flags and printed lines are those of the JAX package's
@@ -18,40 +19,11 @@ import os
 import numpy as np
 import torch
 
-from .config.ir import compile_cfg
+from .common import DEFAULT_HYP, build_model
 from .config.parser import load_hyp, parse_data_cfg
 from .data.dataset import KaistDataset
 from .eval.coco_map import summarize
 from .eval.evaluator import evaluate_dataset
-from .models import weights as W
-from .utils.checkpoint import load_checkpoint
-
-REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
-DEFAULT_HYP = os.path.join(REPO_ROOT, "configs", "hyp.scratch.4.yaml")
-
-
-def build_model(cfg: str, weights: str):
-    """cfg path + weights (a checkpoint directory in the JAX package's
-    format, or a reference ``.pt`` / ``.pth``) -> (ir, the port's
-    variables)."""
-    if not weights:
-        raise NotImplementedError(
-            "evaluating random weights needs graph.init, which is not ported "
-            "yet (ROADMAP.md, queue 1 item 7)")
-    if weights.endswith(".weights"):
-        raise NotImplementedError(
-            "darknet .weights import is not ported yet (ROADMAP.md, queue 1: "
-            "darknet weights and detect)")
-    ir = compile_cfg(cfg)
-    if os.path.isdir(weights):
-        ck = load_checkpoint(weights)
-        variables = W.from_jax_variables(
-            ir, {"params": ck["params"], "state": ck.get("bn_state", {})})
-    elif weights.endswith((".pt", ".pth")):
-        variables = W.from_torch_checkpoint(ir, weights)
-    else:
-        raise ValueError(f"unrecognized weights format: {weights}")
-    return ir, variables
 
 
 def main(argv=None):

@@ -151,3 +151,70 @@ def from_torch_checkpoint(ir: GraphIR, path: str) -> dict:
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
     return from_torch_state_dict(ir, sd)
+
+
+def _darknet_convs(ir: GraphIR, cutoff: int = -1):
+    """The conv nodes a darknet ``.weights`` file holds, up to ``cutoff``."""
+    nodes = ir.nodes if cutoff < 0 else ir.nodes[:cutoff]
+    return [n for n in nodes if n.kind == "conv"]
+
+
+def missing_from_darknet(ir: GraphIR, cutoff: int = -1) -> list:
+    """The parameterized nodes (``"l<i>"``) that a darknet ``.weights`` file
+    read with ``cutoff`` leaves without weights: convs past ``cutoff`` and
+    every node kind darknet does not store (depthwise-separable, SE,
+    inception, weighted shortcut)."""
+    have = {f"l{n.index}" for n in _darknet_convs(ir, cutoff)}
+    need = [f"l{n.index}" for n in ir.nodes
+            if n.kind in ("conv", "dwconv", "se", "inception")
+            or (n.kind == "shortcut" and n.weighted)]
+    return [k for k in need if k not in have]
+
+
+def from_darknet_weights(ir: GraphIR, path: str, cutoff: int = -1) -> dict:
+    """Read a darknet ``.weights`` binary (3x int32 header + int64 seen +
+    fp32 stream; per BN conv: BN bias, scale, mean, var, then the OIHW
+    kernel; per plain conv: bias, then the kernel — reference
+    models.py:318-364, the JAX package's ``import_weights.
+    from_darknet_weights``). Returns partial variables in the port's
+    layout covering the convs up to ``cutoff``."""
+    with open(path, "rb") as f:
+        np.fromfile(f, dtype=np.int32, count=3)   # version
+        np.fromfile(f, dtype=np.int64, count=1)   # images seen
+        stream = np.fromfile(f, dtype=np.float32)
+
+    ptr = 0
+
+    def take(n):
+        nonlocal ptr
+        if ptr + n > len(stream):
+            raise ValueError(f"{path}: the file ends after {len(stream)} "
+                             f"values; the model's convs need more")
+        out = torch.from_numpy(stream[ptr:ptr + n].copy())
+        ptr += n
+        return out
+
+    params: dict[str, dict] = {}
+    state: dict[str, dict] = {}
+    for node in _darknet_convs(ir, cutoff):
+        key = f"l{node.index}"
+        co, ci, k = node.out_ch, node.in_ch // node.groups, node.kernel
+        p: dict = {}
+        if node.bn:
+            b, w, mean, var = take(co), take(co), take(co), take(co)
+            p["bn"] = {"scale": w, "bias": b}
+            state[key] = {"mean": mean, "var": var}
+        else:
+            p["b"] = take(co)
+        p["w"] = take(co * ci * k * k).reshape(co, ci, k, k)
+        params[key] = p
+    return {"params": params, "state": state}
+
+
+def merge_variables(base: dict, loaded: dict) -> dict:
+    """Overlay loaded (possibly partial) variables onto a full set, node by
+    node (the tolerant load of reference train.py:102-104)."""
+    out = {"params": dict(base["params"]), "state": dict(base["state"])}
+    out["params"].update(loaded["params"])
+    out["state"].update(loaded["state"])
+    return out

@@ -34,6 +34,7 @@ from double_yolo_kaist_tpu.models import import_weights as JW
 from double_yolo_kaist_tpu.models import quantize as JQ
 from double_yolo_kaist_tpu.utils import checkpoint as JCK
 from double_yolo_kaist_torch import evaluate as TEV
+from double_yolo_kaist_torch.bench import seeded_variables
 from double_yolo_kaist_torch.config.ir import compile_cfg
 from double_yolo_kaist_torch.data import pipeline as TP
 from double_yolo_kaist_torch.data.dataset import KaistDataset
@@ -43,7 +44,6 @@ from double_yolo_kaist_torch.models import weights as TW
 from double_yolo_kaist_torch.utils import checkpoint as TCK
 from tests.test_torch_dataset import random_frames, write_split
 from tests.test_torch_quantize import _match_rate
-from chip_smoke import seeded_variables
 from tests.test_torch_slice import (MNV3, NPZ, TINY, _perturb_bn,
                                     write_narrow_flagship)
 
@@ -164,8 +164,8 @@ def flagship(tmp_path_factory):
     root = tmp_path_factory.mktemp("flagship")
     cfg = write_narrow_flagship(root)
     jir, tir = jax_compile_cfg(cfg), compile_cfg(cfg)
-    # chip_smoke's seeded draw: graph.init's distributions times the gain
-    tv = seeded_variables(torch, tir, 0)
+    # bench's seeded draw: graph.init's distributions times the gain
+    tv = seeded_variables(tir, 0)
     path = write_split(root, random_frames(np.random.default_rng(12), 6, HW))
     return jir, TW.to_jax_variables(tv), tir, tv, path
 

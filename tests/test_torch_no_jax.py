@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither jax nor the JAX package.
+"""The PyTorch port imports neither jax nor the JAX package (nor its
+``cli/`` entry points).
 
 Runs in a subprocess: this test process already holds jax (conftest.py)."""
 
@@ -26,14 +27,17 @@ def test_port_imports_no_jax():
     for name in ("ops.nms_kernel", "ops.stem", "ops.qgemm",
                  "models.quantize", "evaluate", "eval.evaluator",
                  "eval.metrics", "eval.coco_map", "data.dataset",
-                 "data.pipeline", "utils.checkpoint", "utils.native"):
+                 "data.pipeline", "utils.checkpoint", "utils.native",
+                 "common", "models.zoo", "serve", "detect", "bench",
+                 "data.streams", "utils.draw"):
         assert f"double_yolo_kaist_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(n for n in sys.modules\n"
-        "             if n.startswith(('jax', 'double_yolo_kaist_tpu')))\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                                    'double_yolo_kaist_tpu', 'cli'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
