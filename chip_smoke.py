@@ -79,9 +79,34 @@ result line):
      of phase 9's split, its count per image the in-process Predictor's;
      ``bench --bf16`` and ``bench --int8``, each printing its JSON line; and
      in process a MicroBatcher over the flagship bf16 graph Predictor with
-     16 submitter threads, giving what unbatched requests give.
-Then a JSON line of kernel numbers, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+     16 submitter threads, giving what unbatched requests give;
+ 12. the train step on the card: MNv3 (fixture weights) at bs 2, 128x160,
+     one SGD and one Adam step from the same variables and batch on the
+     card and on the CPU, TF32 off: in float64 activations the losses,
+     grad norm, parameter deltas and BN running stats must agree within
+     STEP_F64_BOUNDS; in fp32 the card must be as close to the float64
+     step as the CPU is (3x its error + 1e-6). Then the flagship at full
+     width and depth from graph.init, bf16, bs 8, 512x512, 20 Adam steps
+     at lr 1e-3 on one fixed batch: every loss finite, the last below the
+     first; median / min / max step ms over 10 steps after 3, images/s,
+     the device busy share and the top 10 kernels of one profiled step,
+     and the peak memory; MNv3's step at the same shape;
+ 13. training end to end: the Trainer in process (flagship bf16, bs 8, one
+     epoch on phase 9's split and its evaluation), whose launch counts
+     must show K1 and K2 once and K3 twice per evaluation batch; then
+     ``python -m double_yolo_kaist_torch.train`` as subprocesses: 2 epochs
+     (``last``, ``best``, ``results.txt``), ``--resume <out>/last --epochs
+     3`` (one more epoch), and MNv3 fine-tuned with ``--ema`` for 1 epoch
+     from phase 9's checkpoint (SGD); their checkpoints hold the JAX package's
+     layout (every key of params, BN state, the Adam or SGD optimizer
+     state and the EMA; ``load_checkpoint`` takes them all); ``python -m
+     double_yolo_kaist_torch.evaluate`` on the flagship's and MNv3's
+     ``last`` at the trainer's batch size must print the last mAP of its
+     results.txt and give the detections of the checkpoint scored in
+     process.
+``python3 chip_smoke.py --only train`` runs phases 12 and 13 alone (no
+result line). Then a JSON line of kernel numbers, the nvidia-smi line,
+and last {"ok": true, "device": {...}}.
 
 Times come from CUDA events (kernels) or the host clock around a
 synchronised request (end to end), after warm-up; each is the median of
@@ -2088,6 +2113,455 @@ def phase_entry_points(torch, dev, launches, mnv3_ir, mnv3_vars,
     return counts, numbers
 
 
+# ---------------------------------------------------------------- phase 12
+
+TRAIN_BS = 8
+TRAIN_HW = 512
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FIT = 3, 10, 20
+TRAIN_LR = 1e-3
+TRAIN_HYP = {"box": 3.54, "cls": 37.4 / 80, "obj": 64.3 * TRAIN_HW / 320,
+             "cls_pw": 1.0, "obj_pw": 1.0, "iou_t": 0.2, "fl_gamma": 0.0,
+             "ciou": 1.0, "momentum": 0.937, "weight_decay": 0.0005,
+             "lr0": TRAIN_LR, "lrf": 0.1}
+
+
+def _train_batch(torch, rng, bs, hw, dev, n_boxes=4):
+    """A fixed train batch from ``rng``: uint8 frames and up to
+    ``n_boxes`` labels an image (normalized cls cx cy w h)."""
+    from double_yolo_kaist_torch.train.loss import pad_labels
+    labels = []
+    for _ in range(bs):
+        n = int(rng.integers(1, n_boxes + 1))
+        cxy = rng.uniform(0.2, 0.8, (n, 2))
+        wh = rng.uniform(0.04, 0.3, (n, 2))
+        labels.append(np.concatenate([np.zeros((n, 1)), cxy, wh], 1)
+                      .astype(np.float32))
+    t, m = pad_labels(labels, 16)
+    return {"v": torch.from_numpy(rng.integers(0, 256, (bs,) + hw + (3,),
+                                               dtype=np.uint8)).to(dev),
+            "l": torch.from_numpy(rng.integers(0, 256, (bs,) + hw + (3,),
+                                               dtype=np.uint8)).to(dev),
+            "targets": torch.from_numpy(t).to(dev),
+            "tmask": torch.from_numpy(m).to(dev)}
+
+
+def _leaf_err(torch, a, b):
+    """max over leaves of ||a - b|| / ||b|| (leaves with b = 0 skipped)."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        y = y.detach().cpu().double()
+        x = x.detach().cpu().double()
+        scale = float(torch.linalg.vector_norm(y))
+        if scale > 0:
+            worst = max(worst, float(torch.linalg.vector_norm(x - y)) / scale)
+    return worst
+
+
+def _one_step(torch, ir, variables, batch, where, dtype, sgd):
+    """One train step of ``ir`` from ``variables`` on ``batch`` at
+    ``where`` with activations in ``dtype``: (metrics, param deltas, BN
+    state)."""
+    from double_yolo_kaist_torch.train import optim as OPT
+    from double_yolo_kaist_torch.train import step as ST
+    from double_yolo_kaist_torch.utils import tree as TR
+    tx = OPT.make_optimizer(TRAIN_HYP, lambda c: torch.tensor(TRAIN_LR),
+                            sgd=sgd)
+    st = ST.create_train_state(ir, SEED, tx, variables=variables,
+                               device=where)
+    before = [p.detach().clone() for p in TR.leaves(st.params)]
+    fn = ST.make_train_step(ir, TRAIN_HYP, tx, compute_dtype=dtype)
+    st, m = fn(st, {k: v.to(where) for k, v in batch.items()})
+    return (ST.metrics_to_host(m),
+            [p.detach() - b for p, b in zip(TR.leaves(st.params), before)],
+            TR.leaves(st.bn_state))
+
+
+def _step_errs(torch, got, want):
+    """Relative errors of one step against another: the loss terms, the
+    grad norm, the param deltas and the BN state (leaf by leaf, by norm)."""
+    (mg, dg, sg), (mw, dw, sw) = got, want
+    return {"loss": max(abs(mg[k] - mw[k]) / max(abs(mw[k]), 1e-12)
+                        for k in ("box_loss", "obj_loss", "class_loss",
+                                  "loss")),
+            "grad_norm": abs(mg["grad_norm"] - mw["grad_norm"])
+            / mw["grad_norm"],
+            "delta": _leaf_err(torch, dg, dw),
+            "state": _leaf_err(torch, sg, sw)}
+
+
+def _step_card_vs_cpu(torch, dev, ir, variables):
+    """One SGD and one Adam step of MNv3 at bs 2, 128x160 from the same
+    variables and batch, on the card and on the CPU, TF32 off. In float64
+    activations the two must agree tightly (STEP_F64_BOUNDS). In fp32,
+    train-mode BN over bs 2 amplifies rounding (one fp32 step moves some
+    leaves by tens of percent between any two summation orders), so the
+    card's fp32 step is held against the float64 step as closely as the
+    CPU's fp32 step is: within 3x the CPU's error, plus 1e-6."""
+    batch = _train_batch(torch, np.random.default_rng(SEED + 12), 2,
+                         (128, 160), "cpu")
+    cpu = torch.device("cpu")
+    with _NoTF32(torch):
+        for sgd in (True, False):
+            name = "SGD" if sgd else "Adam"
+            run = {(w.type, str(dt)[6:]): _one_step(torch, ir, variables,
+                                                    batch, w, dt, sgd)
+                   for w in (dev, cpu)
+                   for dt in (torch.float64, torch.float32)}
+            f64 = _step_errs(torch, run[("cuda", "float64")],
+                             run[("cpu", "float64")])
+            card32 = _step_errs(torch, run[("cuda", "float32")],
+                                run[("cpu", "float64")])
+            cpu32 = _step_errs(torch, run[("cpu", "float32")],
+                               run[("cpu", "float64")])
+            m = run[("cuda", "float32")][0]
+            print(f"train step MNv3 {name}, loss {m['loss']:.6f}, grad_norm "
+                  f"{m['grad_norm']:.4f}; float64 card vs CPU (bound): "
+                  + ", ".join(f"{k} {v:.2e} ({STEP_F64_BOUNDS[k]:g})"
+                              for k, v in f64.items())
+                  + "; fp32 against the float64 step, card / CPU: "
+                  + ", ".join(f"{k} {card32[k]:.2e} / {cpu32[k]:.2e}"
+                              for k in card32), flush=True)
+            bad = [k for k, v in f64.items() if not v <= STEP_F64_BOUNDS[k]]
+            bad += [f"fp32 {k}" for k in card32
+                    if not card32[k] <= 3 * cpu32[k] + 1e-6]
+            if bad:
+                raise AssertionError(f"train step {name}: card disagrees "
+                                     f"with the CPU: {bad}")
+
+
+STEP_F64_BOUNDS = {"loss": 1e-8, "grad_norm": 1e-6, "delta": 1e-4,
+                   "state": 1e-8}
+
+
+def _time_steps(torch, ir, variables, dev, label, n_steps):
+    """``n_steps`` bf16 Adam steps at constant lr on one fixed batch of
+    TRAIN_BS at TRAIN_HW x TRAIN_HW; each timed on the host clock (the
+    metrics' fetch synchronises). Returns (losses, ms of the steps after
+    the warm-up, profile of one more step, peak bytes)."""
+    from double_yolo_kaist_torch.train import optim as OPT
+    from double_yolo_kaist_torch.train import step as ST
+    batch = _train_batch(torch, np.random.default_rng(SEED + 13), TRAIN_BS,
+                         (TRAIN_HW, TRAIN_HW), dev)
+    tx = OPT.make_optimizer(TRAIN_HYP, lambda c: torch.tensor(TRAIN_LR))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = [ST.create_train_state(ir, SEED, tx, variables=variables,
+                                   device=dev)]
+    fn = ST.make_train_step(ir, TRAIN_HYP, tx, compute_dtype=torch.bfloat16)
+    losses, ms = [], []
+
+    def one():
+        state[0], m = fn(state[0], batch)
+        return ST.metrics_to_host(m)
+
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        m = one()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train {label}: non-finite metrics {m}")
+    peak = torch.cuda.max_memory_allocated()
+    prof = {}
+    for _ in range(3):                      # a blind window is tried again
+        prof = _profile(torch, one)
+        if prof:
+            break
+    timed = ms[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]
+    return losses, timed, prof, peak
+
+
+def phase_train_step(torch, dev, mnv3_ir, flagship_ir):
+    """The train step on the card: MNv3 card vs CPU (fp32, SGD and Adam);
+    the flagship at full width, bf16, bs 8, 512x512 from graph.init: step
+    times, images/s, busy share, top kernels, peak memory, and 20 steps on
+    one batch that must lower its loss; MNv3's step at the same shape.
+    Returns the numbers."""
+    from double_yolo_kaist_torch.models import graph, weights
+    mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
+    _step_card_vs_cpu(torch, dev, mnv3_ir, mnv3_vars)
+    numbers = {}
+    for label, ir, variables, n in (
+            ("flagship", flagship_ir, graph.init(flagship_ir, SEED),
+             TRAIN_FIT),
+            ("MNv3", mnv3_ir, mnv3_vars, TRAIN_WARMUP + TRAIN_TIMED)):
+        losses, timed, prof, peak = _time_steps(torch, ir, variables, dev,
+                                                label, n)
+        med = statistics.median(timed)
+        busy = sum(prof.values())
+        top = sorted(prof.items(), key=lambda kv: -kv[1])[:10]
+        numbers[label] = {
+            "step_ms_median": med, "step_ms_min": min(timed),
+            "step_ms_max": max(timed), "images_per_s": TRAIN_BS / med * 1e3,
+            "busy_ms": busy, "busy_pct": 100 * busy / med,
+            "peak_bytes": peak, "first_loss": losses[0],
+            "last_loss": losses[-1]}
+        print(f"train {label} bf16 bs {TRAIN_BS} {TRAIN_HW}x{TRAIN_HW}: step "
+              f"median {med:.3f} ms (min {min(timed):.3f}, max "
+              f"{max(timed):.3f}) over {len(timed)} steps after "
+              f"{TRAIN_WARMUP}; {TRAIN_BS / med * 1e3:.2f} images/s; "
+              f"device busy {busy:.3f} ms of a step ({100 * busy / med:.1f}%)"
+              f"; peak memory {peak / 2 ** 30:.3f} GiB; loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} "
+              f"steps", flush=True)
+        print(f"train {label} top kernels (device ms a step):\n  "
+              + "\n  ".join(f"{v:.3f} {k[:200]}" for k, v in top),
+              flush=True)
+        if label == "flagship" and not losses[-1] < losses[0]:
+            raise AssertionError(f"train {label}: {len(losses)} steps on one "
+                                 f"batch did not lower the loss")
+    print("train numbers: " + json.dumps(numbers), flush=True)
+    return numbers
+
+
+# ---------------------------------------------------------------- phase 13
+
+def _run(cmd, what, timeout=900):
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=timeout)
+    lines = r.stdout.splitlines()
+    print(f"{what}: exit {r.returncode} in {time.perf_counter() - t0:.1f} "
+          f"s; last lines:\n  " + "\n  ".join(lines[-6:]), flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"{what} failed:\n{r.stderr[-3000:]}")
+    return lines
+
+
+def _results_lines(path):
+    with open(path) as f:
+        return [x for x in f.read().splitlines() if x.startswith("epoch:")]
+
+
+def _expected_keys(params_keys, ema: bool, sgd: bool):
+    """The flat keys JAX's chain (add_decayed_weights -> scale_by_adam or
+    trace -> scale_by_learning_rate) gives its opt_state, and the EMA's."""
+    keys = {"opt_state/2/0"} | (set() if sgd else {"opt_state/1/0"})
+    for k in params_keys:
+        rest = k[len("params/"):]
+        keys |= ({f"opt_state/1/0/{rest}"} if sgd else
+                 {f"opt_state/1/1/{rest}", f"opt_state/1/2/{rest}"})
+        if ema:
+            keys.add(f"ema/params/{rest}")
+    if ema:
+        keys.add("ema/updates")
+    return keys
+
+
+def _check_checkpoint(path, ema: bool, sgd: bool = False):
+    """A checkpoint the port wrote holds the JAX layout: every key of
+    params, bn_state, the Adam or SGD opt_state and the EMA, and nothing
+    else; load_checkpoint with that structure as template takes every
+    array."""
+    from double_yolo_kaist_torch.utils.checkpoint import load_checkpoint
+    with open(os.path.join(path, "manifest.json")) as f:
+        keys = set(json.load(f)["keys"])
+    params = {k for k in keys if k.startswith("params/")}
+    bn = {k for k in keys if k.startswith("bn_state/")}
+    want = params | bn | _expected_keys(params, ema, sgd)
+    raw = load_checkpoint(path)
+
+    def template(tree):
+        if isinstance(tree, dict):
+            return {k: template(v) for k, v in tree.items()}
+        return np.zeros_like(tree)
+    tmpl = {k: template(v) for k, v in raw.items()
+            if k in ("params", "bn_state", "opt_state", "ema")}
+    back = load_checkpoint(path, tmpl)
+    got = load_checkpoint(path)
+    same = all(np.array_equal(a, b) for a, b in zip(
+        _leaves_np({k: back[k] for k in tmpl}),
+        _leaves_np({k: got[k] for k in tmpl})))
+    print(f"checkpoint {os.path.basename(path)}: {len(keys)} keys, JAX "
+          f"layout of {'SGD' if sgd else 'Adam'} "
+          f"{'with' if ema else 'without'} EMA: missing "
+          f"{sorted(want - keys)[:4]}, extra {sorted(keys - want)[:4]}; "
+          f"load_checkpoint with the JAX template takes every array: "
+          f"{same}", flush=True)
+    if keys != want or not same:
+        raise AssertionError(f"checkpoint {path}: not the JAX layout")
+
+
+def _leaves_np(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_np(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves_np(v)]
+    return [np.asarray(tree)]
+
+
+def phase_train_entry(torch, dev, launches, flagship_ir, root):
+    """The trainer in process (flagship bf16, bs 8, one epoch with its
+    evaluation, launch counts), then ``python -m
+    double_yolo_kaist_torch.train`` as subprocesses on phase 9's split:
+    2 epochs, a resume to 3, MNv3 fine-tuned with ``--ema``; ``evaluate``
+    on each ``last`` at the trainer's batch size must print results.txt's
+    last mAP; the checkpoints hold the JAX layout. Returns the launch
+    counts of the in-process run."""
+    from double_yolo_kaist_torch.config.parser import load_hyp
+    from double_yolo_kaist_torch.data.dataset import KaistDataset
+    from double_yolo_kaist_torch.train.trainer import Trainer
+    split = os.path.join(root, "eval80.txt")
+    data = os.path.join(root, "train.data")
+    with open(data, "w") as f:
+        f.write(f"classes=1\ntrain={split}\nvalid={split}\ntest={split}\n")
+    hyp = load_hyp(os.path.join(ROOT, "configs", "hyp.scratch.4.yaml"))
+    hyp["cls"] *= 1 / 80.0
+    hyp["obj"] *= TRAIN_HW / 320.0
+    runs = os.path.join(root, "runs")
+
+    # the main path in process: one epoch and its evaluation
+    train_ds = KaistDataset(split, TRAIN_HW, TRAIN_BS, augment=True, hyp=hyp,
+                            single_cls=True)
+    val_ds = KaistDataset(split, TRAIN_HW, TRAIN_BS, hyp=hyp, rect=True,
+                          single_cls=True)
+    n_batches = len(train_ds) // TRAIN_BS
+    n_eval = -(-len(val_ds) // TRAIN_BS)
+    trainer = Trainer(flagship_ir, hyp, epochs=1, batch_size=TRAIN_BS,
+                      img_size=TRAIN_HW, train_dataset=train_ds,
+                      val_dataset=val_ds, out_dir=runs, name="inproc",
+                      device=dev)
+    launches.clear()
+    t0 = time.perf_counter()
+    best = trainer.fit()
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    want = {"decode_head": n_eval, "nms_indices": n_eval,
+            "stem_conv_s2": 2 * n_eval, "qgemm": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    print(f"train in process: flagship bf16, {n_batches} steps + eval of "
+          f"{len(val_ds)} frames in {time.perf_counter() - t0:.1f} s, best "
+          f"mAP {best:.4f}; launches {got} (want {want})", flush=True)
+    if got != want:
+        raise AssertionError("train in process: launch counts")
+    del trainer
+
+    # the entry point as a subprocess
+    base = [sys.executable, "-m", "double_yolo_kaist_torch.train", "--cfg",
+            "Double-YOLOv4-Fshare-Global-CSE3", "--data", data,
+            "--img-size", str(TRAIN_HW), "--batch-size", str(TRAIN_BS),
+            "--out-dir", runs]
+    out = os.path.join(runs, "t2")
+    _run(base + ["--epochs", "2", "--name", "t2"], "train 2 epochs")
+    for name in ("last", "best", "results.txt"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"train: no {name} in {out}")
+    if len(_results_lines(os.path.join(out, "results.txt"))) != 2:
+        raise AssertionError("train: results.txt wants 2 epoch lines")
+    _run(base + ["--epochs", "3", "--name", "t2", "--resume",
+                 os.path.join(out, "last")], "train resumed to 3 epochs")
+    res = _results_lines(os.path.join(out, "results.txt"))
+    with open(os.path.join(out, "last", "manifest.json")) as f:
+        epoch = json.load(f)["epoch"]
+    print(f"resume: results.txt {len(res)} lines, last checkpoint epoch "
+          f"{epoch}", flush=True)
+    if len(res) != 3 or not res[-1].startswith("epoch:2 ") or epoch != 2:
+        raise AssertionError("train: the resume did not train epoch 2")
+    _check_checkpoint(os.path.join(out, "last"), ema=False)
+    _evaluate_last(out, "Double-YOLOv4-Fshare-Global-CSE3", data)
+
+    # the shorter --ema run: MNv3 from its trained weights (phase 9's
+    # checkpoint), one epoch of SGD (Adam's first steps at lr 1e-3 undo
+    # trained weights); its mAP is not 0, so that evaluate's reproduction
+    # of it means something
+    ckpt = os.path.join(root, "mnv3_ckpt")
+    _run(base[:4] + [MNV3_NAME, "--weights", ckpt] + base[5:]
+         + ["--epochs", "1", "--name", "mnv3", "--ema", "--sgd"],
+         "train MNv3 --ema --sgd, 1 epoch from its trained weights")
+    _check_checkpoint(os.path.join(runs, "mnv3", "last"), ema=True, sgd=True)
+    if _evaluate_last(os.path.join(runs, "mnv3"), MNV3_NAME, data) <= 0:
+        raise AssertionError("train MNv3: mAP 0 after fine-tuning")
+    return counts
+
+
+def _evaluate_last(out, cfg, data):
+    """``evaluate`` on ``out``/last at the trainer's batch size must print
+    the last mAP of ``out``/results.txt (4 decimals), and give the
+    detections (its precision curve) of the same checkpoint scored in
+    process; returns the mAP."""
+    from double_yolo_kaist_torch.common import build_model
+    from double_yolo_kaist_torch.config.parser import parse_data_cfg
+    from double_yolo_kaist_torch.data.dataset import KaistDataset
+    from double_yolo_kaist_torch.eval.evaluator import evaluate_dataset
+    npy = os.path.join(out, "curves.npy")
+    lines = _run([sys.executable, "-m", "double_yolo_kaist_torch.evaluate",
+                  "--cfg", cfg, "--weights", os.path.join(out, "last"),
+                  "--data", data, "--img-size", str(TRAIN_HW),
+                  "--batch-size", str(TRAIN_BS), "--npy-path", npy],
+                 f"evaluate {cfg} on last")
+    got_map = [x for x in lines if x.startswith("AP@")][0].split("=")[-1]
+    want_map = _results_lines(os.path.join(out, "results.txt"))[-1].split()[1]
+    cli = np.load(npy, allow_pickle=True).item()
+    ir, variables = build_model(cfg, os.path.join(out, "last"))
+    res = evaluate_dataset(ir, variables, KaistDataset(
+        parse_data_cfg(data)["test"], TRAIN_HW, TRAIN_BS, rect=True),
+        batch_size=TRAIN_BS, device="cuda")
+    same = np.array_equal(cli["precision"], res["curves"]["precision"])
+    print(f"evaluate {cfg} on last: mAP@[0.50:0.95] {got_map.strip()}, "
+          f"results.txt {want_map}; VOC-AP {cli['ap']:.6f}, in process "
+          f"{res['ap']:.6f}; the {len(cli['precision'])} detections' "
+          f"precision curve equal to the in-process run's: {same}",
+          flush=True)
+    if got_map.strip() != want_map or not same:
+        raise AssertionError("evaluate does not reproduce results.txt")
+    return float(want_map)
+
+
+def _train_phases(torch, dev, mnv3_ir, flagship_ir, root, counts, failed):
+    """Phases 12 and 13 (after the others have passed); returns the names
+    of those that failed."""
+    from double_yolo_kaist_torch.ops import _build
+    out = []
+    if failed:
+        return out
+    try:
+        phase_train_step(torch, dev, mnv3_ir, flagship_ir)
+    except Exception:                      # noqa: BLE001
+        traceback.print_exc()
+        out.append("train step")
+    if not out:
+        try:
+            counts["train"] = phase_train_entry(torch, dev, _build.launches,
+                                                flagship_ir, root)
+        except Exception:                  # noqa: BLE001
+            traceback.print_exc()
+            out.append("train entry point")
+    return out
+
+
+def _only_train(torch, dev, mnv3_ir, flagship_ir) -> int:
+    """``--only train``: phases 12 and 13 alone, on phase 9's split
+    labelled and checkpointed as phase 9 does it (a quicker run for work on
+    the training path; it prints no result line)."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    from double_yolo_kaist_torch.data.dataset import KaistDataset
+    from double_yolo_kaist_torch.eval.evaluator import evaluate_dataset
+    from double_yolo_kaist_torch.models import weights
+    from double_yolo_kaist_torch.utils.checkpoint import save_checkpoint
+    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
+        splits, cache = _eval_split(root, cv2)
+        ds = KaistDataset(splits["eval80"], EVAL_IMG, EVAL_BS, rect=True,
+                          cache_images=cache)
+        mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
+        with _NoTF32(torch):
+            res = evaluate_dataset(mnv3_ir, mnv3_vars, ds,
+                                   batch_size=EVAL_BS, device_cache=False,
+                                   compute_dtype=torch.float32, device=dev)
+        _write_labels(ds, res["predictions"])
+        jx = weights.to_jax_variables(mnv3_vars)
+        save_checkpoint(os.path.join(root, "mnv3_ckpt"), params=jx["params"],
+                        bn_state=jx["state"])
+        failed = _train_phases(torch, dev, mnv3_ir, flagship_ir, root, {},
+                               [])
+    if failed:
+        return _fail(f"phases failed: {failed}")
+    print("chip_smoke --only train: phases 12 and 13 passed", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2119,6 +2593,8 @@ def main() -> int:
 
     ir = compile_cfg(MNV3_CFG)
     flagship_ir = compile_cfg(FLAGSHIP_CFG)
+    if sys.argv[1:] == ["--only", "train"]:
+        return _only_train(torch, dev, ir, flagship_ir)
     results = {}
     for name, fn in (("K1", lambda: phase_decode(torch, ir, dev,
                                                  _build.launches)),
@@ -2183,6 +2659,8 @@ def main() -> int:
             except Exception:              # noqa: BLE001
                 traceback.print_exc()
                 failed.append("entry points")
+        failed += _train_phases(torch, dev, ir, flagship_ir, root, counts,
+                                failed)
     if failed:
         return _fail(f"phases failed: {failed}")
 

@@ -18,8 +18,9 @@ repeat (the counterpart of the JAX bench's in-device ``fori_loop``). On
 the CPU (``--device cpu``) the forwards run eagerly on the host clock.
 
 Weights: ``--weights`` (a checkpoint directory, ``.pt`` or darknet
-``.weights``), else :func:`seeded_variables` (``graph.init`` is not ported
-yet, ROADMAP.md queue 1 item 7).
+``.weights``), else :func:`seeded_variables` (kernels of graph.init's range
+times a gain, and BN statistics that are not the identity, so that the
+folded forward does real work on every layer).
 """
 
 from __future__ import annotations
@@ -198,8 +199,8 @@ def main(argv=None):
 
     if args.check_ap:
         raise NotImplementedError(
-            "--check-ap trains the tiny model, which needs the loss, the "
-            "step and the trainer (ROADMAP.md, queue 1 items 8 and 9)")
+            "--check-ap runs tools/overfit_check.py, which is not ported "
+            "yet (ROADMAP.md, queue 1 item 16)")
     device = resolve_device(args.device)
     from .common import build_model, resolve_cfg
     from .config.ir import compile_cfg

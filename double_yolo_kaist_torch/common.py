@@ -2,10 +2,10 @@
 line.
 
 Counterpart of the JAX package's ``cli/common.py``. ``evaluate``, ``serve``,
-``detect`` and ``bench`` all take ``--cfg`` as a cfg path or a zoo name
-(:mod:`.models.zoo`) and ``--weights`` as a checkpoint directory (the JAX
-package's format), a reference ``.pt`` / ``.pth`` or a darknet ``.weights``
-file.
+``detect``, ``bench`` and ``train`` all take ``--cfg`` as a cfg path or a
+zoo name (:mod:`.models.zoo`) and ``--weights`` as a checkpoint directory
+(the JAX package's format), a reference ``.pt`` / ``.pth``, a darknet
+``.weights`` file, or nothing (weights from ``graph.init``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import os
 
 from .config.ir import GraphIR, compile_cfg
+from .models import graph
 from .models import weights as W
 from .models.zoo import cfg_path
 from .utils.checkpoint import load_checkpoint
@@ -26,35 +27,29 @@ def resolve_cfg(cfg: str) -> str:
     return cfg if os.path.exists(cfg) else cfg_path(cfg)
 
 
-def build_model(cfg: str, weights: str, cutoff: int = -1):
+def build_model(cfg: str, weights: str = "", seed: int = 0,
+                cutoff: int = -1):
     """cfg path or zoo name + weights -> (ir, the port's variables).
 
-    ``weights``: a checkpoint directory, a reference ``.pt`` / ``.pth``, or
-    a darknet ``.weights`` file read up to ``cutoff`` (which must then cover
-    every parameter of the model: the rest would come from ``graph.init``,
-    not ported yet)."""
-    if not weights:
-        raise NotImplementedError(
-            "random weights need graph.init, which is not ported yet "
-            "(ROADMAP.md, queue 1 item 7)")
+    The variables start from :func:`.models.graph.init` with ``seed``;
+    ``weights`` is grafted over them tolerantly (JAX ``cli/common.py``):
+    a checkpoint directory (leaves of another shape keep their init), a
+    reference ``.pt`` / ``.pth`` or a darknet ``.weights`` file read up to
+    ``cutoff`` (node by node); ``""`` keeps the init."""
     ir: GraphIR = compile_cfg(resolve_cfg(cfg))
-    if weights.endswith(".weights"):
-        missing = W.missing_from_darknet(ir, cutoff)
-        if missing:
-            shown = ", ".join(missing[:8]) + (", ..." if len(missing) > 8
-                                              else "")
-            raise NotImplementedError(
-                f"darknet .weights hold convs only; {len(missing)} "
-                f"parameterized nodes of this model would stay without "
-                f"weights ({shown}) and would need graph.init, which is not "
-                f"ported yet (ROADMAP.md, queue 1 item 7)")
-        return ir, W.from_darknet_weights(ir, weights, cutoff)
+    variables = graph.init(ir, seed)
+    if not weights:
+        return ir, variables
     if os.path.isdir(weights):
-        ck = load_checkpoint(weights)
-        variables = W.from_jax_variables(
-            ir, {"params": ck["params"], "state": ck.get("bn_state", {})})
-    elif weights.endswith((".pt", ".pth")):
-        variables = W.from_torch_checkpoint(ir, weights)
+        template = W.to_jax_variables(variables)
+        ck = load_checkpoint(weights, {"params": template["params"],
+                                       "bn_state": template["state"]})
+        return ir, W.from_jax_variables(
+            ir, {"params": ck["params"], "state": ck["bn_state"]})
+    if weights.endswith((".pt", ".pth")):
+        loaded = W.from_torch_checkpoint(ir, weights)
+    elif weights.endswith(".weights"):
+        loaded = W.from_darknet_weights(ir, weights, cutoff)
     else:
         raise ValueError(f"unrecognized weights format: {weights}")
-    return ir, variables
+    return ir, W.merge_variables(variables, loaded)

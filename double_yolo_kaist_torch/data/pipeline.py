@@ -1,7 +1,13 @@
-"""The eval input pipeline: rect-letterboxed dual-stream batches on the device.
+"""The input pipelines: mosaic-augmented train batches and rect-letterboxed
+eval batches, dual-stream, on the device.
 
-Counterpart of the eval half of the JAX package's ``data/pipeline.py``:
-the reference's two-stage eval preprocessing (max-side resize with int()
+Counterpart of the JAX package's ``data/pipeline.py``. Train path
+(reference kaist_dataset.py:321-388, mosaic "quadra" order): decode (host)
+-> resize to max side s -> mosaic-4 canvas (2s x 2s) -> random affine
+(border -s//2 -> s x s) -> HSV jitter -> normalized xywh -> 50% flip ->
+float [0, 1] (:func:`make_train_augment_fn`, :func:`train_batch_plan`,
+:func:`train_batches`). Eval path: the reference's two-stage eval
+preprocessing (max-side resize with int()
 truncation, then a letterbox pad to the batch shape, kaist_dataset.py:
 203-208 and img_utils.py:5-53), the residency tiers of the split's uint8
 pairs, a background prefetch thread and :func:`eval_batches`.
@@ -17,8 +23,8 @@ Tiers, as the JAX package chooses them (:func:`select_image_pool`):
   * ``None``: per-batch streaming from :meth:`.dataset.KaistDataset.
     load_pair`.
 
-The train-side functions (batch plan, augmentation) are not ported yet
-(ROADMAP.md, queue 1 item 10), nor is CLAHE.
+CLAHE and the snowflake cutout are not ported yet (ROADMAP.md, queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -30,7 +36,105 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..train.loss import pad_labels
+from . import augment as A
 from .letterbox import resize_bilinear
+
+CLAHE_NOT_PORTED = ("CLAHE and the snowflake cutout are not ported yet "
+                    "(ROADMAP.md, queue 1 item 10)")
+
+
+def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
+                          snowflake: bool = False, clahe: bool = False,
+                          epoch_partners: bool = True,
+                          from_pool: bool = False):
+    """The train-time augmentation program (JAX pipeline.py:45-222, its
+    ``gather`` route, unchunked, fp32 pixels).
+
+    Returns ``fn(generator, v_u8, l_u8, labels, lmask)`` -> batch dict for
+    the train step ({"v", "l"}: (B, s, s, 3) fp32 in [0, 1]; "targets":
+    (B, 4T, 5) normalized xywh; "tmask": (B, 4T)), on the inputs' device.
+    With ``from_pool`` it is ``fn(generator, pool_v, pool_l, load_idx,
+    labels, lmask)`` and gathers the rows itself. Labels (B', T, 5) are
+    normalized xywh.
+
+    ``epoch_partners``: the inputs hold 4B pairs, B batch images followed
+    by 3B host-drawn mosaic partners (image i mosaics with B+3i..B+3i+2);
+    False: B pairs, partners drawn from the batch.
+
+    Every random is drawn at full-batch shape, on the CPU, from five
+    streams seeded from ``generator`` in JAX's order (mosaic, cutout,
+    affine, HSV, flip); ``fn.heavy`` runs the transforms from given
+    randoms, as JAX's ``heavy`` does, and ``fn.draw(generator, nb)``
+    returns them."""
+    if snowflake or clahe:
+        raise NotImplementedError(CLAHE_NOT_PORTED)
+    s = img_size
+    r = s / max(src_hw)
+    h1, w1 = int(src_hw[0] * r), int(src_hw[1] * r)
+    separable = (hyp.get("degrees", 0.0) == 0.0
+                 and hyp.get("shear", 0.0) == 0.0)
+
+    def draw(generator, nb: int) -> dict:
+        seeds = torch.randint(0, 2 ** 62, (5,), generator=generator).tolist()
+        g_mosaic, _g_cut, g_affine, g_hsv, g_flip = (
+            torch.Generator().manual_seed(x) for x in seeds)
+        centers = torch.randint(int(s * 0.5), int(s * 1.5) + 1, (nb, 2),
+                                generator=g_mosaic)
+        if epoch_partners:
+            partners = nb + torch.arange(3 * nb).reshape(nb, 3)
+        else:
+            partners = torch.randint(0, nb, (nb, 3), generator=g_mosaic)
+        Ms = A._affine_matrices(
+            g_affine, nb, (2 * s, 2 * s), hyp.get("degrees", 0.0),
+            hyp.get("translate", 0.0), hyp.get("scale", 0.0),
+            hyp.get("shear", 0.0), -s // 2)
+        hsv_r = (A._uniform(g_hsv, (nb, 3), -1.0, 1.0)
+                 * torch.tensor([hyp.get("hsv_h", 0.0), hyp.get("hsv_s", 0.0),
+                                 hyp.get("hsv_v", 0.0)], dtype=torch.float32)
+                 + 1.0)
+        do = torch.rand(nb, generator=g_flip) < 0.5
+        return {"idx": torch.cat([torch.arange(nb)[:, None], partners], 1),
+                "centers": centers, "Ms": Ms, "hsv_r": hsv_r, "do": do}
+
+    def heavy(v_u8, l_u8, labels, lmask, idx, centers, Ms, hsv_r, do):
+        """Resize -> mosaic paste -> affine -> HSV -> flip; every random
+        comes in as an argument. ``labels`` normalized xywh."""
+        dev = v_u8.device
+        idx = idx.to(dev)
+        # normalized xywh -> absolute xyxy in the resized frame
+        # (reference load_quadra_images, kaist_dataset.py:258-264)
+        cx, cy = labels[..., 1] * w1, labels[..., 2] * h1
+        bw, bh = labels[..., 3] * w1, labels[..., 4] * h1
+        lab = torch.stack([labels[..., 0], cx - bw / 2, cy - bh / 2,
+                           cx + bw / 2, cy + bh / 2], -1)
+        v4t = resize_bilinear(v_u8[idx], h1, w1)           # (b, 4, h1, w1, 3)
+        l4t = resize_bilinear(l_u8[idx], h1, w1)
+        v4, l4, lab4, m4 = A.mosaic_place(v4t, l4t, lab[idx], lmask[idx],
+                                          centers.to(dev), s)
+        v4, l4, lab4, m4 = A.random_affine_batch(
+            None, v4, l4, lab4, m4, border=-s // 2, Ms=Ms,
+            separable=separable)
+        v4, l4 = A.hsv_jitter(None, v4, l4, 0, 0, 0, gains=hsv_r)
+        targets = A.xyxy_to_norm_xywh(lab4, m4, (s, s))
+        v4, l4, targets = A.flip_lr(None, v4, l4, targets, do=do)
+        targets = torch.where(m4[..., None], targets, 0.0)
+        return {"v": v4 / 255.0, "l": l4 / 255.0, "targets": targets,
+                "tmask": m4}
+
+    def fn(generator, v_u8, l_u8, *rest):
+        if from_pool:
+            load_idx, labels, lmask = rest
+            v_u8 = v_u8.index_select(0, load_idx)
+            l_u8 = l_u8.index_select(0, load_idx)
+        else:
+            labels, lmask = rest
+        nb = v_u8.shape[0] // 4 if epoch_partners else v_u8.shape[0]
+        return heavy(v_u8, l_u8, labels, lmask, **draw(generator, nb))
+
+    fn.heavy = heavy
+    fn.draw = draw
+    return fn
 
 
 def make_eval_preprocess_fn(src_hw, dst_hw, img_size: int,
@@ -44,9 +148,7 @@ def make_eval_preprocess_fn(src_hw, dst_hw, img_size: int,
     ``from_pool``: fn takes the whole split's u8 pools and an index tensor
     and gathers the batch rows in the same call."""
     if clahe:
-        raise NotImplementedError(
-            "CLAHE preprocessing is not ported yet (ROADMAP.md, queue 1 "
-            "item 10: data/clahe.py comes with augmentation)")
+        raise NotImplementedError(CLAHE_NOT_PORTED)
     h0, w0 = src_hw
     r1 = img_size / max(h0, w0)
     h1, w1 = (int(h0 * r1), int(w0 * r1)) if r1 != 1 else (h0, w0)
@@ -324,3 +426,88 @@ def _eval_run_batches(dataset, runs, fns, tier, pool, device):
             v, l = fn(rv.to(device), rl.to(device))
         yield v, l, idx, (r, pad)
 
+
+
+# ------------------------------------------------------------- train batches
+
+def train_batch_plan(dataset, batch_size: int, sizes, *,
+                     max_targets_per_img: int = 16, shuffle: bool = True,
+                     drop_last: bool = True, seed_epoch: int = 0,
+                     epoch_partners: bool = True, size_every: int = 1):
+    """Host-side epoch plan (JAX pipeline.py:500-532, the same numpy draws
+    in the same order): yields (b0, idx, load, targets, tmask, size) per
+    batch from one rng sequence: shuffle, then per batch the 3B mosaic
+    partners (uniform over the whole split, reference kaist_dataset.py:230)
+    and, every ``size_every`` batches, the multi-scale size."""
+    n = len(dataset)
+    order = np.arange(n)
+    rng = np.random.default_rng(seed_epoch)
+    if shuffle:
+        rng.shuffle(order)
+    stop = n - (n % batch_size) if drop_last else n
+    size = sizes[0]
+    for k, b0 in enumerate(range(0, stop, batch_size)):
+        idx = order[b0:b0 + batch_size]
+        load = list(idx)
+        if epoch_partners:
+            load += list(rng.integers(0, n, 3 * len(idx)))
+        t, m = pad_labels([dataset.labels[i] for i in load],
+                          max_targets_per_img)
+        if k % size_every == 0:
+            size = sizes[int(rng.integers(len(sizes)))]
+        yield b0, idx, np.asarray(load, np.int32), t, m, size
+
+
+def train_batches(dataset, batch_size: int, seed: int, *, img_size,
+                  hyp: dict, snowflake: bool = False, clahe: bool = False,
+                  max_targets_per_img: int = 16, shuffle: bool = True,
+                  drop_last: bool = True, seed_epoch: int = 0,
+                  epoch_partners: bool = True,
+                  device_cache: bool | None = None, size_every: int = 1,
+                  device=None):
+    """Yield (augmented batch on ``device``, image indices) for one epoch
+    (JAX pipeline.py:535-617).
+
+    ``img_size``: an int, or a list of bucket sizes drawn per batch (multi-
+    scale training, reference train.py:46-59). ``seed``: the augment
+    randoms of the batch at offset b0 come from a generator seeded with
+    ``seed`` and b0. The split's pairs come from the residency tier
+    :func:`select_image_pool` picks (the device pool, the pinned host pool,
+    or per-batch decode: with epoch partners that loads 4 x batch_size
+    pairs a batch)."""
+    if snowflake or clahe:
+        raise NotImplementedError(CLAHE_NOT_PORTED)
+    device = torch.device("cpu" if device is None else device)
+    src_hw = tuple(int(x) for x in dataset.shapes[0][::-1])
+    tier, pool = select_image_pool(dataset, src_hw, device_cache, device)
+    if tier is None and epoch_partners and not getattr(
+            dataset, "_warned_stream_partners", False):
+        dataset._warned_stream_partners = True
+        print("train_batches: streaming tier with epoch-wide mosaic "
+              "partners loads 4x batch_size pairs per batch; enable "
+              "cache_images or raise DYK_DEVICE_CACHE_GB / "
+              "DYK_HOST_CACHE_GB", flush=True)
+    sizes = [img_size] if isinstance(img_size, int) else list(img_size)
+    augs = {s: make_train_augment_fn(src_hw, s, hyp,
+                                     epoch_partners=epoch_partners,
+                                     from_pool=tier == "hbm")
+            for s in sizes}
+    for b0, idx, load, t, m, size in train_batch_plan(
+            dataset, batch_size, sizes,
+            max_targets_per_img=max_targets_per_img, shuffle=shuffle,
+            drop_last=drop_last, seed_epoch=seed_epoch,
+            epoch_partners=epoch_partners, size_every=size_every):
+        gen = torch.Generator().manual_seed(int(seed) * 1_000_003 + int(b0))
+        t = torch.from_numpy(t).to(device)
+        m = torch.from_numpy(m).to(device)
+        if tier == "hbm":
+            batch = augs[size](gen, pool[0], pool[1],
+                               torch.from_numpy(load).long().to(device), t, m)
+        elif tier == "host":
+            pv, pl, gather = pool
+            rows_v, rows_l = gather((pv, pl), load)
+            batch = augs[size](gen, rows_v, rows_l, t, m)
+        else:
+            rv, rl = _stack_pairs(dataset, load)
+            batch = augs[size](gen, rv.to(device), rl.to(device), t, m)
+        yield batch, idx

@@ -2,8 +2,9 @@
 KAIST split.
 
 Counterpart of the JAX package's ``eval/evaluator.py::evaluate_dataset``
-(the reference's evaluate.py:31-123). On the device: the BN-folded forward
-in ``compute_dtype`` (or the int8 chain-PTQ forward), the head decode
+(the reference's evaluate.py:31-123). On the device: the BN-folded forward (the
+unfolded ``graph.apply`` with ``folded=False``) in ``compute_dtype`` (or
+the int8 chain-PTQ forward), the head decode
 (kernel K1), the stem convs (K3), the quantized 1x1 convs (K4) and the
 greedy NMS (K2). On the host: the letterbox undo and the metrics
 (:mod:`.metrics`, :mod:`.coco_map`).
@@ -57,17 +58,15 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
     loop (``loop``) and in the metrics (``metrics``), and ``batches``.
 
     ``variables``: the port's ``{"params", "state"}`` (:mod:`..models.
-    weights`). ``int8``: post-training int8 (``int8_mode``'s plan)
+    weights`). ``folded``: False runs the unfolded ``graph.apply`` in eval
+    mode (BN from the running state) instead of the BN-folded forward.
+    ``int8``: post-training int8 (``int8_mode``'s plan)
     calibrated on the first ``calibration_batches`` eval batches, or with
     the stats of ``calibration`` (a :func:`..models.quantize.
     save_calibration` file) when that file exists; when it does not, this
     run's stats are saved there. ``device_cache``: the residency tier of
     the split (:func:`..data.pipeline.eval_batches`). ``device``: None
     means ``cuda``; the CPU runs only when asked for."""
-    if not folded:
-        raise NotImplementedError(
-            "folded=False needs the unfolded forward graph.apply, which is "
-            "not ported yet (ROADMAP.md, queue 1 item 7)")
     if mesh is not None:
         raise NotImplementedError(
             "evaluation over several devices is not ported yet (ROADMAP.md, "
@@ -81,8 +80,16 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
                                      "evaluating the folded path"):
         int8 = False
 
-    fold = graph.fold_batchnorm(ir, variables)
-    placed = graph.place_folded(ir, fold, dev, compute_dtype)
+    if not (folded or int8):          # int8 runs the folded path
+        unfolded = graph.place_variables(variables, dev)
+
+        def forward(xv, xl):
+            (io, raw), _ = graph.apply(ir, unfolded, xv, xl, train=False,
+                                       compute_dtype=compute_dtype)
+            return io, raw
+    else:
+        fold = graph.fold_batchnorm(ir, variables)
+        placed = graph.place_folded(ir, fold, dev, compute_dtype)
     if int8:
         if calibration and os.path.exists(str(calibration)):
             stats, _ = Q.load_calibration(str(calibration))
@@ -109,7 +116,7 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
             return Q.apply_quantized(ir, qvars, xv, xl,
                                      compute_dtype=compute_dtype,
                                      mode=int8_mode)
-    else:
+    elif folded:
         def forward(xv, xl):
             return graph.apply_folded(ir, placed, xv, xl,
                                       compute_dtype=compute_dtype)

@@ -77,6 +77,37 @@ def to_jax_variables(variables: dict) -> dict:
             "state": convert(variables.get("state", {}))}
 
 
+def to_jax_tree(tree):
+    """Any tree of the port's (dicts, tuples, tensors: optimizer state,
+    EMA) -> the JAX layout as numpy: 4-D leaves named ``w`` go OIHW ->
+    HWIO, every other leaf keeps its dtype."""
+    def convert(t, key=None):
+        if isinstance(t, Mapping):
+            return {k: convert(v, k) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return type(t)(convert(v) for v in t)
+        a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t)
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) \
+            if key == "w" and a.ndim == 4 else a
+    return convert(tree)
+
+
+def from_jax_tree(tree, like):
+    """The inverse of :func:`to_jax_tree`: a JAX-layout tree of arrays ->
+    tensors shaped, typed and placed like the leaves of ``like``."""
+    def convert(t, ref, key=None):
+        if isinstance(ref, Mapping):
+            return {k: convert(t[k], v, k) for k, v in ref.items()}
+        if isinstance(ref, (tuple, list)):
+            return type(ref)(convert(a, b) for a, b in zip(t, ref))
+        a = torch.from_numpy(np.array(t, copy=True))
+        if key == "w" and a.ndim == 4:
+            a = a.permute(3, 2, 0, 1).contiguous()
+        return a.to(ref.device, ref.dtype)
+    return convert(tree, like)
+
+
 def _bn(sd, prefix):
     params = {"scale": _tensor(sd[f"{prefix}.weight"]),
               "bias": _tensor(sd[f"{prefix}.bias"])}

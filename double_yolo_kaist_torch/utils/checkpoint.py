@@ -8,8 +8,9 @@ either package loads in the other: the port's variables go through
 :func:`..models.weights.to_jax_variables` before :func:`save_checkpoint`
 and through :func:`..models.weights.from_jax_variables` after
 :func:`load_checkpoint`. The ``opt_state`` and ``ema`` subtrees are
-written and read back as they are stored; the trainer that makes them is
-not ported yet (ROADMAP.md, queue 1 item 9).
+written and read back as they are stored; the trainer converts them with
+:func:`..models.weights.to_jax_tree` / ``from_jax_tree``, so that they sit
+under the keys JAX's optax chain flattens to.
 """
 
 from __future__ import annotations

@@ -199,17 +199,35 @@ def test_darknet_cutoff_matches_jax(darknet):
     assert sorted(TCK._flatten(got)) == sorted(want)
     for k, v in TCK._flatten(got).items():
         np.testing.assert_array_equal(v, want[k])
-    assert TW.missing_from_darknet(tir, cutoff)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TC.build_model(cfg, path, cutoff=cutoff)
+    missing = TW.missing_from_darknet(tir, cutoff)
+    assert missing
+    # build_model grafts the file over graph.init node by node, as JAX's
+    # cli/common.py merges it
+    _, built = TC.build_model(cfg, path, cutoff=cutoff)
+    init = TCK._flatten(TG.init(tir, 0))
+    flat = TCK._flatten(built)
+    assert sorted(flat) == sorted(init)
+    for k, v in flat.items():
+        node = k.split("/")[1]
+        src = want if node not in missing else init
+        np.testing.assert_array_equal(v, src[k], err_msg=k)
 
 
-def test_darknet_needs_init_for_other_layers():
+def test_darknet_needs_init_for_other_layers(tmp_path):
     """MNv3 has SE and depthwise-separable blocks, which darknet files do
-    not hold: the rest would come from graph.init (queue 1 item 7)."""
-    with pytest.raises(NotImplementedError, match="item 7") as e:
-        TC.build_model(MNV3_NAME, "mnv3.weights")
-    assert "darknet" in str(e.value) and "l" in str(e.value)
+    not hold: those come from graph.init, the convs from the file."""
+    ir = compile_cfg(MNV3)
+    path = str(tmp_path / "mnv3.weights")
+    _write_darknet(ir, path)
+    _, built = TC.build_model(MNV3_NAME, path)
+    missing = TW.missing_from_darknet(ir)
+    assert any(ir.nodes[int(k[1:])].kind == "dwconv" for k in missing)
+    assert any(ir.nodes[int(k[1:])].kind == "se" for k in missing)
+    init = TCK._flatten(TG.init(ir, 0))
+    loaded = TCK._flatten(TW.from_darknet_weights(ir, path))
+    for k, v in TCK._flatten(built).items():
+        src = init if k.split("/")[1] in missing else loaded
+        np.testing.assert_array_equal(v, src[k], err_msg=k)
 
 
 # ------------------------------------------------------ detect and streams
@@ -314,5 +332,5 @@ def test_serve_refuses_int8_modes_not_ported(mnv3_ckpt):
 
 
 def test_bench_refuses_check_ap():
-    with pytest.raises(NotImplementedError, match="items 8 and 9"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         TB.main(["--check-ap", "--device", "cpu"])

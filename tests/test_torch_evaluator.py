@@ -366,26 +366,41 @@ def test_entry_point_cpu(model, tmp_path, capsys):
 
 def test_not_ported_raise(model, tmp_path):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item: CLAHE (item 10), folded=False (7), mesh (12), quantized= (11),
-    random init and darknet weights in the entry point."""
+    item: CLAHE (item 10), mesh (12), quantized= (11). Lifted since:
+    folded=False runs the unfolded forward, and build_model without
+    weights starts from graph.init."""
     name, _, _, tir, tv, path = model
     ds = KaistDataset(path, IMG, 4, rect=True)
-    for kw, item in ((dict(folded=False), "item 7"), (dict(mesh=object()),
-                     "item 12"), (dict(quantized="q.npz", int8=True),
-                     "item 11")):
+    for kw, item in ((dict(mesh=object()), "item 12"),
+                     (dict(quantized="q.npz", int8=True), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             TE.evaluate_dataset(tir, tv, ds, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 10"):
         TP.make_eval_preprocess_fn(HW, HW, IMG, clahe=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TEV.build_model(MNV3, "")
-    with pytest.raises(NotImplementedError, match="darknet"):
-        TEV.build_model(MNV3, "yolov4.weights")
+    ir, variables = TEV.build_model(MNV3, "")
+    assert sorted(TCK._flatten(variables)) == sorted(
+        TCK._flatten(TW.load_state_dict_npz(ir, NPZ)))
     if name == "mnv3":
         with pytest.raises(NotImplementedError, match="item 11"):
             TEV.main(["--cfg", MNV3, "--weights", _reference_pt(tmp_path),
                       "--data", _write_data(tmp_path, path), "--device",
                       "cpu", "--int8-qvars", "q.npz"])
+
+
+def test_unfolded_matches_jax(model):
+    """evaluate_dataset(folded=False), the unfolded forward with BN from
+    the running state, on both packages, fp32: AP and LAMR within 1e-4."""
+    name, jir, jv, tir, tv, path = model
+    want = JE.evaluate_dataset(jir, jv, JaxDataset(path, IMG, 4, rect=True),
+                               batch_size=4, compute_dtype=jnp.float32,
+                               folded=False, device_cache=False)
+    got = TE.evaluate_dataset(tir, tv, KaistDataset(path, IMG, 4, rect=True),
+                              batch_size=4, compute_dtype=torch.float32,
+                              folded=False, device="cpu")
+    assert abs(got["ap"] - want["ap"]) <= 1e-4
+    assert abs(got["lamr"] - want["lamr"]) <= 1e-4
+    if name == "mnv3":
+        assert got["ap"] > 0.05
 
 
 def _reference_pt(tmp_path):

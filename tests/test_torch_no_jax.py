@@ -29,7 +29,10 @@ def test_port_imports_no_jax():
                  "eval.metrics", "eval.coco_map", "data.dataset",
                  "data.pipeline", "utils.checkpoint", "utils.native",
                  "common", "models.zoo", "serve", "detect", "bench",
-                 "data.streams", "utils.draw"):
+                 "data.streams", "utils.draw", "data.augment",
+                 "train.loss", "train.optim", "train.step", "train.trainer",
+                 "train.anchors", "train.cli", "config.writer",
+                 "utils.logging", "utils.profiling", "utils.tree"):
         assert f"double_yolo_kaist_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
