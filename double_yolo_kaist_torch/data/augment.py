@@ -7,13 +7,15 @@ that ``make_train_augment_fn`` takes (reference kaist_dataset.py:213-506):
   * random affine by inverse-warp bilinear sampling, separable when the
     affine is axis-aligned, with the reference's degenerate-box filter
     (:func:`random_affine_batch`);
+  * the snowflake cutout: random squares zeroed in both modalities, and
+    the labels they cover dropped (:func:`snowflake_cutout`; CLAHE is
+    :mod:`.clahe`);
   * HSV jitter with one set of gains for both modalities
     (:func:`hsv_jitter`);
   * 50% horizontal flip (:func:`flip_lr`).
 The JAX package's ``matmul`` resample, its ``chunk`` route and its bf16
 pixels exist for the TPU's MXU and arena; the port runs the gathers
-(ROADMAP.md, queue 1 item 14). Snowflake cutout and CLAHE are not ported
-yet (item 10).
+(ROADMAP.md, queue 1 item 14).
 
 Images are NHWC, uint8 or float in [0, 255]; labels are fixed-shape (B, T,
 5) [cls, ...] blocks with a (B, T) mask, carried in absolute xyxy pixels
@@ -355,6 +357,60 @@ def flip_lr(generator, v_imgs, l_imgs, labels_xywh_norm, do=None):
     labels = torch.cat([labels_xywh_norm[..., :1], x[..., None],
                         labels_xywh_norm[..., 2:]], -1)
     return v, l, labels
+
+
+# ---------------------------------------------------------------- cutout
+
+def snowflake_cutout(generator, v_imgs, l_imgs, labels_xyxy, lmask, *,
+                     n_thr: int = 6, step: int = 16, n_snow: int = 25,
+                     label_thr: float = 0.35, u=None):
+    """Zero ``n_snow`` random ``step`` x ``step`` squares in both modalities
+    and drop the labels whose cover of the cut squares exceeds
+    ``label_thr``, in each image that has at most ``n_thr`` labels (JAX
+    augment.py:636-691, reference snowflake.py:54-93). Labels absolute
+    xyxy. ``u``: pre-drawn (B, n_snow, 2) uniforms in [0, 1), else drawn
+    from ``generator``. Squares are placed in the true frame (the
+    reference swaps w and h, snowflake.py:73). Returns (v, l, mask)."""
+    B, H, W = v_imgs.shape[0], v_imgs.shape[1], v_imgs.shape[2]
+    dev = v_imgs.device
+    if u is None:
+        u = torch.rand((B, n_snow, 2), generator=generator)
+    u = u.to(dev, torch.float32)
+    xy = torch.floor(u * torch.tensor([W - 1, H - 1], dtype=torch.float32,
+                                      device=dev))
+    x2 = torch.clamp(xy[..., 0] + step - 1, 0, W - 1)
+    y2 = torch.clamp(xy[..., 1] + step - 1, 0, H - 1)
+    cut = torch.stack([xy[..., 0], xy[..., 1], x2, y2], -1)    # (B, N, 4)
+
+    active = lmask.sum(-1) <= n_thr                             # (B,)
+    yy = torch.arange(H, dtype=torch.float32, device=dev)
+    xx = torch.arange(W, dtype=torch.float32, device=dev)
+    # a pixel is cut when one square covers its row and column: per
+    # square, a row mask and a column mask, and their product summed over
+    # squares, as an (H, N) x (N, W) product of 0/1 values
+    rows = ((yy[None, :, None] >= cut[:, None, :, 1])
+            & (yy[None, :, None] <= cut[:, None, :, 3]))        # (B, H, N)
+    cols = ((xx[None, None, :] >= cut[:, :, 0, None])
+            & (xx[None, None, :] <= cut[:, :, 2, None]))        # (B, N, W)
+    hits = torch.bmm(rows.float(), cols.float())                # (B, H, W)
+    masks = (hits > 0) & active[:, None, None]
+    m4 = masks[..., None]
+    zero = torch.zeros((), dtype=v_imgs.dtype, device=dev)
+    v = torch.where(m4, zero, v_imgs)
+    l = torch.where(m4, zero, l_imgs)
+
+    # cover of each label by all the squares (reference snowflake.py:28-43)
+    lb = labels_xyxy[..., 1:5]                                  # (B, T, 4)
+    ix1 = torch.maximum(lb[..., None, 0], cut[:, None, :, 0])
+    iy1 = torch.maximum(lb[..., None, 1], cut[:, None, :, 1])
+    ix2 = torch.minimum(lb[..., None, 2], cut[:, None, :, 2])
+    iy2 = torch.minimum(lb[..., None, 3], cut[:, None, :, 3])
+    inter = torch.clamp_min(ix2 - ix1, 0) * torch.clamp_min(iy2 - iy1, 0)
+    area = torch.clamp_min((lb[..., 2] - lb[..., 0])
+                           * (lb[..., 3] - lb[..., 1]), 1.0)
+    cover = inter.sum(-1) / area                                # (B, T)
+    keep = torch.where(active[:, None], cover < label_thr, True)
+    return v, l, lmask & keep
 
 
 # ----------------------------------------------------------- label formats

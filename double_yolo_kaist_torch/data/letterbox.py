@@ -3,13 +3,15 @@
 Counterparts of the JAX package's ``data/augment.py::resize_bilinear``
 (cv2 INTER_LINEAR with half-pixel centres) and ``data/pipeline.py::
 make_letterbox_fn`` (the single-stage detect-flow letterbox, reference
-img_utils.py:5-53 math). Images are NHWC.
+img_utils.py:5-53 math, with its optional CLAHE). Images are NHWC.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .clahe import clahe_batch
 
 
 def resize_bilinear(img, out_h: int, out_w: int):
@@ -37,10 +39,20 @@ def resize_bilinear(img, out_h: int, out_w: int):
     return top * (1 - wy)[:, None, None] + bot * wy[:, None, None]
 
 
-def make_letterbox_fn(src_hw, dst_hw, scale_up: bool = True):
+def clahe_u8(x):
+    """Float pixels in [0, 255] -> rounded to uint8, CLAHE'd
+    (:func:`.clahe.clahe_batch`), back to fp32: the JAX package's
+    ``clahe_batch(clip(round(x), 0, 255).astype(uint8)).astype(float32)``."""
+    u8 = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+    return clahe_batch(u8).float()
+
+
+def make_letterbox_fn(src_hw, dst_hw, scale_up: bool = True,
+                      clahe: bool = False):
     """Letterbox from ``src_hw`` frames to ``dst_hw``: resize by the common
-    ratio, zero-pad to ``dst_hw``, scale to [0, 1]. Returns
-    (fn(v_u8, l_u8) -> (v, l) fp32 NHWC, (r, r), (dw, dh))."""
+    ratio, CLAHE with ``clahe`` (JAX pipeline.py:271-291), zero-pad to
+    ``dst_hw``, scale to [0, 1]. Returns (fn(v_u8, l_u8) -> (v, l) fp32
+    NHWC, (r, r), (dw, dh))."""
     r = min(dst_hw[0] / src_hw[0], dst_hw[1] / src_hw[1])
     if not scale_up:
         r = min(r, 1.0)
@@ -53,6 +65,8 @@ def make_letterbox_fn(src_hw, dst_hw, scale_up: bool = True):
         out = []
         for im in (v_u8, l_u8):
             im = resize_bilinear(im, new_h, new_w)
+            if clahe:
+                im = clahe_u8(im)
             # F.pad pads from the last dim backwards: C, W, H
             out.append(F.pad(im, (0, 0, left, right, top, bottom)) / 255.0)
         return tuple(out)

@@ -3,14 +3,14 @@ eval batches, dual-stream, on the device.
 
 Counterpart of the JAX package's ``data/pipeline.py``. Train path
 (reference kaist_dataset.py:321-388, mosaic "quadra" order): decode (host)
--> resize to max side s -> mosaic-4 canvas (2s x 2s) -> random affine
-(border -s//2 -> s x s) -> HSV jitter -> normalized xywh -> 50% flip ->
-float [0, 1] (:func:`make_train_augment_fn`, :func:`train_batch_plan`,
-:func:`train_batches`). Eval path: the reference's two-stage eval
-preprocessing (max-side resize with int()
-truncation, then a letterbox pad to the batch shape, kaist_dataset.py:
-203-208 and img_utils.py:5-53), the residency tiers of the split's uint8
-pairs, a background prefetch thread and :func:`eval_batches`.
+-> resize to max side s -> mosaic-4 canvas (2s x 2s) -> [CLAHE + snowflake
+cutout] -> random affine (border -s//2 -> s x s) -> HSV jitter ->
+normalized xywh -> 50% flip -> float [0, 1] (:func:`make_train_augment_fn`,
+:func:`train_batch_plan`, :func:`train_batches`). Eval path: the
+reference's two-stage eval preprocessing (max-side resize with int()
+truncation, [CLAHE,] then a letterbox pad to the batch shape,
+kaist_dataset.py:203-208 and img_utils.py:5-53), the residency tiers of the
+split's uint8 pairs, a background prefetch thread and :func:`eval_batches`.
 
 Tiers, as the JAX package chooses them (:func:`select_image_pool`):
   * ``"hbm"``: the whole split's uint8 pairs in device memory, under the
@@ -22,9 +22,6 @@ Tiers, as the JAX package chooses them (:func:`select_image_pool`):
     CPU backend has no pinned host memory either);
   * ``None``: per-batch streaming from :meth:`.dataset.KaistDataset.
     load_pair`.
-
-CLAHE and the snowflake cutout are not ported yet (ROADMAP.md, queue 1
-item 10).
 """
 
 from __future__ import annotations
@@ -36,12 +33,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..train.loss import pad_labels
 from . import augment as A
-from .letterbox import resize_bilinear
+from .letterbox import clahe_u8, resize_bilinear
 
-CLAHE_NOT_PORTED = ("CLAHE and the snowflake cutout are not ported yet "
-                    "(ROADMAP.md, queue 1 item 10)")
+# the quadra path's cutout settings (reference kaist_dataset.py:276)
+N_SNOW, N_THR, CUT_STEP = 80, 24, 32
 
 
 def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
@@ -62,13 +60,21 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
     by 3B host-drawn mosaic partners (image i mosaics with B+3i..B+3i+2);
     False: B pairs, partners drawn from the batch.
 
+    ``snowflake``: the reference recipe's cutout (:func:`.augment.
+    snowflake_cutout`, 80 squares of 32 in images with at most 24 labels),
+    which CLAHEs the canvas first, as the reference's cutout does
+    (snowflake.py:67-69). ``clahe``: CLAHE the canvas alone. Both come
+    after the mosaic and before the affine (JAX pipeline.py:135-151).
+    Standalone ``clahe`` on the mosaic path is the JAX package's deliberate
+    deviation from the reference, whose mosaic path never CLAHEs: eval
+    always CLAHEs under ``clahe``, so training does too.
+
     Every random is drawn at full-batch shape, on the CPU, from five
     streams seeded from ``generator`` in JAX's order (mosaic, cutout,
-    affine, HSV, flip); ``fn.heavy`` runs the transforms from given
-    randoms, as JAX's ``heavy`` does, and ``fn.draw(generator, nb)``
-    returns them."""
-    if snowflake or clahe:
-        raise NotImplementedError(CLAHE_NOT_PORTED)
+    affine, HSV, flip); the cutout stream is drawn only with
+    ``snowflake`` and moves none of the others. ``fn.heavy`` runs the
+    transforms from given randoms, as JAX's ``heavy`` does, and
+    ``fn.draw(generator, nb)`` returns them."""
     s = img_size
     r = s / max(src_hw)
     h1, w1 = int(src_hw[0] * r), int(src_hw[1] * r)
@@ -77,7 +83,7 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
 
     def draw(generator, nb: int) -> dict:
         seeds = torch.randint(0, 2 ** 62, (5,), generator=generator).tolist()
-        g_mosaic, _g_cut, g_affine, g_hsv, g_flip = (
+        g_mosaic, g_cut, g_affine, g_hsv, g_flip = (
             torch.Generator().manual_seed(x) for x in seeds)
         centers = torch.randint(int(s * 0.5), int(s * 1.5) + 1, (nb, 2),
                                 generator=g_mosaic)
@@ -94,12 +100,17 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
                                  hyp.get("hsv_v", 0.0)], dtype=torch.float32)
                  + 1.0)
         do = torch.rand(nb, generator=g_flip) < 0.5
+        cut_u = (torch.rand((nb, N_SNOW, 2), generator=g_cut)
+                 if snowflake else None)
         return {"idx": torch.cat([torch.arange(nb)[:, None], partners], 1),
-                "centers": centers, "Ms": Ms, "hsv_r": hsv_r, "do": do}
+                "centers": centers, "cut_u": cut_u, "Ms": Ms,
+                "hsv_r": hsv_r, "do": do}
 
-    def heavy(v_u8, l_u8, labels, lmask, idx, centers, Ms, hsv_r, do):
-        """Resize -> mosaic paste -> affine -> HSV -> flip; every random
-        comes in as an argument. ``labels`` normalized xywh."""
+    def heavy(v_u8, l_u8, labels, lmask, idx, centers, cut_u, Ms, hsv_r,
+              do):
+        """Resize -> mosaic paste -> CLAHE / cutout -> affine -> HSV ->
+        flip; every random comes in as an argument. ``labels`` normalized
+        xywh."""
         dev = v_u8.device
         idx = idx.to(dev)
         # normalized xywh -> absolute xyxy in the resized frame
@@ -112,6 +123,12 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
         l4t = resize_bilinear(l_u8[idx], h1, w1)
         v4, l4, lab4, m4 = A.mosaic_place(v4t, l4t, lab[idx], lmask[idx],
                                           centers.to(dev), s)
+        if snowflake or clahe:
+            v4, l4 = clahe_u8(v4), clahe_u8(l4)
+        if snowflake:
+            v4, l4, m4 = A.snowflake_cutout(None, v4, l4, lab4, m4,
+                                            n_thr=N_THR, step=CUT_STEP,
+                                            n_snow=N_SNOW, u=cut_u)
         v4, l4, lab4, m4 = A.random_affine_batch(
             None, v4, l4, lab4, m4, border=-s // 2, Ms=Ms,
             separable=separable)
@@ -145,10 +162,11 @@ def make_eval_preprocess_fn(src_hw, dst_hw, img_size: int,
     pad) matching the reference's ``shapes`` tuple for scale_coords undo:
     ``fn(v_u8, l_u8) -> (v, l)``, fp32 NHWC in [0, 1] on the inputs' device.
 
+    ``clahe``: CLAHE each frame after the first resize (JAX
+    pipeline.py:224-251), as an eval split with ``clahe`` set asks.
+
     ``from_pool``: fn takes the whole split's u8 pools and an index tensor
     and gathers the batch rows in the same call."""
-    if clahe:
-        raise NotImplementedError(CLAHE_NOT_PORTED)
     h0, w0 = src_hw
     r1 = img_size / max(h0, w0)
     h1, w1 = (int(h0 * r1), int(w0 * r1)) if r1 != 1 else (h0, w0)
@@ -163,6 +181,8 @@ def make_eval_preprocess_fn(src_hw, dst_hw, img_size: int,
         out = []
         for im in (v_u8, l_u8):
             x = resize_bilinear(im, h1, w1)
+            if clahe:
+                x = clahe_u8(x)
             if (new_h, new_w) != (h1, w1):
                 x = resize_bilinear(x, new_h, new_w)
             # F.pad pads from the last dim backwards: C, W, H
@@ -213,10 +233,11 @@ def device_image_pool(dataset, src_hw, force: bool | None = None,
 
     ``force``: True copies regardless of the budget, False disables, None
     copies when 2*N*H*W*3 bytes fit ``DYK_DEVICE_CACHE_GB`` (default 4)
-    beside every pool this process already holds."""
+    beside every pool this process already holds. ``device``: None means
+    ``cuda``."""
+    device = resolve_device(device)
     if force is False:
         return None
-    device = torch.device("cpu" if device is None else device)
     pools = dataset.__dict__.setdefault("_device_pools", {})
     pool = pools.get(str(device))
     if pool is not None:
@@ -245,9 +266,9 @@ def device_image_pool(dataset, src_hw, force: bool | None = None,
 def host_image_pool(dataset, src_hw, device=None):
     """The middle tier: the whole split's uint8 pairs in pinned host memory.
     Returns (pool_v, pool_l, gather) with ``gather((pool_v, pool_l),
-    idx_np)`` -> the pair's rows on ``device``, or None on a CPU device or
-    when pinned memory cannot be had."""
-    device = torch.device("cpu" if device is None else device)
+    idx_np)`` -> the pair's rows on ``device`` (None means ``cuda``), or
+    None on a CPU device or when pinned memory cannot be had."""
+    device = resolve_device(device)
     if device.type != "cuda":
         return None
     cached = getattr(dataset, "_host_pool", None)
@@ -374,13 +395,13 @@ def prefetch(iterator, depth: int = 2):
 def eval_batches(dataset, batch_size: int, device_cache: bool | None = None,
                  device=None):
     """Yield (v, l, indices, (ratio, pad)) rect-letterboxed batches on
-    ``device`` (None: the CPU; the evaluator passes its device).
+    ``device`` (None means ``cuda``; the evaluator passes its device).
 
     ``device_cache``: the residency tier (:func:`select_image_pool`). Pooling
     needs one source shape for the whole split (KAIST has one); a
     mixed-shape split streams, and each batch is split into runs of
     consecutive same-shape images, one sub-batch per run."""
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     n = len(dataset)
     fns: dict = {}
     tier = pool = None
@@ -474,10 +495,8 @@ def train_batches(dataset, batch_size: int, seed: int, *, img_size,
     ``seed`` and b0. The split's pairs come from the residency tier
     :func:`select_image_pool` picks (the device pool, the pinned host pool,
     or per-batch decode: with epoch partners that loads 4 x batch_size
-    pairs a batch)."""
-    if snowflake or clahe:
-        raise NotImplementedError(CLAHE_NOT_PORTED)
-    device = torch.device("cpu" if device is None else device)
+    pairs a batch). ``device``: None means ``cuda``."""
+    device = resolve_device(device)
     src_hw = tuple(int(x) for x in dataset.shapes[0][::-1])
     tier, pool = select_image_pool(dataset, src_hw, device_cache, device)
     if tier is None and epoch_partners and not getattr(
@@ -488,7 +507,8 @@ def train_batches(dataset, batch_size: int, seed: int, *, img_size,
               "cache_images or raise DYK_DEVICE_CACHE_GB / "
               "DYK_HOST_CACHE_GB", flush=True)
     sizes = [img_size] if isinstance(img_size, int) else list(img_size)
-    augs = {s: make_train_augment_fn(src_hw, s, hyp,
+    augs = {s: make_train_augment_fn(src_hw, s, hyp, snowflake=snowflake,
+                                     clahe=clahe,
                                      epoch_partners=epoch_partners,
                                      from_pool=tier == "hbm")
             for s in sizes}

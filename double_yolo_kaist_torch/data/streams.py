@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 class LoadStream:
     def __init__(self, source: str | int = 0, img_size: int = 512):
@@ -36,13 +38,14 @@ class LoadStream:
         self.cap.release()
 
 
-def iter_preprocessed(stream: LoadStream, make_fn, device="cpu"):
+def iter_preprocessed(stream: LoadStream, make_fn, device=None):
     """Wrap a stream with a letterbox fn built on the first frame.
     ``make_fn(src_hw, dst_hw, img_size)`` is
     :func:`.pipeline.make_eval_preprocess_fn`; ``dst_hw`` is the frame
     scaled to ``img_size`` and padded up to a multiple of 64. Yields (the
     letterboxed frame (1, H, W, 3) fp32 on ``device``, the frame, (ratio,
-    pad, src_hw))."""
+    pad, src_hw)). ``device``: None means ``cuda``."""
+    device = resolve_device(device)
     fn = None
     meta = None
     s = stream.img_size

@@ -4,7 +4,8 @@ KAIST split.
 Counterpart of the JAX package's ``eval/evaluator.py::evaluate_dataset``
 (the reference's evaluate.py:31-123). On the device: the BN-folded forward (the
 unfolded ``graph.apply`` with ``folded=False``) in ``compute_dtype`` (or
-the int8 chain-PTQ forward), the head decode
+the int8 PTQ forward in any mode, also from a quantized-variables
+artifact), the head decode
 (kernel K1), the stem convs (K3), the quantized 1x1 convs (K4) and the
 greedy NMS (K2). On the host: the letterbox undo and the metrics
 (:mod:`.metrics`, :mod:`.coco_map`).
@@ -64,23 +65,32 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
     calibrated on the first ``calibration_batches`` eval batches, or with
     the stats of ``calibration`` (a :func:`..models.quantize.
     save_calibration` file) when that file exists; when it does not, this
-    run's stats are saved there. ``device_cache``: the residency tier of
-    the split (:func:`..data.pipeline.eval_batches`). ``device``: None
-    means ``cuda``; the CPU runs only when asked for."""
+    run's stats are saved there. ``quantized``: a quantized-variables
+    artifact (:func:`..models.quantize.save_quantized`); when it exists the
+    literal int8 model a deployment serves is evaluated (its mode must be
+    ``int8_mode``), with no fold, calibration or quantization; when it does
+    not, the int8 path runs as without it. ``device_cache``: the residency
+    tier of the split (:func:`..data.pipeline.eval_batches`). ``device``:
+    None means ``cuda``; the CPU runs only when asked for."""
     if mesh is not None:
         raise NotImplementedError(
             "evaluation over several devices is not ported yet (ROADMAP.md, "
             "queue 1 item 12)")
-    if quantized:
-        raise NotImplementedError(
-            "quantized-variables artifacts (save_/load_quantized) are not "
-            "ported yet (ROADMAP.md, queue 1 item 11)")
     dev = resolve_device(device)
-    if int8 and Q.warn_if_empty_plan(ir, int8_mode,
-                                     "evaluating the folded path"):
+    artifact = bool(quantized and os.path.exists(str(quantized)))
+    # a frozen artifact is evaluated literally, whatever the plan says
+    if int8 and not artifact and Q.warn_if_empty_plan(
+            ir, int8_mode, "evaluating the folded path"):
         int8 = False
 
-    if not (folded or int8):          # int8 runs the folded path
+    if int8 and artifact:
+        qv, qmode, _ = Q.load_quantized(str(quantized))
+        if qmode != int8_mode:
+            raise ValueError(f"quantized artifact {quantized} was built for "
+                             f"mode={qmode!r}, eval requested "
+                             f"{int8_mode!r}")
+        qvars = Q.place_quantized(ir, qv, dev, compute_dtype)
+    elif not (folded or int8):        # int8 runs the folded path
         unfolded = graph.place_variables(variables, dev)
 
         def forward(xv, xl):
@@ -90,7 +100,7 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
     else:
         fold = graph.fold_batchnorm(ir, variables)
         placed = graph.place_folded(ir, fold, dev, compute_dtype)
-    if int8:
+    if int8 and not artifact:
         if calibration and os.path.exists(str(calibration)):
             stats, _ = Q.load_calibration(str(calibration))
         else:
@@ -111,7 +121,7 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
             ir, Q.quantize(ir, fold, stats, mode=int8_mode), dev,
             compute_dtype)
         del placed
-
+    if int8:
         def forward(xv, xl):
             return Q.apply_quantized(ir, qvars, xv, xl,
                                      compute_dtype=compute_dtype,

@@ -54,7 +54,9 @@ def main(argv=None):
                         "frozen scales; if missing, this run's stats are "
                         "saved there")
     p.add_argument("--int8-qvars", default="",
-                   help="quantized-variables artifact (.npz); not ported yet")
+                   help="quantized-variables artifact (.npz, python -m "
+                        "double_yolo_kaist_torch.calibrate --quantized-out): "
+                        "evaluate the literal int8 model serving loads")
     p.add_argument("--cache-images", choices=("ram", "disk"), default=None,
                    help="cache decoded pairs in RAM or as .npy files")
     p.add_argument("--device-cache", choices=("auto", "on", "off"),

@@ -18,8 +18,9 @@ without a copy. Dual-stream semantics: the conv at ``second_index`` reads
 the LWIR image instead of the running activation.
 
 :func:`run_graph` walks the graph for every executor of the port (this
-module's fp forward, calibration and the int8 forward of
-:mod:`.quantize`); they differ only in how a standard conv is computed.
+module's fp forward, calibration and the int8 forwards of
+:mod:`.quantize`); they differ in how a standard conv is computed and in
+what is done with the values (:func:`run_graph`'s hooks).
 """
 
 from __future__ import annotations
@@ -319,16 +320,25 @@ def conv_folded(node, inp, p):
 
 
 def run_graph(ir: GraphIR, params: dict, xv, xl=None, *, dtype,
-              conv=conv_folded):
+              conv=conv_folded, read=None, carry=None, after=None):
     """Walk the graph on NHWC images ``xv`` / ``xl`` in ``dtype``.
     ``conv(node, input, params)`` computes each standard conv node; every
     other node kind reads ``params["l<i>"]`` as BN-folded fp params.
+    ``read(value)``, if given, maps each value an fp node reads (the int8
+    executors dequantize there); ``carry(node, values)``, if given, may
+    run a maxpool, upsample or route on the values as they are and returns
+    its output, or None for the fp path (the int8 edges carry their codes);
+    ``after(node, x)``, if given, sees each node's output and returns what
+    goes on (calibration records it, the int8 executors re-emit s8 there).
     Returns [(head conv output (bs, na*no, ny, nx), yolo node)]."""
     # NHWC -> NCHW shape over channels-last memory: a view, no copy
     x = xv.to(dtype).permute(0, 3, 1, 2)
     x2 = None if xl is None else xl.to(dtype).permute(0, 3, 1, 2)
     if ir.dual_stream and x2 is None:
         raise ValueError("dual-stream graph requires the LWIR input xl")
+
+    def rd(v):
+        return v if read is None else read(v)
 
     cache: dict[int, torch.Tensor] = {}
     heads = []                      # (conv output, node) per yolo node
@@ -338,32 +348,41 @@ def run_graph(ir: GraphIR, params: dict, xv, xl=None, *, dtype,
         if kind == "conv":
             x = conv(node, x2 if node.takes_second_input else x, p)
         elif kind == "dwconv":
-            y = L.conv2d(x, p["dw"]["w"], p["dw"]["b"], stride=node.stride,
-                         pad=1, groups=node.in_ch)
+            y = L.conv2d(rd(x), p["dw"]["w"], p["dw"]["b"],
+                         stride=node.stride, pad=1, groups=node.in_ch)
             y = L.activate("relu6", y)
             x = L.activate("relu6", L.conv2d(y, p["pw"]["w"], p["pw"]["b"]))
         elif kind == "se":
-            x = L.squeeze_excitation(x, p)
+            x = L.squeeze_excitation(rd(x), p)
         elif kind == "inception":
-            x = L.inception(x, p)
-        elif kind == "maxpool":
-            x = L.max_pool(x, node.kernel, node.stride, node.pad)
+            x = L.inception(rd(x), p)
+        elif kind in ("maxpool", "upsample", "route"):
+            vals = ([cache[j] for j in node.inputs] if kind == "route"
+                    else [x])
+            y = None if carry is None else carry(node, vals)
+            if y is not None:
+                x = y
+            elif kind == "maxpool":
+                x = L.max_pool(rd(x), node.kernel, node.stride, node.pad)
+            elif kind == "upsample":
+                x = L.upsample_nearest(rd(x), node.scale)
+            else:
+                feats = [rd(v) for v in vals]
+                x = feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
         elif kind == "avgpool":
-            x = L.adaptive_avg_pool(x, node.out_size)
-        elif kind == "upsample":
-            x = L.upsample_nearest(x, node.scale)
-        elif kind == "route":
-            feats = [cache[j] for j in node.inputs]
-            x = feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
+            x = L.adaptive_avg_pool(rd(x), node.out_size)
         elif kind == "shortcut":
-            extras = [cache[j] for j in node.inputs]
-            x = L.weighted_fusion(x, extras, p["w"] if node.weighted else None)
+            extras = [rd(cache[j]) for j in node.inputs]
+            x = L.weighted_fusion(rd(x), extras,
+                                  p["w"] if node.weighted else None)
         elif kind == "dropout":
             pass
         elif kind == "yolo":
-            heads.append((x, node))
+            heads.append((rd(x), node))
         else:
             raise ValueError(f"unknown node kind {kind}")
+        if after is not None:
+            x = after(node, x)
         if node.index in ir.consumed:
             cache[node.index] = x
     return heads

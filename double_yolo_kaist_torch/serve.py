@@ -15,8 +15,10 @@ Mirrors the JAX package's ``cli/serve.py`` (stdlib ``http.server``; the
 flags are its flags, plus ``--device``). Concurrent requests coalesce in a
 :class:`.serving.MicroBatcher` (buckets 1, 4 and ``--microbatch``); on CUDA
 each bucket is served from one CUDA graph, captured at startup unless
-``--no-warmup``. ``--exported``, ``--int8-qvars`` and ``--dp`` are not
-ported yet and raise.
+``--no-warmup``. ``--int8-qvars`` serves a quantized-variables artifact
+(``python -m double_yolo_kaist_torch.calibrate --quantized-out``), or
+writes this server's first quantization there. ``--exported`` and ``--dp``
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -127,7 +129,10 @@ def main(argv=None):
                         "server starts quantized; otherwise the first "
                         "requests' stats are saved there")
     p.add_argument("--int8-qvars", default="",
-                   help="quantized-variables artifact (not ported yet)")
+                   help="quantized-variables artifact (.npz, python -m "
+                        "double_yolo_kaist_torch.calibrate --quantized-out): "
+                        "loads the finished int8 model; saved there after "
+                        "the first quantization if missing")
     p.add_argument("--calibration-batches", type=int, default=2,
                    help="requests to gather activation stats from before "
                         "quantizing (--int8 without an --int8-calib "
@@ -165,10 +170,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--exported (a one-file exported artifact) is not ported yet "
             "(ROADMAP.md, queue 1 item 13)")
-    if opt.int8_qvars:
-        raise NotImplementedError(
-            "--int8-qvars (quantized-variables artifacts) is not ported yet "
-            "(ROADMAP.md, queue 1 item 11)")
     if opt.dp:
         raise NotImplementedError(
             "--dp (data-parallel serving) is not ported yet (ROADMAP.md, "
@@ -190,6 +191,7 @@ def main(argv=None):
                           calibration_batches=opt.calibration_batches,
                           calibration_pct=opt.calibration_pct,
                           calibration=opt.int8_calib or None,
+                          quantized=opt.int8_qvars or None,
                           device=opt.device)
     if not opt.no_warmup:
         h, w = opt.warmup_hw or (max(64, opt.img_size),

@@ -7,8 +7,9 @@ uint8 letterbox -> forward -> NMS -> one packed ``(B, max_det, 7)`` array
 with ``valid`` as channel 6, as the JAX package's ``_full_program`` does;
 the host undoes the letterbox (``unpack_detections``, export.py:133-151 in
 the JAX package). The forward is bf16 or, with ``int8=True``, the
-post-training-quantized path of :mod:`.models.quantize`, calibrated on the
-first requests served.
+post-training-quantized path of :mod:`.models.quantize` in any of its
+modes, calibrated on the first requests served, or from a calibration
+artifact, or loaded finished from a quantized-variables artifact.
 
 On a CUDA device the body is captured once per (bucket, source size,
 int8) as a CUDA graph and replayed for every request: the port's
@@ -152,7 +153,7 @@ class Predictor:
                  compute_dtype=torch.bfloat16, int8: bool = False,
                  int8_mode: str = "chain", calibration_batches: int = 2,
                  calibration_pct: float = 100.0, calibration=None,
-                 merge: bool = False, device=None):
+                 quantized=None, merge: bool = False, device=None):
         """``cfg``: a ``.cfg`` path or a compiled :class:`GraphIR`.
         ``variables``: the port's ``{"params", "state"}`` (see
         :mod:`.models.weights`). ``device``: ``None`` means ``"cuda"``; the
@@ -172,6 +173,16 @@ class Predictor:
         too). If the file exists, the activation scales load from it and
         int8 serves from the first request; if not, the stats measured on
         the first ``calibration_batches`` batches are written there.
+
+        ``quantized``: path of a quantized-variables artifact
+        (:func:`.models.quantize.save_quantized`, the JAX package's format
+        too). If the file exists, the finished int8 weights load from it:
+        no fold of int8 weights, no calibration, no quantization, and every
+        (bucket, source size) is captured straight into its int8 graph. Its
+        mode must be ``int8_mode``, and an ``edge`` artifact must have been
+        made for ``(img_size, img_size)``. If the file does not exist, this
+        server's first quantization is written there. It takes precedence
+        over ``calibration``.
 
         ``merge``: merge-NMS (conf-weighted box fusion) in place of plain
         greedy NMS, as ``detect --merge-nms`` asks for."""
@@ -193,7 +204,11 @@ class Predictor:
         self._graphs: dict = {}          # (bucket, src_hw, quant) -> _Graph
         self._pool = None                # one memory pool for every graph
         self._int8_mode = int8_mode
-        if int8 and Q.warn_if_empty_plan(self.ir, int8_mode, "serving bf16"):
+        self._q_path = str(quantized) if quantized else None
+        # an artifact on disk is served as it is, whatever the plan says
+        has_artifact = bool(self._q_path and os.path.exists(self._q_path))
+        if int8 and not has_artifact and Q.warn_if_empty_plan(
+                self.ir, int8_mode, "serving bf16"):
             int8 = False
         self._int8 = int8
         # quantize() reads the fp32 fold on the host
@@ -203,7 +218,9 @@ class Predictor:
         self._cal_needed = max(1, int(calibration_batches))
         self._cal_pct = float(calibration_pct)
         self._cal_path = str(calibration) if calibration else None
-        if int8 and self._cal_path and os.path.exists(self._cal_path):
+        if int8 and has_artifact:
+            self._load_quantized(self._q_path)
+        elif int8 and self._cal_path and os.path.exists(self._cal_path):
             stats, _ = Q.load_calibration(self._cal_path)
             self._quantize_from_stats(stats)
 
@@ -223,12 +240,35 @@ class Predictor:
                                                         scale_up=False)
         return self._pre_cache[src_hw]
 
+    def _load_quantized(self, path: str) -> None:
+        """The int8 weights from a quantized-variables artifact, with the
+        JAX package's checks (serving.py:123-160) but its s2d-plan check,
+        the port having no s2d plan."""
+        qv, qmode, qhw = Q.load_quantized(path)
+        if qmode != self._int8_mode:
+            raise ValueError(
+                f"quantized artifact {path} was built for mode={qmode!r}, "
+                f"server requested {self._int8_mode!r}")
+        size = (self.img_size, self.img_size)
+        if self._int8_mode == "edge" and qhw is not None and qhw != size:
+            raise ValueError(
+                f"quantized artifact {path} prepared for hw={qhw}, server "
+                f"img_size={self.img_size}: edge-mode plans are derived "
+                f"from the prepare size, so edge artifacts require an exact "
+                f"match — re-export with python -m "
+                f"double_yolo_kaist_torch.calibrate")
+        self.qvars = Q.place_quantized(self.ir, qv, self.device, self._dtype)
+
     def _quantize_from_stats(self, stats: dict) -> None:
         """Quantize the folded weights with calibration ``stats`` (CPU) and
         place them on the device; int8 serves from then on. Graphs captured
-        on earlier int8 weights are dropped."""
+        on earlier int8 weights are dropped. With a ``quantized`` path that
+        does not exist yet, the variables are saved there."""
+        hw = (self.img_size, self.img_size)
         qv = Q.quantize(self.ir, self._folded_cpu, stats,
                         mode=self._int8_mode)
+        if self._q_path and not os.path.exists(self._q_path):
+            Q.save_quantized(self._q_path, qv, mode=self._int8_mode, hw=hw)
         self.qvars = Q.place_quantized(self.ir, qv, self.device, self._dtype)
         self._graphs = {k: g for k, g in self._graphs.items() if not k[2]}
 

@@ -8,9 +8,11 @@ on the port's trainer (:mod:`.trainer`), run as
 The flags are those of the JAX package's ``cli/train.py``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path). It
 writes ``<out-dir>/<name>/last``, ``best`` (checkpoint directories in the
-JAX package's layout) and ``results.txt``. ``--snow`` / ``--clahe`` (queue
-1 item 10), ``--steps-per-dispatch`` above 1 (item 17) and ``--no-dp``
-(item 12) raise ``NotImplementedError``.
+JAX package's layout) and ``results.txt``. ``--snow`` (the snowflake
+cutout, with CLAHE) and ``--clahe`` (CLAHE in training and evaluation)
+change the data as the JAX package's flags do. ``--steps-per-dispatch``
+above 1 (queue 1 item 17) and ``--no-dp`` (item 12) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ from .. import resolve_device
 from ..common import DEFAULT_HYP, build_model, resolve_cfg
 from ..config.parser import load_hyp, parse_data_cfg
 from ..data.dataset import KaistDataset
-from ..data.pipeline import CLAHE_NOT_PORTED
 from .trainer import DATA_PARALLEL_NOT_PORTED, MULTI_STEP_NOT_PORTED, Trainer
 
 
@@ -53,9 +54,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--multi-scale", action="store_true")
     p.add_argument("--sgd", action="store_true")
     p.add_argument("--snow", action="store_true",
-                   help="snowflake cutout (not ported yet)")
+                   help="snowflake cutout augmentation (CLAHEs the mosaic "
+                        "canvas first, as the reference's cutout does)")
     p.add_argument("--clahe", action="store_true",
-                   help="CLAHE preprocessing (not ported yet)")
+                   help="CLAHE preprocessing, in training and evaluation")
     p.add_argument("--ema", action="store_true")
     p.add_argument("--single-cls", type=str2bool, nargs="?",
                    const=True, default=True,
@@ -99,8 +101,6 @@ def main(argv=None):
         raise NotImplementedError(DATA_PARALLEL_NOT_PORTED)
     if opt.steps_per_dispatch > 1:
         raise NotImplementedError(MULTI_STEP_NOT_PORTED)
-    if opt.snow or opt.clahe:
-        raise NotImplementedError(CLAHE_NOT_PORTED)
     resolve_device(opt.device)
     opt.cfg = resolve_cfg(opt.cfg)
     hyp = load_hyp(opt.hyp)

@@ -14,6 +14,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from .. import resolve_device
 from ..models import graph
 from ..utils import tree as TR
 from . import loss as LS
@@ -33,12 +34,13 @@ class TrainState(NamedTuple):
 def create_train_state(ir, seed, tx, ema: bool = False,
                        variables: Optional[dict] = None,
                        device=None) -> TrainState:
-    """A TrainState on ``device`` (None: the CPU): ``variables`` (default
-    ``graph.init(ir, seed)``) as fp32 copies, the optimizer's state and,
-    with ``ema``, the EMA of the params."""
+    """A TrainState on ``device`` (None means ``cuda``): ``variables``
+    (default ``graph.init(ir, seed)``) as fp32 copies, the optimizer's
+    state and, with ``ema``, the EMA of the params."""
+    device = resolve_device(device)
     if variables is None:
         variables = graph.init(ir, seed)
-    placed = graph.place_variables(variables, device or "cpu")
+    placed = graph.place_variables(variables, device)
     params = TR.map_leaves(lambda p: p.clone().requires_grad_(True),
                            placed["params"])
     return TrainState(params=params, bn_state=placed["state"],

@@ -24,7 +24,7 @@ import os
 import torch
 
 from .. import resolve_device
-from ..data.pipeline import CLAHE_NOT_PORTED, prefetch, train_batches
+from ..data.pipeline import prefetch, train_batches
 from ..eval.evaluator import evaluate_dataset
 from ..models import graph
 from ..models import weights as W
@@ -70,8 +70,6 @@ class Trainer:
         ``variables``: the starting weights (default ``graph.init(ir,
         seed)``)."""
         self.clahe = bool(getattr(train_dataset, "clahe", False))
-        if snowflake or self.clahe:
-            raise NotImplementedError(CLAHE_NOT_PORTED)
         if steps_per_dispatch > 1:
             raise NotImplementedError(MULTI_STEP_NOT_PORTED)
         if data_parallel and devices is not None and len(devices) > 1:

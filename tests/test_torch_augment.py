@@ -12,6 +12,15 @@ Tolerances, and why:
   * against JAX's default ``matmul`` route (the MXU resample, not ported):
     within 1 u8 LSB (1.0), labels within 1e-5;
   * ``train_batch_plan`` is numpy on both sides: identical;
+  * CLAHE: byte for byte JAX's ``clahe_batch`` (random, low-contrast,
+    constant and peaked frames, a shape off the tile grid), and against
+    cv2 to the bounds JAX's own test holds JAX to; the snowflake cutout
+    given the same uniforms: masks, images and kept labels exactly;
+  * the train augment with the cutout and / or CLAHE: the pixels before
+    CLAHE agree to 1e-3 as above, and rounding them to uint8 for CLAHE can
+    tip a value that sits on .5 by one level, which CLAHE's LUT can
+    widen: so at most 0.5% of pixels differ, labels within 1e-5 and masks
+    exact;
   * the ``cuda`` case (the card's run; it skips here): the augment program
     on the card against the CPU from one generator seed: pixels within
     1e-3 of 0-255 with KAIST's hyp (the card divides by 255 as a product
@@ -25,6 +34,7 @@ import pytest
 import torch
 
 from double_yolo_kaist_torch.data import augment as TA
+from double_yolo_kaist_torch.data import clahe as TC
 from double_yolo_kaist_torch.data import pipeline as TP
 from double_yolo_kaist_torch.data.dataset import KaistDataset
 
@@ -34,6 +44,7 @@ try:        # the card's machine has no JAX: only the cuda cases run there
 
     from double_yolo_kaist_tpu.data import augment as JA
     from double_yolo_kaist_tpu.data import pipeline as JP
+    from double_yolo_kaist_tpu.data.clahe import clahe_batch as jax_clahe
     from tests.test_torch_dataset import (random_frames, random_labels,
                                           write_split)
 except ModuleNotFoundError:
@@ -248,10 +259,10 @@ def test_flip_and_label_formats_match_jax():
         close(g, w, 1e-6)
 
 
-def _train_draws(key, nb, hyp):
+def _train_draws(key, nb, hyp, snowflake=False):
     """The randoms of JAX's make_train_augment_fn ``fn``, as it draws them
     (epoch partners)."""
-    k_mosaic, _, k_affine, k_hsv, k_flip = jax.random.split(key, 5)
+    k_mosaic, k_cut, k_affine, k_hsv, k_flip = jax.random.split(key, 5)
     centers = jax.random.randint(k_mosaic, (nb, 2), S // 2, 3 * S // 2 + 1)
     Ms = JA._affine_matrices(k_affine, nb, (2 * S, 2 * S), hyp["degrees"],
                              hyp["translate"], hyp["scale"], hyp["shear"],
@@ -262,7 +273,9 @@ def _train_draws(key, nb, hyp):
     do = jax.random.bernoulli(k_flip, 0.5, (nb,))
     idx = np.concatenate([np.arange(nb)[:, None],
                           nb + np.arange(3 * nb).reshape(nb, 3)], 1)
-    return {"idx": t(idx), "centers": t(centers),
+    cut_u = (t(jax.random.uniform(k_cut, (nb, TP.N_SNOW, 2)))
+             if snowflake else None)
+    return {"idx": t(idx), "centers": t(centers), "cut_u": cut_u,
             "Ms": (t(Ms[0]), t(Ms[1])), "hsv_r": t(hsv_r), "do": t(do)}
 
 
@@ -292,6 +305,129 @@ def test_train_augment_fn_matches_jax(hyp, pix):
     assert torch.equal(a["v"], b["v"]) and torch.equal(a["targets"],
                                                        b["targets"])
     assert 0 <= float(a["v"].min()) and float(a["v"].max()) <= 1
+
+
+# ------------------------------------------------------- CLAHE and cutout
+
+def clahe_frames(kind, shape, seed):
+    """uint8 frames: ``random``; ``low`` contrast (12 levels); ``constant``;
+    ``peaked`` (two values, so that each tile clips a large excess whose
+    residual exercises cv2's bump of every step-th bin)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    if kind == "low":
+        return (100 + rng.integers(0, 12, shape)).astype(np.uint8)
+    if kind == "constant":
+        return np.full(shape, 77, np.uint8)
+    return np.where(rng.random(shape) < 0.9, 40, 200).astype(np.uint8)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 80, 3), (2, 62, 78, 3)],
+                         ids=["64x80", "62x78"])
+@pytest.mark.parametrize("kind", ["random", "low", "constant", "peaked"])
+def test_clahe_equals_jax(kind, shape):
+    x = clahe_frames(kind, shape, 21)
+    got = TC.clahe_batch(torch.from_numpy(x))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jax_clahe(jnp.asarray(x))))
+    if kind == "peaked":                       # the bump rule is exercised
+        tile = x[0, :shape[1] // 4, :shape[2] // 4, 0].reshape(-1)
+        hist = np.bincount(tile, minlength=256)
+        limit = max(int(tile.size / 256.0), 1)
+        excess = int((hist - np.minimum(hist, limit)).sum())
+        assert excess % 256 != 0
+
+
+@pytest.mark.parametrize("hw,mean,p99", [((64, 64), 1.5, 4),
+                                         ((42, 63), 1.0, 2)])
+def test_clahe_against_cv2(hw, mean, p99):
+    """The bounds tests/test_augment.py holds the JAX package's CLAHE to
+    against cv2 (divisible and reflect-extended shapes)."""
+    import cv2
+    img = np.random.default_rng(2).integers(0, 256, hw + (3,),
+                                            dtype=np.uint8)
+    op = cv2.createCLAHE(clipLimit=1.0, tileGridSize=(4, 4))
+    ref = np.stack([op.apply(np.ascontiguousarray(img[..., c]))
+                    for c in range(3)], -1)
+    got = TC.clahe_batch(torch.from_numpy(img[None]))[0].numpy()
+    diff = np.abs(got.astype(int) - ref.astype(int))
+    assert np.mean(diff) < mean and np.quantile(diff, 0.99) <= p99
+
+
+def _cutout_inputs(seed, b=3, n_t=8, hw=(64, 96)):
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(1, 255, (b,) + hw + (3,)).astype(np.float32)
+    l = rng.uniform(1, 255, (b,) + hw + (3,)).astype(np.float32)
+    lab, _ = xyxy_labels(seed, b, n_t, hw)
+    m = np.zeros((b, n_t), bool)
+    for i, k in enumerate((2, 6, 7)):   # 6 = n_thr: active; 7: not
+        m[i, :k] = True
+    return v, l, lab, m
+
+
+@pytest.mark.parametrize("step,n_snow", [(16, 25), (32, 80)])
+def test_snowflake_cutout_equals_jax(step, n_snow):
+    v, l, lab, m = _cutout_inputs(5)
+    u = np.random.default_rng(6).random((3, n_snow, 2), dtype=np.float32)
+    want = JA.snowflake_cutout(None, jnp.asarray(v), jnp.asarray(l),
+                               jnp.asarray(lab), jnp.asarray(m), n_thr=6,
+                               step=step, n_snow=n_snow, u=jnp.asarray(u))
+    got = TA.snowflake_cutout(None, t(v), t(l), t(lab), t(m), n_thr=6,
+                              step=step, n_snow=n_snow, u=t(u))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    cut = got[0].numpy() == 0
+    assert cut[:2].any() and not cut[2].any()    # 7 labels > n_thr: none
+    assert (got[2].numpy() != m).any()            # some label was dropped
+
+
+@pytest.mark.parametrize("snow,clahe", [(True, False), (False, True),
+                                        (True, True)],
+                         ids=["snow", "clahe", "both"])
+def test_train_augment_fn_cutout_clahe_match_jax(snow, clahe):
+    nb = 2
+    v, l = frames(16, 4 * nb), frames(17, 4 * nb)
+    lab, m = norm_labels(16, 4 * nb)
+    key = jax.random.PRNGKey(19)
+    want = JP.make_train_augment_fn(SRC, S, KAIST_HYP, snowflake=snow,
+                                    clahe=clahe, chunk=0, jit=False,
+                                    resample="gather")(
+        key, jnp.asarray(v), jnp.asarray(l), jnp.asarray(lab),
+        jnp.asarray(m))
+    tfn = TP.make_train_augment_fn(SRC, S, KAIST_HYP, snowflake=snow,
+                                   clahe=clahe)
+    got = tfn.heavy(t(v), t(l), t(lab), t(m),
+                    **_train_draws(key, nb, KAIST_HYP, snowflake=snow))
+    for name in ("v", "l"):
+        d = np.abs(got[name].numpy() * 255 - np.asarray(want[name]) * 255)
+        assert (d > 1e-3).mean() <= 0.005, (name, (d > 1e-3).mean())
+    close(got["targets"], want["targets"], 1e-5)
+    np.testing.assert_array_equal(got["tmask"].numpy(),
+                                  np.asarray(want["tmask"]))
+
+
+def test_draws_without_snow_unchanged():
+    """The cutout stream is its own generator: a draw without --snow is
+    the draw of before, and one with it moves no other random."""
+    plain = TP.make_train_augment_fn(SRC, S, WARP_HYP).draw
+    snow = TP.make_train_augment_fn(SRC, S, WARP_HYP, snowflake=True).draw
+    a = plain(torch.Generator().manual_seed(4), 3)
+    b = snow(torch.Generator().manual_seed(4), 3)
+    assert a["cut_u"] is None and b["cut_u"].shape == (3, TP.N_SNOW, 2)
+    for k in ("idx", "centers", "hsv_r", "do"):
+        assert torch.equal(a[k], b[k]), k
+    assert all(torch.equal(x, y) for x, y in zip(a["Ms"], b["Ms"]))
+    # the streams as seeded before the cutout's was drawn from
+    seeds = torch.randint(0, 2 ** 62, (5,),
+                          generator=torch.Generator().manual_seed(4))
+    g_mosaic = torch.Generator().manual_seed(int(seeds[0]))
+    assert torch.equal(a["centers"], torch.randint(S // 2, 3 * S // 2 + 1,
+                                                   (3, 2),
+                                                   generator=g_mosaic))
+    g_flip = torch.Generator().manual_seed(int(seeds[4]))
+    assert torch.equal(a["do"], torch.rand(3, generator=g_flip) < 0.5)
 
 
 class _Labels:
@@ -328,7 +464,7 @@ def test_train_batches_on_a_split(tmp_path):
     ds = KaistDataset(path, S, 4, augment=True)
     for cache in (None, False):            # the device pool, then streaming
         got = list(TP.train_batches(ds, 4, 7, img_size=S, hyp=KAIST_HYP,
-                                    device_cache=cache))
+                                    device_cache=cache, device="cpu"))
         assert len(got) == 2
         for batch, idx in got:
             assert batch["v"].shape == (4, S, S, 3) == batch["l"].shape
@@ -338,15 +474,34 @@ def test_train_batches_on_a_split(tmp_path):
             pooled = got
     for (a, _), (b, _) in zip(pooled, got):
         assert torch.equal(a["v"], b["v"])       # tiers change nothing
-    with pytest.raises(NotImplementedError, match="item 10"):
-        next(TP.train_batches(ds, 4, 7, img_size=S, hyp=KAIST_HYP,
-                              snowflake=True))
+
+
+def test_train_batches_snow_clahe_on_a_split(tmp_path):
+    """train_batches with the cutout and CLAHE: the batch of a plain run
+    from the same seed CLAHE'd and cut, reproducible from its seed."""
+    rng = np.random.default_rng(6)
+    path = write_split(tmp_path, random_frames(rng, 8, SRC),
+                       random_labels(rng, 8))
+    ds = KaistDataset(path, S, 4, augment=True)
+    runs = [list(TP.train_batches(ds, 4, 7, img_size=S, hyp=KAIST_HYP,
+                                  snowflake=snow, clahe=snow,
+                                  device="cpu"))
+            for snow in (False, True, True)]
+    for (plain, i0), (cut, i1), (again, _) in zip(*runs):
+        assert list(i0) == list(i1)
+        assert cut["v"].shape == plain["v"].shape == (4, S, S, 3)
+        assert not torch.equal(cut["v"], plain["v"])
+        assert torch.equal(cut["v"], again["v"])
+        assert torch.equal(cut["tmask"], again["tmask"])
+        assert (cut["tmask"] <= plain["tmask"]).all()  # cutout only drops
+        assert 0 <= float(cut["v"].min()) and float(cut["v"].max()) <= 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hyp,pix", [(KAIST_HYP, 1e-3), (WARP_HYP, 1e-2)],
                          ids=["kaist", "warp"])
 def test_augment_card_matches_cpu(hyp, pix):
+    """The augment program on the card against the CPU from one seed."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     nb = 4
@@ -361,3 +516,25 @@ def test_augment_card_matches_cpu(hyp, pix):
     close(got["l"].cpu() * 255, want["l"] * 255, pix)
     close(got["targets"].cpu(), want["targets"], 1e-5)
     assert torch.equal(got["tmask"].cpu(), want["tmask"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "low", "peaked"])
+def test_clahe_and_cutout_card_equal_cpu(kind):
+    """CLAHE on the card gives the CPU's bytes (integer histograms, the
+    blend op by op), a shape off the tile grid too; the cutout from the
+    same uniforms gives the CPU's images and labels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for shape in ((4, 512, 640, 3), (2, 62, 78, 3)):
+        x = torch.from_numpy(clahe_frames(kind, shape, 23))
+        assert torch.equal(TC.clahe_batch(x.cuda()).cpu(),
+                           TC.clahe_batch(x))
+    v, l, lab, m = _cutout_inputs(7)
+    u = t(np.random.default_rng(8).random((3, 80, 2), dtype=np.float32))
+    kw = dict(n_thr=6, step=32, n_snow=80, u=u)
+    want = TA.snowflake_cutout(None, t(v), t(l), t(lab), t(m), **kw)
+    got = TA.snowflake_cutout(None, *(t(a).cuda() for a in (v, l, lab, m)),
+                              **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

@@ -15,6 +15,7 @@ import threading
 import time
 
 import cv2
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -173,9 +174,116 @@ def test_eval_preprocess_matches_jax(src_hw, dst_hw, img_size, from_pool):
                                    atol=1e-5)
 
 
-def test_clahe_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TP.make_eval_preprocess_fn((64, 96), (64, 96), 96, clahe=True)
+@pytest.mark.parametrize("src_hw,dst_hw,img_size", [
+    ((128, 160), (104, 128), 128),     # KAIST's rect eval at a quarter
+    ((64, 96), (64, 96), 96),          # r1 == 1: CLAHE of the frame itself
+    ((37, 53), (64, 64), 64),          # a CLAHE shape off the tile grid
+])
+@pytest.mark.parametrize("from_pool", [False, True])
+def test_eval_preprocess_clahe_matches_jax(src_hw, dst_hw, img_size,
+                                           from_pool):
+    """``clahe=True`` CLAHEs after the first resize, as the JAX package
+    does. JAX is run op by op (``jax.disable_jit``), as the port runs: its
+    jitted resize fuses the lerp differently and moves a value by up to
+    4e-3, which tips the uint8 rounding of about 1e-4 of the pixels going
+    into CLAHE, and a tile's LUT moves with its histogram. Op by op, the
+    same bytes go into CLAHE, so the batches agree within 1e-5."""
+    rng = np.random.default_rng(8)
+    v = rng.integers(0, 256, (2,) + src_hw + (3,), dtype=np.uint8)
+    l = (rng.integers(0, 40, (2,) + src_hw + (3,)) + 90).astype(np.uint8)
+    jfn, jr, jpad = JP.make_eval_preprocess_fn(src_hw, dst_hw, img_size,
+                                               clahe=True,
+                                               from_pool=from_pool)
+    tfn, tr, tpad = TP.make_eval_preprocess_fn(src_hw, dst_hw, img_size,
+                                               clahe=True,
+                                               from_pool=from_pool)
+    plain, _, _ = TP.make_eval_preprocess_fn(src_hw, dst_hw, img_size)
+    assert (tr, tpad) == (jr, jpad)
+    args = (v, l, np.asarray([1, 0])) if from_pool else (v, l)
+    with jax.disable_jit():
+        want = jfn(*map(jnp.asarray, args))
+    got = tfn(*map(torch.from_numpy, args))
+    for g, w, p in zip(got, want, plain(torch.from_numpy(v),
+                                        torch.from_numpy(l))):
+        assert tuple(g.shape[1:3]) == dst_hw
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+        assert not torch.equal(g, p)               # CLAHE did something
+
+
+def test_eval_batches_clahe_matches_jax(tmp_path):
+    """A split with ``clahe`` set: eval_batches CLAHEs, as the JAX
+    package's does (run op by op, as in
+    test_eval_preprocess_clahe_matches_jax), from the device pool and
+    streaming alike."""
+    rng = np.random.default_rng(9)
+    path = write_split(tmp_path, random_frames(rng, 5, (64, 96)),
+                       random_labels(rng, 5))
+    kw = dict(img_size=96, batch_size=4, rect=True, clahe=True)
+    with jax.disable_jit():
+        ref = [(np.asarray(v), np.asarray(l), list(idx), rp)
+               for v, l, idx, rp in JP.eval_batches(
+                   JD.KaistDataset(path, **kw), 4, device_cache=False)]
+    for cache in (True, False):
+        got = _batches(TP.eval_batches(TD.KaistDataset(path, **kw), 4,
+                                       device_cache=cache, device="cpu"))
+        assert len(got) == len(ref)
+        for a, r in zip(got, ref):
+            assert a[2] == r[2] and a[3] == r[3]
+            np.testing.assert_allclose(a[0], r[0], rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(a[1], r[1], rtol=1e-5, atol=1e-5)
+    plain = _batches(TP.eval_batches(TD.KaistDataset(
+        path, **dict(kw, clahe=False)), 4, device_cache=False, device="cpu"))
+    assert not np.array_equal(plain[0][0], got[0][0])
+
+
+@pytest.mark.parametrize("name", ["iter_preprocessed", "device_image_pool",
+                                  "host_image_pool", "eval_batches",
+                                  "train_batches", "create_train_state"])
+def test_public_functions_default_to_cuda(name, tmp_path):
+    """``device=None`` means ``cuda`` in every public function of the data
+    and train paths: without a card each raises, as resolve_device does,
+    unless it is given ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: None takes it")
+    from double_yolo_kaist_torch.config.ir import compile_cfg
+    from double_yolo_kaist_torch.data import streams as TS
+    from double_yolo_kaist_torch.train import optim as TO
+    from double_yolo_kaist_torch.train import step as TST
+    hw = (64, 96)
+    rng = np.random.default_rng(2)
+    path = write_split(tmp_path, random_frames(rng, 2, hw),
+                       random_labels(rng, 2))
+    ds = TD.KaistDataset(path, img_size=96, batch_size=2,
+                         augment=name == "train_batches")
+
+    class Frames:                      # a stream of one frame
+        img_size = 64
+
+        def __iter__(self):
+            return iter([np.zeros((48, 64, 3), np.uint8)])
+
+    tiny = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "tiny_dyolov3.cfg")
+    calls = {
+        "iter_preprocessed": lambda **kw: next(TS.iter_preprocessed(
+            Frames(), TP.make_eval_preprocess_fn, **kw)),
+        "device_image_pool": lambda **kw: TP.device_image_pool(
+            ds, tuple(hw), True, **kw),
+        "host_image_pool": lambda **kw: TP.host_image_pool(
+            ds, tuple(hw), **kw),
+        "eval_batches": lambda **kw: next(TP.eval_batches(ds, 2, **kw)),
+        "train_batches": lambda **kw: next(TP.train_batches(
+            ds, 2, 0, img_size=64, hyp={}, **kw)),
+        "create_train_state": lambda **kw: TST.create_train_state(
+            compile_cfg(tiny, yolo_strides=[8, 4]), 0,
+            TO.make_optimizer({"lr0": 0.01, "momentum": 0.9,
+                               "weight_decay": 0.0},
+                              lambda i: 0.01), **kw),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[name]()
+    calls[name](device="cpu")
 
 
 def _batches(it):
@@ -194,7 +302,7 @@ def test_eval_batches_tiers_and_jax(split, monkeypatch):
                                       device="cpu"))
     assert "cpu" in ds._device_pools                # it took the pool tier
     streamed = _batches(TP.eval_batches(TD.KaistDataset(path, **kw), 4,
-                                        device_cache=False))
+                                        device_cache=False, device="cpu"))
     ref = [(np.asarray(v), np.asarray(l), list(idx), rp) for v, l, idx, rp
            in JP.eval_batches(JD.KaistDataset(path, **kw), 4,
                               device_cache=False)]
@@ -230,7 +338,8 @@ def test_eval_batches_mixed_shapes(tmp_path):
                     for _ in range(2)) for s in shapes]
     path = write_split(tmp_path, frames)
     kw = dict(img_size=64, batch_size=4, rect=False)
-    mine = _batches(TP.eval_batches(TD.KaistDataset(path, **kw), 4))
+    mine = _batches(TP.eval_batches(TD.KaistDataset(path, **kw), 4,
+                                    device="cpu"))
     ref = [(np.asarray(v), np.asarray(l), list(idx), rp) for v, l, idx, rp
            in JP.eval_batches(JD.KaistDataset(path, **kw), 4)]
     assert [m[2] for m in mine] == [r[2] for r in ref] == [

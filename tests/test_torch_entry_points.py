@@ -42,7 +42,12 @@ from double_yolo_kaist_torch.models import zoo
 from double_yolo_kaist_torch.serving import Predictor
 from double_yolo_kaist_torch.utils import checkpoint as TCK
 from tests.test_torch_dataset import random_frames, random_labels, write_split
-from tests.test_torch_slice import MNV3, NPZ, write_narrow_flagship
+from tests.test_torch_quantize import one_thread
+from tests.test_torch_slice import MNV3, NPZ, TINY, write_narrow_flagship
+
+# torch on one thread: reproducible int8 forwards, and no contention for
+# the cores between pytest-xdist workers (test_torch_quantize.one_thread)
+_one_thread = pytest.fixture(autouse=True)(one_thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MNV3_NAME = "Double-YOLOv4-MNv3-Fshare-Global-CSE3"
@@ -274,7 +279,8 @@ def test_load_stream_matches_jax(tmp_path):
         w.write(rng.integers(0, 256, (64, 96, 3), dtype=np.uint8))
     w.release()
     mine = list(TS.iter_preprocessed(TS.LoadStream(path, img_size=96),
-                                     TP.make_eval_preprocess_fn))
+                                     TP.make_eval_preprocess_fn,
+                                     device="cpu"))
     ref = list(JS.iter_preprocessed(JS.LoadStream(path, img_size=96),
                                     JP.make_eval_preprocess_fn))
     assert len(mine) == len(ref) == 4
@@ -316,19 +322,91 @@ def test_bench_both_legs_on_seeded_weights(tmp_path, capsys):
     assert set(out["bf16_repeats"]) == {"min", "mean", "max"}
 
 
+@pytest.mark.parametrize("mode", ["edge", "spineall"])
+def test_bench_new_int8_modes(capsys, mode):
+    """``bench --int8 --int8-mode`` in the edge and spine modes, on the tiny
+    cfg with seeded weights: one JSON line naming the mode."""
+    TB.main(["--model", TINY, "--height", "64", "--width", "96", "--batch",
+             "1", "--iters", "1", "--warmup", "1", "--int8", "--int8-mode",
+             mode, "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert f"int8 PTQ {mode}" in out["metric"] and out["value"] > 0
+    assert "bf16_fps" not in out
+
+
 @pytest.mark.parametrize("argv, item", [
     (["--exported", "a.dykx"], "item 13"),
-    (["--cfg", MNV3_NAME, "--int8-qvars", "q.npz"], "item 11"),
-    (["--cfg", MNV3_NAME, "--dp", "2"], "item 12")])
+    (["--cfg", MNV3_NAME, "--dp", "2"], "item 12")],
+    ids=["argv0-item 13", "argv2-item 12"])     # the ids they always had
 def test_serve_refuses_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         TSV.main(argv + ["--device", "cpu"])
 
 
-def test_serve_refuses_int8_modes_not_ported(mnv3_ckpt):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TSV.main(["--cfg", MNV3_NAME, "--weights", mnv3_ckpt, "--int8",
-                  "--int8-mode", "edge", "--device", "cpu"])
+def _serve_built(monkeypatch, argv):
+    """Run ``serve``'s main up to the listening socket, which is not
+    opened; returns the Predictor it built."""
+    built = {}
+
+    class NoServer:
+        def __init__(self, addr, handler):
+            pass
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    def handler(predictor, name):
+        built["predictor"] = predictor
+        return None
+
+    monkeypatch.setattr(TSV, "ThreadingHTTPServer", NoServer)
+    monkeypatch.setattr(TSV, "make_handler", handler)
+    TSV.main(argv + ["--device", "cpu", "--microbatch", "0"])
+    return built["predictor"]
+
+
+@pytest.mark.parametrize("mode", ["edge", "spine", "spineall"])
+def test_serve_int8_modes(mnv3_ckpt, monkeypatch, mode):
+    """``serve --int8 --int8-mode`` in the new modes builds its Predictor:
+    MNv3's edge plan quantizes (its 1x1 and 3x3 standard convs), its
+    spine plans are empty and serve bf16 with the warning."""
+    argv = ["--cfg", MNV3_NAME, "--weights", mnv3_ckpt, "--int8",
+            "--int8-mode", mode, "--img-size", "96", "--no-warmup"]
+    if mode == "edge":
+        pred = _serve_built(monkeypatch, argv)
+    else:
+        with pytest.warns(UserWarning, match="int8 plan"):
+            pred = _serve_built(monkeypatch, argv)
+    assert pred._int8 == (mode == "edge") and pred._int8_mode == mode
+
+
+def test_serve_int8_qvars(monkeypatch, tmp_path):
+    """``serve --int8-qvars`` (the tiny cfg, weights from graph.init): a
+    missing file is written by the server's
+    first quantization; an existing one is served from the first request
+    (no calibration), with the first server's detections; a file of
+    another mode is refused."""
+    qpath = str(tmp_path / "q.npz")
+    argv = ["--cfg", TINY, "--int8", "--int8-mode", "edge", "--img-size",
+            "96", "--no-warmup", "--int8-qvars", qpath,
+            "--calibration-batches", "1"]
+    first = _serve_built(monkeypatch, argv)
+    assert first.qvars is None and not os.path.exists(qpath)
+    frames = np.random.default_rng(3).integers(0, 256, (2, 1, 64, 96, 3),
+                                               dtype=np.uint8)
+    first(*frames)                                   # calibrates, saves
+    assert first.qvars is not None and os.path.exists(qpath)
+    second = _serve_built(monkeypatch, argv)
+    assert second.qvars is not None and not second._cal_batches
+    for (b, s, c), (rb, rs, rc) in zip(second(*frames), first(*frames)):
+        np.testing.assert_array_equal(b, rb)
+        np.testing.assert_array_equal(s, rs)
+    with pytest.raises(ValueError, match="built for mode='edge'"):
+        _serve_built(monkeypatch, [a if a != "edge" else "all"
+                                   for a in argv])
 
 
 def test_bench_refuses_check_ap():

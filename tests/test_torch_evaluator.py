@@ -36,19 +36,22 @@ from double_yolo_kaist_tpu.utils import checkpoint as JCK
 from double_yolo_kaist_torch import evaluate as TEV
 from double_yolo_kaist_torch.bench import seeded_variables
 from double_yolo_kaist_torch.config.ir import compile_cfg
-from double_yolo_kaist_torch.data import pipeline as TP
 from double_yolo_kaist_torch.data.dataset import KaistDataset
 from double_yolo_kaist_torch.eval import evaluator as TE
 from double_yolo_kaist_torch.models import quantize as TQ
 from double_yolo_kaist_torch.models import weights as TW
 from double_yolo_kaist_torch.utils import checkpoint as TCK
 from tests.test_torch_dataset import random_frames, write_split
-from tests.test_torch_quantize import _match_rate
+from tests.test_torch_quantize import _match_rate, one_thread
 from tests.test_torch_slice import (MNV3, NPZ, TINY, _perturb_bn,
                                     write_narrow_flagship)
 
 HW = (64, 96)
 IMG = 96
+
+# torch on one thread: reproducible int8 forwards, and no contention for
+# the cores between pytest-xdist workers (test_torch_quantize.one_thread)
+_one_thread = pytest.fixture(autouse=True)(one_thread)
 
 
 def labels_from(predictions, shapes, k=5, seed=0):
@@ -215,8 +218,14 @@ def test_int8_calibration_saved_then_reused(flagship, tmp_path):
         np.testing.assert_array_equal(again["predictions"][img][1], s)
     stats, pct = TQ.load_calibration(cal)
     jstats, jpct = JQ.load_calibration(cal)
-    assert pct == jpct == 100.0 and stats == jstats
+    assert pct == jpct == 100.0 and sorted(stats) == sorted(jstats)
+    for k, v in jstats.items():
+        np.testing.assert_array_equal(stats[k], v)
     assert set(stats) >= {f"l{i}" for i in TQ.plan_quantization(tir)[0]}
+    # the per-channel vectors edge mode reads are there too
+    assert set(stats) >= {f"l{i}.out" for i, v in
+                          TQ.plan_edges(tir)[1].items() if v
+                          and tir.nodes[i].kind in ("conv", "shortcut")}
 
 
 def test_calibration_artifacts_cross_load(tmp_path):
@@ -366,25 +375,100 @@ def test_entry_point_cpu(model, tmp_path, capsys):
 
 def test_not_ported_raise(model, tmp_path):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item: CLAHE (item 10), mesh (12), quantized= (11). Lifted since:
-    folded=False runs the unfolded forward, and build_model without
-    weights starts from graph.init."""
+    item: mesh (12). Lifted since: folded=False runs the unfolded forward,
+    build_model without weights starts from graph.init, CLAHE and the
+    quantized artifacts are ported (the tests below)."""
     name, _, _, tir, tv, path = model
     ds = KaistDataset(path, IMG, 4, rect=True)
-    for kw, item in ((dict(mesh=object()), "item 12"),
-                     (dict(quantized="q.npz", int8=True), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            TE.evaluate_dataset(tir, tv, ds, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TP.make_eval_preprocess_fn(HW, HW, IMG, clahe=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TE.evaluate_dataset(tir, tv, ds, device="cpu", mesh=object())
     ir, variables = TEV.build_model(MNV3, "")
     assert sorted(TCK._flatten(variables)) == sorted(
         TCK._flatten(TW.load_state_dict_npz(ir, NPZ)))
-    if name == "mnv3":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            TEV.main(["--cfg", MNV3, "--weights", _reference_pt(tmp_path),
-                      "--data", _write_data(tmp_path, path), "--device",
-                      "cpu", "--int8-qvars", "q.npz"])
+
+
+@pytest.mark.parametrize("model", ["tiny"], indirect=True)
+def test_evaluate_clahe_split(model):
+    """A split with ``clahe`` set evaluates with CLAHE'd frames: the
+    predictions differ from the plain split's, as the JAX package's do."""
+    name, jir, jv, tir, tv, path = model
+    kw = dict(batch_size=4, compute_dtype=torch.float32, device="cpu")
+    plain = TE.evaluate_dataset(tir, tv, KaistDataset(path, IMG, 4,
+                                                      rect=True), **kw)
+    res = TE.evaluate_dataset(tir, tv, KaistDataset(path, IMG, 4, rect=True,
+                                                    clahe=True), **kw)
+    assert res["batches"] == plain["batches"] == 2
+    assert any(not np.array_equal(res["predictions"][i][1], s)
+               for i, (_, s) in plain["predictions"].items())
+
+
+@pytest.mark.parametrize("model", ["tiny"], indirect=True)
+@pytest.mark.parametrize("mode", ["edge", "spineall"])
+def test_evaluate_from_quantized_artifact(model, tmp_path, mode):
+    """evaluate_dataset(quantized=) on the tiny cfg: the variables
+    quantize() makes from a calibration, saved as an artifact, give the
+    predictions of the evaluation that quantized them from that
+    calibration, exactly; a mode other than the artifact's is refused."""
+    _, _, _, tir, tv, path = model
+    cal, qpath = str(tmp_path / "cal.npz"), str(tmp_path / "q.npz")
+    kw = dict(batch_size=4, int8=True, int8_mode=mode,
+              compute_dtype=torch.float32, device="cpu")
+    ds = KaistDataset(path, IMG, 4, rect=True)
+    first = TE.evaluate_dataset(tir, tv, ds, calibration=cal, **kw)
+    stats, _ = TQ.load_calibration(cal)
+    from double_yolo_kaist_torch.models import graph as TG
+    qv = TQ.quantize(tir, TG.fold_batchnorm(tir, tv), stats, mode=mode)
+    TQ.save_quantized(qpath, qv, mode=mode, hw=(IMG, IMG))
+    again = TE.evaluate_dataset(tir, None, ds, quantized=qpath, **kw)
+    assert again["ap"] == first["ap"]
+    for img, (b, s) in first["predictions"].items():
+        np.testing.assert_array_equal(again["predictions"][img][0], b)
+        np.testing.assert_array_equal(again["predictions"][img][1], s)
+    with pytest.raises(ValueError, match="mode="):
+        TE.evaluate_dataset(tir, None, ds, quantized=qpath,
+                            **dict(kw, int8_mode="chain"))
+
+
+@pytest.mark.parametrize("model", ["tiny"], indirect=True)
+def test_calibrate_and_evaluate_int8_qvars_entry_points(model, tmp_path,
+                                                        capsys):
+    """``python -m double_yolo_kaist_torch.calibrate --quantized-out`` on
+    the tiny cfg with ``--device cpu`` writes both artifacts, in the JAX
+    package's format; ``evaluate --int8 --int8-mode edge --int8-qvars`` on
+    that file prints the VOC-AP of evaluate_dataset(quantized=)."""
+    from double_yolo_kaist_torch import calibrate as TCAL
+    name, _, _, _, tv, path = model
+    cfg = MNV3 if name == "mnv3" else TINY
+    jx = TW.to_jax_variables(tv)
+    TCK.save_checkpoint(str(tmp_path / "ck"), params=jx["params"],
+                        bn_state=jx["state"])
+    data = _write_data(tmp_path, path)
+    cal, qpath = str(tmp_path / "cal.npz"), str(tmp_path / "q.npz")
+    TCAL.main(["--cfg", cfg, "--weights", str(tmp_path / "ck"), "--data",
+               data, "--img-size", str(IMG), "--batch-size", "4",
+               "--batches", "2", "--fp32", "--out", cal, "--quantized-out",
+               qpath, "--int8-mode", "edge", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "calibration:" in out and "quantized variables (mode=edge" in out
+    jstats, _ = JQ.load_calibration(cal)
+    assert any(k.endswith(".out") for k in jstats)
+    jq, jmode, jhw = JQ.load_quantized(qpath)
+    assert (jmode, jhw) == ("edge", (IMG, IMG)) and jq["params"]
+    npy = str(tmp_path / "curves.npy")
+    TEV.main(["--cfg", cfg, "--weights", str(tmp_path / "ck"), "--data",
+              data, "--img-size", str(IMG), "--batch-size", "4", "--fp32",
+              "--int8", "--int8-mode", "edge", "--int8-qvars", qpath,
+              "--device", "cpu", "--npy-path", npy])
+    printed = [line for line in capsys.readouterr().out.splitlines()
+               if line.startswith("VOC Average Precision")]
+    res = TE.evaluate_dataset(compile_cfg(cfg), None,
+                              KaistDataset(path, IMG, 4, rect=True),
+                              batch_size=4, compute_dtype=torch.float32,
+                              int8=True, int8_mode="edge", quantized=qpath,
+                              device="cpu")
+    assert np.load(npy, allow_pickle=True).item()["ap"] == res["ap"]
+    assert printed == [f"VOC Average Precision (VOC-AP)@[IoU = 0.5] = "
+                       f"{res['ap'] * 100:.2f}%"]
 
 
 def test_unfolded_matches_jax(model):

@@ -32,7 +32,8 @@ def test_port_imports_no_jax():
                  "data.streams", "utils.draw", "data.augment",
                  "train.loss", "train.optim", "train.step", "train.trainer",
                  "train.anchors", "train.cli", "config.writer",
-                 "utils.logging", "utils.profiling", "utils.tree"):
+                 "utils.logging", "utils.profiling", "utils.tree",
+                 "data.clahe", "calibrate"):
         assert f"double_yolo_kaist_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

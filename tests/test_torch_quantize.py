@@ -1,23 +1,25 @@
 """int8 post-training quantization (models/quantize.py): the port on the
-CPU against the JAX package's models/quantize.py.
+CPU against the JAX package's models/quantize.py. The new modes' own tests
+and the quantized-variables artifacts are in test_torch_quantize_modes.py.
 
 What is held, and to what:
-  * the plan: targets and chain emitters equal JAX's for seed, chain and
-    all, on the tiny cfg, both flagships and MNv3 (empty but in mode all),
-    at full width (IR only);
+  * the plan: targets and emitters equal JAX's in all six modes (seed,
+    chain, all, spine, spineall, edge), on the tiny cfg, both flagships
+    and MNv3, at full width (IR only);
   * the quantized weights: int8 kernels, scales, input and output inverse
     scales bit-exact, given the same stats;
-  * calibrate: every conv's input amax within 1e-5 relative of JAX's, fp32
-    (the same forward; only the order of the fp32 sums differs);
+  * calibrate: every conv's input amax and every per-channel output amax
+    within 1e-5 relative of JAX's, fp32 (the same forward; only the order
+    of the fp32 sums differs);
   * every quantized conv of the flagship narrowed for the CPU (every
     ``filters=`` divided by 4 but the heads', 64x96), given the same fp32
     input: to an ulp, or one int8 step on under 1% of requantized values;
-  * apply_quantized given JAX's stats, fp32 compute, and
-    Predictor(int8=True) on the CPU, on the same narrowed flagship: to the
-    bounds stated in their docstrings. An ulp that lands on an int8
-    rounding boundary moves a value by one quantization step, and the
-    steps compound through 80 quantized convs, so these two hold the
-    result statistically.
+  * apply_quantized given JAX's stats, fp32 compute, in chain, spine,
+    spineall and edge, and Predictor(int8=True) on the CPU, on the same
+    narrowed flagship: to the bounds stated in their docstrings. An ulp
+    that lands on an int8 rounding boundary moves a value by one
+    quantization step, and the steps compound through 80 and more
+    quantized convs, so these two hold the result statistically.
 
 The JAX int8 executor runs its convs in a space-to-depth basis by default,
 re-quantizing the transformed kernels; the comparisons of the int8 forward
@@ -47,6 +49,27 @@ from tests.test_torch_slice import (MNV3, NPZ, REPO, TINY, _perturb_bn,
                                     flagship_variables,
                                     write_narrow_flagship)
 
+def one_thread():
+    """Run torch on one thread while a test runs. The port's CPU fp32
+    results depend on how torch splits elementwise work over its threads
+    (the vectorized body and the scalar tail of each split round an ulp
+    apart), an int8 forward turns such an ulp into a step now and then,
+    and the steps compound: with the default threads one process in five
+    or six gave another narrowed-flagship forward (median raw-head
+    difference to JAX 0.024 instead of 2e-5). One thread makes every run
+    the same; under pytest-xdist it also keeps the workers' thread pools
+    from contending for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+_one_thread = pytest.fixture(autouse=True)(one_thread)
+
+
 PLAN_CFGS = {
     "tiny": (TINY, {"yolo_strides": [8, 4]}),
     "v4_flagship": (os.path.join(
@@ -57,27 +80,20 @@ PLAN_CFGS = {
 }
 
 
-@pytest.mark.parametrize("mode", ["seed", "chain", "all"])
+@pytest.mark.parametrize("mode", TQ.MODES)
 @pytest.mark.parametrize("name", sorted(PLAN_CFGS))
 def test_plan_equals_jax(name, mode):
     path, kw = PLAN_CFGS[name]
     jt, je = JQ.plan_quantization(jax_compile_cfg(path, **kw), mode)
     tt, te = TQ.plan_quantization(compile_cfg(path, **kw), mode)
     assert (tt, te) == (set(jt), set(je))
-    if name == "mnv3" and mode != "all":
+    if name == "mnv3" and mode not in ("all", "edge"):
         assert not tt            # depthwise convs and thin stems only
     if name == "v4_flagship" and mode == "chain":
         # the ten chain 1x1 convs K4 computes
         ir = compile_cfg(path)
         assert sorted(i for i in tt if ir.nodes[i].kernel == 1) == [
             227, 236, 244, 246, 254, 256, 265, 267, 276, 278]
-
-
-@pytest.mark.parametrize("mode", ["spine", "spineall", "edge"])
-def test_unported_modes_raise(mode):
-    ir = compile_cfg(TINY, yolo_strides=[8, 4])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TQ.plan_quantization(ir, mode)
 
 
 def test_quant_weight_bit_exact():
@@ -127,6 +143,25 @@ def _port_batches(batches):
     return [tuple(map(torch.from_numpy, b)) for b in batches]
 
 
+def _hold_stats(stats, want):
+    """Every key of JAX's stats: each per-tensor input amax within 1e-5
+    relative; each per-channel ``l<i>.out`` vector within 1e-5 relative
+    or 1e-5 of its largest entry (a channel far below the tensor's max
+    carries the fp32 drift of the forward to that depth, as the max
+    does)."""
+    assert sorted(stats) == sorted(want)
+    assert any(k.endswith(".out") for k in want)
+    for k in want:
+        if k.endswith(".out"):
+            assert stats[k].shape == np.shape(want[k]), k
+            atol = 1e-5 * float(np.max(want[k]))
+        else:
+            assert isinstance(stats[k], float), k
+            atol = 0.0
+        np.testing.assert_allclose(stats[k], want[k], rtol=1e-5, atol=atol,
+                                   err_msg=k)
+
+
 @pytest.mark.parametrize("pct", [100.0, 99.9])
 def test_calibrate_matches_jax_tiny(pct):
     jir = jax_compile_cfg(TINY, yolo_strides=[8, 4])
@@ -143,10 +178,7 @@ def test_calibrate_matches_jax_tiny(pct):
         tir, TW.from_jax_variables(tir, jv)), "cpu", torch.float32)
     stats = TQ.calibrate(tir, folded, _port_batches(batches),
                          compute_dtype=torch.float32, pct=pct)
-    want = {k: v for k, v in jstats.items() if "." not in k}
-    assert sorted(stats) == sorted(want)
-    for k in want:
-        np.testing.assert_allclose(stats[k], want[k], rtol=1e-5, err_msg=k)
+    _hold_stats(stats, jstats)
 
 
 def test_calibrate_matches_jax_flagship(flagship):
@@ -154,20 +186,29 @@ def test_calibrate_matches_jax_flagship(flagship):
     folded = TG.place_folded(tir, tfold, "cpu", torch.float32)
     stats = TQ.calibrate(tir, folded, _port_batches(batches),
                          compute_dtype=torch.float32)
-    want = {k: v for k, v in jstats.items() if "." not in k}
-    assert sorted(stats) == sorted(want)
-    for k in want:
-        np.testing.assert_allclose(stats[k], want[k], rtol=1e-5, err_msg=k)
+    _hold_stats(stats, jstats)
 
 
-def _quantized_pair(flagship, monkeypatch):
+def _quantized_pair(flagship, monkeypatch, mode="chain"):
     """JAX's and the port's quantize() of the narrowed flagship, given the
     same stats and the same folded params."""
     jir, jfold, tir, tfold, _, jstats, _ = flagship
     monkeypatch.setattr(JG, "_S2D_REGION", False)
-    jq = JQ.quantize(jir, jfold, jstats, mode="chain")["params"]
-    tq = TQ.quantize(tir, tfold, jstats, mode="chain")["params"]
+    jq = JQ.quantize(jir, jfold, jstats, mode=mode)["params"]
+    tq = TQ.quantize(tir, tfold, jstats, mode=mode)["params"]
     return jq, tq
+
+
+def _flat(tree, prefix="", convert=True):
+    """{"a/b/c": leaf} of a nested dict, the leaves as numpy arrays unless
+    ``convert`` is False."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/", convert))
+        else:
+            out[prefix + k] = np.asarray(v) if convert else v
+    return out
 
 
 def test_quantize_matches_jax(flagship, monkeypatch):
@@ -215,8 +256,14 @@ def test_place_quantized_packs_gemm_weights(flagship, monkeypatch):
             n_gemm += 1
         else:
             assert "k4" not in placed
-            assert torch.equal(placed["w_nk"], wq.permute(0, 2, 3, 1).reshape(
-                wq.shape[0], -1))
+            w_nk = wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1)
+            n, k = w_nk.shape
+            # zero-padded to multiples of 16 for the card's int8 GEMM
+            assert placed["w_nk"].shape == (-(-n // 16) * 16,
+                                            -(-k // 16) * 16)
+            assert torch.equal(placed["w_nk"][:n, :k], w_nk)
+            assert not placed["w_nk"][n:].any()
+            assert not placed["w_nk"][:, k:].any()
             n_kxk += 1
         for name in ("scale", "b"):
             assert placed[name].dtype == torch.float32
@@ -272,25 +319,35 @@ def test_apply_quantized_matches_jax(flagship, monkeypatch):
     raw-head difference under 1e-3, and the mean under 0.75 of the mean
     quantization error (JAX int8 against JAX fp32); a wrong scale or
     layout gives differences far above that."""
+    _hold_forward(flagship, monkeypatch, "chain", median=1e-3)
+
+
+def _hold_forward(flagship, monkeypatch, mode, median):
+    """Port vs JAX int8 forward of ``mode`` on the same qvars, fp32: each
+    raw head's median difference under ``median`` (an absolute bound, or
+    a callable of the mean quantization error), its mean under 0.75 of
+    that error (JAX int8 against JAX fp32)."""
     jir, jfold, tir, _, batches, _, _ = flagship
-    jq, tq = _quantized_pair(flagship, monkeypatch)
+    jq, tq = _quantized_pair(flagship, monkeypatch, mode)
     xv, xl = batches[0]
     args = (jnp.asarray(xv), jnp.asarray(xl))
     _, jraw = jax.jit(lambda q, a, b: JQ.apply_quantized(
-        jir, q, a, b, compute_dtype=jnp.float32))({"params": jq}, *args)
+        jir, q, a, b, compute_dtype=jnp.float32, mode=mode))(
+            {"params": jq}, *args)
     _, fraw = jax.jit(lambda f, a, b: JG.apply_folded(
         jir, f, a, b, compute_dtype=jnp.float32))(jfold, *args)
     qp = TQ.place_quantized(tir, {"params": tq}, "cpu", torch.float32)
     io, raw = TQ.apply_quantized(tir, qp, torch.from_numpy(xv),
                                  torch.from_numpy(xl),
-                                 compute_dtype=torch.float32)
+                                 compute_dtype=torch.float32, mode=mode)
     assert io.dtype == torch.float32 and torch.isfinite(io).all()
     for mine, ref, fp in zip(raw, jraw, fraw):
         ref, fp = np.asarray(ref), np.asarray(fp)
         d = np.abs(mine.numpy() - ref)
         q_err = np.abs(ref - fp).mean()
         assert q_err > 1e-3                  # int8 is not the fp forward
-        assert np.median(d) < 1e-3
+        bound = median(q_err) if callable(median) else median
+        assert np.median(d) < bound, (np.median(d), bound)
         assert d.mean() < 0.75 * q_err, (d.mean(), q_err)
 
 

@@ -194,7 +194,8 @@ def test_steps_match_jax(sgd):
                                 tv["params"], 2))
     js = JS.create_train_state(jir, None, jtx, ema=True,
                                variables=jax.tree.map(jnp.asarray, jv))
-    ts = TS.create_train_state(tir, 0, ttx, ema=True, variables=tv)
+    ts = TS.create_train_state(tir, 0, ttx, ema=True, variables=tv,
+                               device="cpu")
     jstep = JS.make_train_step(jir, HYP, jtx, compute_dtype=jnp.float32,
                                donate=False)
     tstep = TS.make_train_step(tir, HYP, ttx, compute_dtype=torch.float32)

@@ -1,8 +1,9 @@
 """The port's trainer and its entry point, ``python -m
 double_yolo_kaist_torch.train``, on the CPU (``--device cpu``): a 4-pair
 split of the tiny cfg for 2 epochs writes ``last``, ``best`` and
-``results.txt``; ``--resume`` trains on from ``last``; what is not ported
-raises ``NotImplementedError`` naming its ROADMAP item; without CUDA an
+``results.txt``; ``--resume`` trains on from ``last``; ``--snow`` and
+``--clahe`` train with the cutout and CLAHE; what is not ported raises
+``NotImplementedError`` naming its ROADMAP item; without CUDA an
 unset ``--device`` refuses. Also the numpy copies the anchor rewrite needs
 (``train/anchors.py``, ``config/writer.py``), equal to JAX's on a seed,
 and ``multi_scale_buckets``.
@@ -129,9 +130,41 @@ def test_train_options(split):
     assert any(k.startswith("opt_state/3/") for k in keys)
 
 
+@pytest.mark.parametrize("flag", ["--snow", "--clahe"])
+def test_train_snow_clahe(split, flag, monkeypatch):
+    """One epoch with the cutout (which CLAHEs the canvas too) or with
+    CLAHE in training and evaluation: ``last`` and ``results.txt`` are
+    written, and the batches went through the flag's transforms."""
+    from double_yolo_kaist_torch.data import augment as TA
+    from double_yolo_kaist_torch.data import letterbox as TL
+    calls = {"clahe": 0, "cutout": 0}
+    clahe_u8, cutout = TL.clahe_u8, TA.snowflake_cutout
+
+    def count_clahe(x):
+        calls["clahe"] += 1
+        return clahe_u8(x)
+
+    def count_cutout(*a, **kw):
+        calls["cutout"] += 1
+        return cutout(*a, **kw)
+
+    monkeypatch.setattr("double_yolo_kaist_torch.data.pipeline.clahe_u8",
+                        count_clahe)
+    monkeypatch.setattr(TA, "snowflake_cutout", count_cutout)
+    root, _, _ = split
+    name = flag.strip("-")
+    main(argv(split, "--epochs", "1", "--name", name, flag))
+    out = root / "runs" / name
+    assert (out / "last").exists() and (out / "results.txt").exists()
+    assert [x.split()[0] for x in results(root, name)] == ["epoch:0"]
+    # 2 train batches x 2 streams; --clahe evaluates with CLAHE too
+    assert calls["clahe"] == (4 if flag == "--snow" else 4 + 2 * 2)
+    assert calls["cutout"] == (2 if flag == "--snow" else 0)
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--snow"], "item 10"), (["--clahe"], "item 10"),
-    (["--steps-per-dispatch", "2"], "item 17"), (["--no-dp"], "item 12")])
+    (["--steps-per-dispatch", "2"], "item 17"), (["--no-dp"], "item 12")],
+    ids=["extra2-item 17", "extra3-item 12"])  # the ids they always had
 def test_not_ported_raise(split, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         main(argv(split, "--epochs", "1", *extra))
