@@ -130,8 +130,31 @@ result line):
      eval's first batch against ``qgemm_plain``, while ``python -m
      double_yolo_kaist_torch.train --snow --clahe`` runs one epoch of 8
      pairs of phase 9's split beside them (``last``, ``results.txt``).
-``python3 chip_smoke.py --only train`` runs phases 12 and 13 alone, and
-``--only int8aug`` phases 8 and 14 (no result line). After each phase the
+ 15. slice 9 (``--only slice9`` runs it alone): K = 4 train steps
+     replayed from one captured CUDA graph against 4 eager steps of MNv3
+     (fp32, bs 2, 128x160, deterministic algorithms, TF32 off; SGD, Adam,
+     Adam with accumulate=2, EMA on), params, BN state, optimizer state,
+     EMA and metrics bit for bit; the A/B of K=1 eager against K=4
+     captured (bf16 Adam, bs 8, 512x512, the flagship and MNv3): step ms
+     (median dispatch ms / 4), images/s, device busy share, peak memory;
+     the host ms a call of a registered operator (``torch.ops.dyk``) adds
+     over its kernel's launch function (K4, K1); the exported artifacts
+     at 512x640 (the flagship bf16 at bs 1 and 8, the flagship int8 chain
+     from its quantized artifact and MNv3 bf16 at bs 8): each loads in a
+     fresh process that imports no ``models`` / ``config`` / ``serving``
+     module and replays the Predictor's frames to its packed rows bit for
+     bit with the same K1-K4 launches a replay, request ms of artifact and
+     Predictor in turns, export and load s; ``serve --exported`` answers
+     one HTTP request as the artifact does in process; ``python -m
+     double_yolo_kaist_torch.train --steps-per-dispatch 4`` one epoch of
+     phase 9's split on the device-pool tier (the flagship) and the
+     pinned-host tier (MNv3), their in-train evaluations launching K1, K2
+     (and K3 on the flagship), beside ``python -m
+     double_yolo_kaist_torch.bench --check-ap``, which must exit 0 with
+     its fp and int8 gates passed (``_check_ap``).
+``python3 chip_smoke.py --only train`` runs phases 12 and 13 alone,
+``--only int8aug`` phases 8 and 14, ``--only slice9`` phase 15 (no result
+line). After each phase the
 script prints its elapsed time. Then a JSON line of
 kernel numbers, the nvidia-smi line, and last {"ok": true, "device":
 {...}}.
@@ -596,7 +619,7 @@ def phase_stem(torch, dev):
     """K3 at the flagship's stem shape, bs 8: bf16 (mish, leaky) and fp32."""
     import torch.nn.functional as F
 
-    from double_yolo_kaist_torch.models import layers as L
+    from double_yolo_kaist_torch.ops import act as L
     from double_yolo_kaist_torch.ops.stem import (pack_weights, stem_conv_s2,
                                                   stem_conv_s2_plain)
     bs, h, w, c, o = 8, 512, 640, 32, 64
@@ -674,7 +697,7 @@ def phase_probes(torch, dev, launches):
     against its plain version, then their times."""
     import torch.nn.functional as F
 
-    from double_yolo_kaist_torch.models import layers as L
+    from double_yolo_kaist_torch.ops import act as L
     from double_yolo_kaist_torch.ops import stem_probe as SP
     from double_yolo_kaist_torch.ops.stem import pack_weights
     bs, h, w, c, o = 8, 512, 640, 32, 64
@@ -1816,7 +1839,8 @@ def _eager_request(torch, pred, v, l):
     """A request on the eager path: the frames zero-padded into their bucket
     on the device, ``run_batch``, one fetch of the packed output,
     ``unpack_detections``."""
-    from double_yolo_kaist_torch.serving import pack, unpack_detections
+    from double_yolo_kaist_torch.export import unpack_detections
+    from double_yolo_kaist_torch.serving import pack
     n, src_hw = len(v), tuple(v.shape[1:3])
     _, ratio, pad = pred._preprocess(src_hw)
     pv = torch.zeros((pred._bucket(n),) + v.shape[1:], dtype=torch.uint8,
@@ -2115,7 +2139,7 @@ def _microbatch(torch, launches, pred, counts):
     threads, against the frames served alone."""
     import threading
 
-    from double_yolo_kaist_torch.serving import MicroBatcher
+    from double_yolo_kaist_torch.microbatch import MicroBatcher
     rng = np.random.default_rng(SEED + 12)
     frames = [tuple(rng.integers(0, 256, (512, 640, 3), dtype=np.uint8)
                     for _ in range(2)) for _ in range(16)]
@@ -3000,6 +3024,623 @@ def phase_int8aug(torch, dev, launches, root, flagship_times):
     return counts
 
 
+# ---------------------------------------------------------------- phase 15
+
+K_STEPS = 4                  # steps a dispatch in the A/B
+AB_WARMUP, AB_TIMED = 1, 4   # dispatches (K=4) or 4x as many steps (K=1)
+EXPORT_HW = (512, 640)
+EXPORT_BS = 8
+
+
+def _captured_equals_eager(torch, dev, mnv3_ir, mnv3_vars):
+    """MNv3 (fixture weights), fp32, bs 2, 128x160: K_STEPS steps replayed
+    from one captured graph against K_STEPS eager steps from the same
+    state and batches, with SGD, Adam and Adam over accumulate=2 (EMA on):
+    params, BN state, optimizer state, EMA and metrics bit for bit."""
+    from double_yolo_kaist_torch.train import optim as OPT
+    from double_yolo_kaist_torch.train import step as ST
+    from double_yolo_kaist_torch.utils.general import deterministic
+    rng = np.random.default_rng(SEED + 15)
+    batches = [_train_batch(torch, rng, 2, (128, 160), dev)
+               for _ in range(K_STEPS)]
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    out = {}
+    with deterministic():
+        for name, sgd, acc in (("SGD", True, 1), ("Adam", False, 1),
+                               ("Adam accumulate=2", False, 2)):
+            runs = []
+            for captured in (False, True):
+                sched = OPT.cosine_epoch_schedule(TRAIN_LR, 0.1, 3, 2)
+                tx = OPT.make_optimizer(TRAIN_HYP, sched, sgd=sgd,
+                                        accumulate=acc)
+                st = ST.create_train_state(mnv3_ir, SEED, tx, ema=True,
+                                           variables=mnv3_vars, device=dev)
+                multi = ST.make_multi_step(mnv3_ir, TRAIN_HYP, tx,
+                                           compute_dtype=torch.float32)
+                if captured:
+                    st, m = multi(st, stacked)
+                    if multi.captured.replays != K_STEPS:
+                        raise AssertionError("the steps were not replayed")
+                else:
+                    st, m = ST._eager_steps(multi.step_fn, st,
+                                            lambda i: batches[i], K_STEPS)
+                leaves = [t.detach().cpu() for t in ST._state_leaves(st)]
+                runs.append((leaves, {k: v.cpu() for k, v in m.items()}))
+            (le, me), (lc, mc) = runs
+            diff = sum(int(not torch.equal(a, b)) for a, b in zip(le, lc))
+            mdiff = [k for k in me if not torch.equal(me[k], mc[k])]
+            out[name] = {"leaves": len(le), "leaves_differing": diff,
+                         "metrics_differing": mdiff,
+                         "last_loss": float(mc["loss"][-1])}
+            if diff or mdiff:
+                raise AssertionError(f"captured {name} steps differ from "
+                                     f"eager: {out[name]}")
+    print(f"captured K={K_STEPS} steps equal eager steps (MNv3 fp32, "
+          f"deterministic): {json.dumps(out)}", flush=True)
+    return out
+
+
+def _ab_run(torch, ir, variables, dev, k):
+    """bf16 Adam at bs TRAIN_BS, TRAIN_HW^2 on K_STEPS fixed batches: K=1
+    eager steps, or K=k steps a dispatch replayed from one captured graph.
+    Step ms = median dispatch ms / k (host clock; the metrics' fetch
+    synchronises), images/s, device busy ms a step, peak memory."""
+    from double_yolo_kaist_torch.train import optim as OPT
+    from double_yolo_kaist_torch.train import step as ST
+    rng = np.random.default_rng(SEED + 16)
+    batches = [_train_batch(torch, rng, TRAIN_BS, (TRAIN_HW, TRAIN_HW), dev)
+               for _ in range(K_STEPS)]
+    stacked = {n: torch.stack([b[n] for b in batches]) for n in batches[0]}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tx = OPT.make_optimizer(TRAIN_HYP, lambda c: torch.tensor(TRAIN_LR))
+    state = [ST.create_train_state(ir, SEED, tx, variables=variables,
+                                   device=dev)]
+    if k == 1:
+        fn = ST.make_train_step(ir, TRAIN_HYP, tx,
+                                compute_dtype=torch.bfloat16)
+        it = [0]
+
+        def one():
+            state[0], m = fn(state[0], batches[it[0] % K_STEPS])
+            it[0] += 1
+            return ST.metrics_to_host(m)
+        n_warm, n_timed = AB_WARMUP * K_STEPS, AB_TIMED * K_STEPS
+    else:
+        fn = ST.make_multi_step(ir, TRAIN_HYP, tx,
+                                compute_dtype=torch.bfloat16)
+
+        def one():
+            state[0], m = fn(state[0], stacked)
+            return ST.metrics_to_host(m)
+        n_warm, n_timed = AB_WARMUP, AB_TIMED
+    t0 = time.perf_counter()
+    one()                                  # K=k: warm-up and capture
+    first_s = time.perf_counter() - t0
+    ms, losses = [], []
+    for i in range(n_warm + n_timed):
+        t0 = time.perf_counter()
+        m = one()
+        if i >= n_warm:
+            ms.append((time.perf_counter() - t0) * 1e3 / k)
+        losses.append(m["loss"])
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train K={k}: non-finite metrics {m}")
+    peak = torch.cuda.max_memory_allocated()
+    prof = {}
+    for _ in range(3):                      # a blind window is tried again
+        prof = _profile(torch, one)
+        if prof:
+            break
+    busy = sum(prof.values()) / k
+    med = statistics.median(ms)
+    del fn, state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"step_ms_median": med, "step_ms_min": min(ms),
+            "step_ms_max": max(ms), "images_per_s": TRAIN_BS / med * 1e3,
+            "busy_ms": busy, "busy_pct": 100 * busy / med,
+            "peak_gib": peak / 2 ** 30, "first_call_s": first_s,
+            "loss_first": losses[0], "loss_last": losses[-1]}
+
+
+def _multi_step_ab(torch, dev, mnv3_ir, mnv3_vars, flagship_ir):
+    from double_yolo_kaist_torch.models import graph
+    numbers = {}
+    for label, ir, variables in (
+            ("flagship", flagship_ir, graph.init(flagship_ir, SEED)),
+            ("MNv3", mnv3_ir, mnv3_vars)):
+        for k in (1, K_STEPS):
+            r = _ab_run(torch, ir, variables, dev, k)
+            numbers[f"{label} K={k}"] = r
+            print(f"train A/B {label} bf16 bs {TRAIN_BS} {TRAIN_HW}x"
+                  f"{TRAIN_HW}, K={k} ({'captured' if k > 1 else 'eager'}): "
+                  f"step {r['step_ms_median']:.3f} ms (min "
+                  f"{r['step_ms_min']:.3f}, max {r['step_ms_max']:.3f}), "
+                  f"{r['images_per_s']:.2f} images/s, busy "
+                  f"{r['busy_ms']:.3f} ms a step ({r['busy_pct']:.1f}%), "
+                  f"peak {r['peak_gib']:.3f} GiB, first call "
+                  f"{r['first_call_s']:.2f} s", flush=True)
+    return numbers
+
+
+def _slice9_train_entry(root):
+    """``python -m double_yolo_kaist_torch.train --steps-per-dispatch 4``,
+    one epoch on phase 9's split: the flagship on the device-pool tier,
+    MNv3 from phase 9's checkpoint on the pinned-host tier (no device
+    pool: DYK_DEVICE_CACHE_GB=0), run as the entry point (``runpy``) in
+    processes that print the kernel launches of the run at the end."""
+    data = os.path.join(root, "slice9.data")
+    split = os.path.join(root, "eval80.txt")
+    with open(data, "w") as f:
+        f.write(f"classes=1\ntrain={split}\nvalid={split}\ntest={split}\n")
+    code = ("import json, runpy, sys\n"
+            "from double_yolo_kaist_torch.ops import _build\n"
+            "sys.argv = ['train'] + sys.argv[1:]\n"
+            "runpy.run_module('double_yolo_kaist_torch.train', "
+            "run_name='__main__')\n"
+            "print('launches ' + json.dumps(dict(_build.launches)))\n")
+    runs = {"flagship device pool": (["--cfg", FLAGSHIP_CFG,
+                                      "--device-cache", "on"], {}),
+            "MNv3 pinned host": (["--cfg", MNV3_NAME, "--weights",
+                                  os.path.join(root, "mnv3_ckpt"), "--sgd"],
+                                 {"DYK_DEVICE_CACHE_GB": "0"})}
+    procs = {}
+    for name, (extra, env) in runs.items():
+        out = os.path.join(root, "k4runs")
+        cmd = [sys.executable, "-c", code, "--data", data, "--img-size",
+               str(TRAIN_HW), "--batch-size", str(TRAIN_BS), "--epochs", "1",
+               "--steps-per-dispatch", str(K_STEPS), "--out-dir", out,
+               "--name", name.split()[0], *extra]
+        procs[name] = subprocess.Popen(
+            cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, **env),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    launches = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate(timeout=900)
+        lines = text.splitlines()
+        print(f"train --steps-per-dispatch {K_STEPS} ({name}): exit "
+              f"{proc.returncode}; last lines:\n  "
+              + "\n  ".join(lines[-5:]), flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"train --steps-per-dispatch ({name}) "
+                                 f"failed:\n{text[-3000:]}")
+        tier = ("device image pool" if "flagship" in name
+                else "host image pool")
+        if not any(tier in x for x in lines):
+            raise AssertionError(f"train ({name}) did not use the {tier}")
+        got = json.loads([x for x in lines
+                          if x.startswith("launches ")][-1][9:])
+        want = {"decode_head", "nms_indices"} | (
+            {"stem_conv_s2"} if "flagship" in name else set())
+        if not all(got.get(k, 0) > 0 for k in want):
+            raise AssertionError(f"train ({name}): the in-train evaluation "
+                                 f"launched {got}, wants {sorted(want)}")
+        launches[name] = got
+    return launches
+
+
+def _check_ap():
+    """``python -m double_yolo_kaist_torch.bench --check-ap`` on the card:
+    it must exit 0, its fp gate (the overfit's AP@0.5 > 0.5) and its int8
+    gate (every mode within 0.05 of the fp AP, edge 0.15) passed. The
+    check trains in true fp32 under deterministic algorithms, so its
+    weights and verdict are the same on every run. Returns the numbers."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "double_yolo_kaist_torch.bench",
+                        "--check-ap"], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=900)
+    lines = r.stdout.splitlines()
+    traj = [x for x in lines if x.startswith("AP trajectory:")]
+    int8 = [x for x in lines if x.startswith("int8[")]
+    print(f"bench --check-ap: exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s:\n  "
+          + "\n  ".join(traj + int8 + lines[-1:]), flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"bench --check-ap failed:\n"
+                             f"{(r.stdout + r.stderr)[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def _fresh_process_loads(paths, frames_npz, root):
+    """Load every artifact of ``paths`` ({name: path}) in one fresh process
+    that must import no ``models`` / ``config`` / ``serving`` module:
+    capture each, replay the saved frames and write its packed rows
+    (``<root>/fresh_<i>.npy``) and the launches a replay holds. Returns
+    the process, started; :func:`_fresh_process_result` reads it."""
+    code = (
+        "import json, sys, time, numpy as np, torch\n"
+        "from double_yolo_kaist_torch.export import ExportedPredictor\n"
+        f"f = np.load({frames_npz!r})\n"
+        "out = {}\n"
+        f"for i, path in enumerate({list(paths.values())!r}):\n"
+        "    t0 = time.perf_counter()\n"
+        "    p = ExportedPredictor(path)\n"
+        "    p.warmup()\n"
+        "    ready = time.perf_counter() - t0\n"
+        "    with torch.inference_mode():\n"
+        "        p._ready().load(f['v'], f['l'])\n"
+        "        packed = p._graph.run(len(f['v']))\n"
+        f"    np.save({root!r} + f'/fresh_{{i}}.npy', packed)\n"
+        "    out[path] = {'ready_s': ready, 'launches': p._graph.launches}\n"
+        "    del p\n"
+        "bad = sorted(m for m in sys.modules if m.startswith((\n"
+        "    'double_yolo_kaist_torch.models', 'double_yolo_kaist_torch.config',"
+        "\n    'double_yolo_kaist_torch.serving')))\n"
+        "assert not bad, bad\n"
+        "print('loaded ' + json.dumps(out))\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH=ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _fresh_process_result(proc, paths, wants, root):
+    """Each artifact's packed rows from the fresh process against the
+    Predictor's (``wants``: {name: (packed rows, launches a replay)})."""
+    text, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"loading the artifacts in a fresh process "
+                             f"failed:\n{text[-3000:]}")
+    res = json.loads([x for x in text.splitlines()
+                      if x.startswith("loaded ")][-1][7:])
+    out = {}
+    for i, (name, path) in enumerate(paths.items()):
+        got = np.load(os.path.join(root, f"fresh_{i}.npy"))
+        want, launches = wants[name]
+        if got.tobytes() != want.tobytes() or got.shape != want.shape:
+            raise AssertionError(f"{name}: the fresh process's replay "
+                                 f"differs from the Predictor's")
+        if res[path]["launches"] != launches:
+            raise AssertionError(f"{name}: launches a replay in the fresh "
+                                 f"process {res[path]['launches']}, the "
+                                 f"Predictor's {launches}")
+        out[name] = res[path]["ready_s"]
+    print("fresh process (no models / config / serving imported): every "
+          "artifact's replay bit-equal to its Predictor's, the same "
+          "launches; load + warm-up s " + json.dumps(out), flush=True)
+    return out
+
+
+def _serve_exported(path, frame):
+    """``serve --exported`` answering one raw request over HTTP."""
+    import base64
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.serve",
+           "--exported", path, "--img-size", "640", "--port", str(port)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ,
+                                                    PYTHONPATH=ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    t0 = time.perf_counter()
+    try:
+        while True:
+            try:
+                if _http(f"{url}/healthz", timeout=2)["status"] == "ok":
+                    break
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError(f"serve --exported exited "
+                                         f"{proc.returncode}:\n"
+                                         f"{proc.stdout.read()[-3000:]}")
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("serve --exported did not come up")
+                time.sleep(0.5)
+        up = time.perf_counter() - t0
+        v, l = frame
+        ans = _http(f"{url}/detect", json.dumps({
+            "visible": base64.b64encode(v.tobytes()).decode(),
+            "lwir": base64.b64encode(l.tobytes()).decode(),
+            "encoding": "raw", "shape": list(v.shape[:2])}).encode())
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    lines = out.strip().splitlines()
+    if not any(x.startswith("# --exported: ignoring --img-size")
+               for x in lines):
+        raise AssertionError(f"serve --exported printed {lines}")
+    print(f"serve --exported: up in {up:.1f} s ({lines}); one request, "
+          f"{len(ans['boxes'])} detections", flush=True)
+    return ans
+
+
+def _export_all(torch, dev, mnv3_ir, mnv3_vars, flagship_ir, root):
+    """Export at bs EXPORT_BS, 512x640: the flagship bf16, the flagship
+    int8 chain from its quantized artifact (calibrated on two requests of
+    8) and MNv3 bf16. Returns ({name: (Predictor, int8)}, {name: path},
+    {name: export s}, the frames)."""
+    from double_yolo_kaist_torch.bench import seeded_variables
+    from double_yolo_kaist_torch.export import export_serving_artifact
+    from double_yolo_kaist_torch.serving import Predictor
+    rng = np.random.default_rng(SEED + 17)
+    frames = tuple(rng.integers(0, 256, (EXPORT_BS,) + EXPORT_HW + (3,),
+                                dtype=np.uint8) for _ in range(2))
+    np.savez(os.path.join(root, "export_frames.npz"), v=frames[0],
+             l=frames[1])
+    fvars = seeded_variables(flagship_ir, SEED)
+    qpath = os.path.join(root, "flagship_chain_q.npz")
+    cal = Predictor(flagship_ir, fvars, img_size=640, int8=True,
+                    batch_buckets=(EXPORT_BS,), quantized=qpath, device=dev)
+    for _ in range(2):                          # two calibration requests
+        cal(*frames)
+    del cal
+    preds, paths, export_s = {}, {}, {}
+    for name, ir, variables, kw in (
+            ("flagship bf16", flagship_ir, fvars, {}),
+            ("flagship int8 chain", flagship_ir, fvars,
+             {"int8": True, "quantized": qpath}),
+            ("MNv3 bf16", mnv3_ir, mnv3_vars, {})):
+        pred = Predictor(ir, variables, img_size=640, device=dev,
+                         batch_buckets=(EXPORT_BS,), **kw)
+        if kw.get("int8") and pred.qvars is None:
+            raise AssertionError("the int8 Predictor did not load its "
+                                 "artifact")
+        paths[name] = os.path.join(root, name.replace(" ", "_") + ".zip")
+        t0 = time.perf_counter()
+        export_serving_artifact(pred, EXPORT_HW, EXPORT_BS, paths[name])
+        export_s[name] = time.perf_counter() - t0
+        preds[name] = (pred, bool(kw.get("int8")))
+    return preds, paths, export_s, frames
+
+
+def _hold_exports(torch, launches, preds, paths, export_s, frames):
+    """In process, each artifact of :func:`_export_all` loaded and warmed
+    up: its graph replay equals its Predictor's on the same frames bit for
+    bit with the same K1-K4 launches a replay, and requests of 1 and 8
+    frames are timed on both in turns (the Predictor's bucket is EXPORT_BS
+    too). Returns (numbers, launch counts, {name: (the Predictor's packed
+    rows, launches a replay)}, MNv3's artifact's answer for frame 0
+    alone)."""
+    from double_yolo_kaist_torch.export import ExportedPredictor
+    numbers, counts, wants, alone = {}, {}, {}, None
+    for name, (pred, quant) in list(preds.items()):
+        t0 = time.perf_counter()
+        exp = ExportedPredictor(paths[name])
+        exp.warmup()
+        ready_s = time.perf_counter() - t0
+        pred.warmup(EXPORT_HW, EXPORT_BS)
+        g = pred._graph(EXPORT_BS, EXPORT_HW, quant)
+        rows = {}
+        for who in ("predictor", "exported"):
+            launches.clear()
+            with torch.inference_mode():
+                if who == "exported":
+                    exp._ready().load(*frames)
+                    rows[who] = exp._graph.run(EXPORT_BS)
+                else:
+                    pred._stage(EXPORT_BS, EXPORT_HW).load(*frames)
+                    rows[who] = g.run(EXPORT_BS)
+            counts[f"{who} {name}"] = dict(launches)
+        if rows["exported"].tobytes() != rows["predictor"].tobytes():
+            raise AssertionError(f"{name}: the exported replay differs from "
+                                 f"the Predictor's")
+        if exp._graph.launches != g.launches:
+            raise AssertionError(f"{name}: launches a replay "
+                                 f"{exp._graph.launches} against the "
+                                 f"Predictor's {g.launches}")
+        wants[name] = (rows["predictor"], g.launches)
+        ms = {}
+        for n in (1, EXPORT_BS):
+            sub = frames[0][:n], frames[1][:n]
+            t = {"exported": [], "predictor": []}
+            for _ in range(12):                 # in turns
+                for who, fn in (("predictor", pred), ("exported", exp)):
+                    t0 = time.perf_counter()
+                    fn(*sub)
+                    t[who].append((time.perf_counter() - t0) * 1e3)
+            ms[n] = {who: statistics.median(v) for who, v in t.items()}
+        numbers[name] = {"export_s": export_s[name], "ready_s": ready_s,
+                         "launches_a_replay": g.launches,
+                         "request_ms": ms,
+                         "bytes": os.path.getsize(paths[name])}
+        print(f"export {name} (bs {EXPORT_BS}): replay bit-equal to the "
+              f"Predictor's, launches a replay {g.launches}; request ms "
+              f"(exported / Predictor): 1 frame {ms[1]['exported']:.3f} / "
+              f"{ms[1]['predictor']:.3f}, {EXPORT_BS} frames "
+              f"{ms[EXPORT_BS]['exported']:.3f} / "
+              f"{ms[EXPORT_BS]['predictor']:.3f}; export "
+              f"{export_s[name]:.1f} s, load + warm-up {ready_s:.2f} s; "
+              f"{numbers[name]['bytes'] / 1e6:.1f} MB", flush=True)
+        if name == "MNv3 bf16":
+            alone = exp(frames[0][:1], frames[1][:1])[0]
+        del preds[name], pred, exp
+        torch.cuda.empty_cache()
+    return numbers, counts, wants, alone
+
+
+def _op_dispatch_cost(torch, dev, flagship_ir):
+    """Host ms a call of a registered operator adds over its kernel's
+    launch function: K4 at the flagship's first chain shape (bs 8) and K1
+    at the MNv3 heads, each called 200 times back to back through
+    ``torch.ops.dyk`` and through the module's ``launch``, in turns, host
+    clock to a synchronise."""
+    from double_yolo_kaist_torch.ops import decode as K1
+    from double_yolo_kaist_torch.ops import library  # noqa: F401
+    from double_yolo_kaist_torch.ops import qgemm as K4
+    rng = np.random.default_rng(SEED + 18)
+    _, m, k, n, _ = _k4_shapes(flagship_ir, EXPORT_BS, EXPORT_HW)[0]
+    c = _k4_case(torch, rng, dev, m, k, n, False)
+    args = (c["x"], K4.pack_weights(c["w"]), c["scale"], c["bias"], "leaky",
+            None, torch.bfloat16)
+    heads = [(torch.randn((EXPORT_BS, 18, EXPORT_HW[0] // s,
+                           EXPORT_HW[1] // s), device=dev,
+                          dtype=torch.bfloat16)
+              .contiguous(memory_format=torch.channels_last),
+              [(10, 13), (16, 30), (33, 23)], s) for s in (8, 16, 32)]
+    k1_args = K1.op_args(heads, "yolov4")
+    hs, types = K1.op_heads(*k1_args)
+    k1_out = K1.decode_heads(heads, "yolov4")
+    calls = {"K4 op": lambda: torch.ops.dyk.qgemm(*args),
+             "K4 launch": lambda: K4.launch(*args),
+             "K1 op": lambda: torch.ops.dyk.decode_heads_into(k1_out,
+                                                              *k1_args, 0),
+             "K1 launch": lambda: K1.launch(hs, types, k1_out, 0)}
+    ms = {name: [] for name in calls}
+    for fn in calls.values():
+        fn()
+    for _ in range(5):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / 200)
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    out = {"K4 op_ms": med["K4 op"], "K4 launch_ms": med["K4 launch"],
+           "K4 added_ms": med["K4 op"] - med["K4 launch"],
+           "K1 op_ms": med["K1 op"], "K1 launch_ms": med["K1 launch"],
+           "K1 added_ms": med["K1 op"] - med["K1 launch"],
+           "K4 shape": [m, k, n]}
+    print("registered-op dispatch, host ms a call (median of 5 x 200): "
+          + json.dumps(out), flush=True)
+    return out
+
+
+class _DirectLaunch:
+    """Within the block the wrappers launch their kernels without the
+    registered operators (``torch.ops.dyk``), as the port did before them:
+    the same checks and launch functions, no operator dispatch. For timing
+    the dispatch's cost only."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from double_yolo_kaist_torch.ops import decode as K1
+        from double_yolo_kaist_torch.ops import nms as NMS
+        from double_yolo_kaist_torch.ops import nms_kernel as K2
+        from double_yolo_kaist_torch.ops import qgemm as K4
+        from double_yolo_kaist_torch.ops import stem as K3
+        bf16 = self.torch.bfloat16
+
+        def decode(heads, bf_type, out=None, row_offset=0):
+            hs, types = K1.op_heads(*K1.op_args(list(heads), bf_type))
+            if out is None:
+                bs, no, rows = K1._check(K1._specs(hs), types)
+                out = self.torch.empty((bs, sum(rows), no),
+                                       dtype=self.torch.float32,
+                                       device=hs[0][0].device)
+                row_offset = 0
+            return K1.launch(hs, types, out, row_offset)
+
+        def nms(boxes, scores, iou_thres, max_det):
+            K2.check(boxes, scores, max_det)
+            return K2.launch(boxes, scores, float(iou_thres), int(max_det))
+
+        def stem(x, weights, act):
+            K3._check(x, weights, act)
+            return K3.launch(x, weights, act)
+
+        def qgemm(x, w, scale, bias, act, out_inv_s=None, out_dtype=bf16):
+            K4._check(x, w, scale, bias, act, out_dtype)
+            return K4.launch(x, w, scale, bias, act,
+                             None if out_inv_s is None else float(out_inv_s),
+                             out_dtype)
+
+        self.saved = [(K1, "decode_heads", decode), (NMS, "nms_indices", nms),
+                      (K3, "stem_conv_s2", stem), (K4, "qgemm", qgemm)]
+        self.saved = [(m, n, getattr(m, n), f) for m, n, f in self.saved]
+        for m, n, _, f in self.saved:
+            setattr(m, n, f)
+
+    def __exit__(self, *exc):
+        for m, n, old, _ in self.saved:
+            setattr(m, n, old)
+
+
+def _eval_dispatch_ab(torch, dev, mnv3_ir, mnv3_vars, root):
+    """Phase 9's eager MNv3 bf16 evaluation (the device pool, bs 32 at
+    416x512) through the registered operators and with the kernels
+    launched directly, in turns, 2 runs each: fps and their predictions,
+    which must be the same."""
+    from double_yolo_kaist_torch.data.dataset import KaistDataset
+    from double_yolo_kaist_torch.eval.evaluator import evaluate_dataset
+    ds = KaistDataset(os.path.join(root, "eval80.txt"), EVAL_IMG, EVAL_BS,
+                      rect=True)
+    fps = {"ops": [], "direct": []}
+    results = {}
+    for _ in range(2):
+        for how in ("ops", "direct"):
+            if how == "direct":
+                with _DirectLaunch(torch):
+                    res = evaluate_dataset(mnv3_ir, mnv3_vars, ds,
+                                           batch_size=EVAL_BS,
+                                           device_cache=True, device=dev)
+            else:
+                res = evaluate_dataset(mnv3_ir, mnv3_vars, ds,
+                                       batch_size=EVAL_BS, device_cache=True,
+                                       device=dev)
+            fps[how].append(res["fps"])
+            results[how] = res
+    _same_predictions(results["ops"], results["direct"],
+                      "through the registered ops and direct launches")
+    out = {how: {"median": statistics.median(v), "all": v}
+           for how, v in fps.items()}
+    print("eager eval MNv3 bf16 fps, registered ops against direct "
+          "launches (in turns): " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_slice9(torch, dev, launches, mnv3_ir, flagship_ir, root):
+    """Phase 15: captured K steps against eager (bit for bit), the K=1 /
+    K=4 train A/B of the flagship and MNv3, the registered ops' dispatch
+    cost; then the three artifacts are exported while ``train
+    --steps-per-dispatch 4`` (both residency tiers) and ``bench
+    --check-ap`` run beside the tracing; then, the card quiet again, each
+    artifact is held and timed against its Predictor; last, the artifacts
+    load in a fresh process with no model code while ``serve --exported``
+    answers. Needs phase 9's split and checkpoint under ``root``. Returns
+    the main-path launch counts of its runs."""
+    from double_yolo_kaist_torch.models import weights
+    t_phase = time.perf_counter()
+    mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
+    numbers = {"equal": _captured_equals_eager(torch, dev, mnv3_ir,
+                                               mnv3_vars)}
+    numbers["ab"] = _multi_step_ab(torch, dev, mnv3_ir, mnv3_vars,
+                                   flagship_ir)
+    numbers["dispatch"] = _op_dispatch_cost(torch, dev, flagship_ir)
+    numbers["eval_dispatch"] = _eval_dispatch_ab(torch, dev, mnv3_ir,
+                                                 mnv3_vars, root)
+    _stamp(t_phase, "phase 15 timings")
+    counts = {}
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
+        check = ex.submit(_check_ap)
+        train = ex.submit(_slice9_train_entry, root)
+        preds, paths, export_s, frames = _export_all(
+            torch, dev, mnv3_ir, mnv3_vars, flagship_ir, root)
+        numbers["check_ap"] = check.result()
+        counts.update({f"train K={K_STEPS} {k}": v
+                       for k, v in train.result().items()})
+    _stamp(t_phase, "phase 15 exports and subprocesses")
+    numbers["export"], held, wants, alone = _hold_exports(
+        torch, launches, preds, paths, export_s, frames)
+    counts.update(held)
+    fresh = _fresh_process_loads(paths, os.path.join(root,
+                                                     "export_frames.npz"),
+                                 root)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+        served = ex.submit(_serve_exported, paths["MNv3 bf16"],
+                           (frames[0][0], frames[1][0]))
+        numbers["fresh_ready_s"] = _fresh_process_result(fresh, paths,
+                                                         wants, root)
+        ans = served.result()
+    if not _matching_bucket((ans["boxes"], ans["scores"], ans["classes"]),
+                            {EXPORT_BS: alone}):
+        raise AssertionError("serve --exported answered other detections "
+                             "than the artifact in process")
+    print("slice9 numbers: " + json.dumps(numbers), flush=True)
+    print(f"phase 15 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def _labelled_split(torch, dev, mnv3_ir, root):
     """Phase 9's split under ``root``, labelled with MNv3's fp32 detections,
     and MNv3's checkpoint beside it, as phase 9 makes them (for the runs
@@ -3076,7 +3717,22 @@ def _only_int8aug(torch, dev, mnv3_ir) -> int:
     return 0
 
 
+def _only_slice9(torch, dev, mnv3_ir, flagship_ir) -> int:
+    """``--only slice9``: phase 15 alone, on phase 9's split labelled and
+    checkpointed as phase 9 does it (it prints no result line)."""
+    from double_yolo_kaist_torch.ops import _build
+    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
+        _labelled_split(torch, dev, mnv3_ir, root)
+        phase_slice9(torch, dev, _build.launches, mnv3_ir, flagship_ir,
+                     root)
+    print("chip_smoke --only slice9: phase 15 passed", flush=True)
+    return 0
+
+
 def main() -> int:
+    # before any cuBLAS handle exists: phase 15's deterministic steps need
+    # cuBLAS's fixed workspace
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         return _fail("CUDA is not available; this script needs one GPU")
@@ -3112,6 +3768,8 @@ def main() -> int:
         return _only_train(torch, dev, ir, flagship_ir)
     if sys.argv[1:] == ["--only", "int8aug"]:
         return _only_int8aug(torch, dev, ir)
+    if sys.argv[1:] == ["--only", "slice9"]:
+        return _only_slice9(torch, dev, ir, flagship_ir)
     results = {}
     for name, fn in (("K1", lambda: phase_decode(torch, ir, dev,
                                                  _build.launches)),
@@ -3195,6 +3853,14 @@ def main() -> int:
                 traceback.print_exc()
                 failed.append("int8 modes and augment")
             _stamp(t_start, "int8 modes and augment")
+        if not failed:
+            try:
+                counts.update(phase_slice9(torch, dev, _build.launches, ir,
+                                           flagship_ir, root))
+            except Exception:              # noqa: BLE001
+                traceback.print_exc()
+                failed.append("slice 9")
+            _stamp(t_start, "slice 9")
     if failed:
         return _fail(f"phases failed: {failed}")
 
@@ -3203,8 +3869,9 @@ def main() -> int:
         flagship bf16, flagship int8, the eval runs of phase 9, the graph
         runs of phase 10, the micro-batched run of phase 11, the Trainer's
         epoch of phase 13, the int8 runs of each mode and the edge eval of
-        phase 14), each counted from 0 just before its run and read just
-        after it."""
+        phase 14, the exported and Predictor replays and the K-step train
+        runs' evaluations of phase 15), each counted from 0 just before
+        its run and read just after it."""
         return sum(c.get(kernel, 0) for c in counts.values())
 
     kernels = [

@@ -17,6 +17,10 @@ times between two CUDA events, three times; fps is from the fastest
 repeat (the counterpart of the JAX bench's in-device ``fori_loop``). On
 the CPU (``--device cpu``) the forwards run eagerly on the host clock.
 
+``--check-ap`` times nothing: it runs the synthetic overfit check with
+its int8 gate (:mod:`.overfit_check`) and prints its JSON line (AP, the
+worst int8 mode's AP).
+
 Weights: ``--weights`` (a checkpoint directory, ``.pt`` or darknet
 ``.weights``), else :func:`seeded_variables` (kernels of graph.init's range
 times a gain, and BN statistics that are not the identity, so that the
@@ -192,16 +196,33 @@ def main(argv=None):
                              "spineall"),
                     help="PTQ plan: 3x3-only / int8 chains / all convs")
     ap.add_argument("--check-ap", action="store_true",
-                    help="synthetic-data AP check (not ported yet)")
+                    help="synthetic-data AP check instead of fps: overfit "
+                         "the tiny model (python -m double_yolo_kaist_torch."
+                         "overfit_check --int8) and report the final AP@0.5, "
+                         "fp and through every int8 mode")
+    ap.add_argument("--check-ap-epochs", type=int, default=60)
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu runs the plain PyTorch path")
     args = ap.parse_args(argv)
 
-    if args.check_ap:
-        raise NotImplementedError(
-            "--check-ap runs tools/overfit_check.py, which is not ported "
-            "yet (ROADMAP.md, queue 1 item 16)")
     device = resolve_device(args.device)
+    if args.check_ap:
+        from . import overfit_check
+
+        final_ap, int8_aps = overfit_check.main(args.check_ap_epochs,
+                                                int8=True, device=device)
+        print(json.dumps({
+            "metric": "synthetic overfit AP@0.5 (tiny dual-stream model; "
+                      f"int8 APs "
+                      f"{'/'.join(f'{v:.2f}' for v in int8_aps.values())})",
+            "value": round(final_ap, 4),
+            "unit": "AP",
+            "vs_baseline": round(final_ap / 0.5, 2),   # gate: must exceed 0.5
+            "int8_worst_ap": round(min(int8_aps.values()), 4),
+            "device": (torch.cuda.get_device_name(device)
+                       if device.type == "cuda" else "cpu"),
+        }))
+        return
     from .common import build_model, resolve_cfg
     from .config.ir import compile_cfg
     if args.weights:

@@ -24,6 +24,7 @@ from ..data.pipeline import eval_batches, prefetch
 from ..models import graph
 from ..models import quantize as Q
 from ..ops.nms import non_max_suppression
+from ..utils import tree as TR
 from .coco_map import evaluate_coco
 from .metrics import compute_ap_lamr
 
@@ -117,9 +118,13 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
             if calibration:
                 Q.save_calibration(str(calibration), stats,
                                    pct=calibration_pct)
+        # quantized from the fold on the host, wherever the variables
+        # live (as Predictor quantizes): edge mode's scales are host
+        # arrays, and the int8 model of live weights on the card must be
+        # the one their checkpoint gives
         qvars = Q.place_quantized(
-            ir, Q.quantize(ir, fold, stats, mode=int8_mode), dev,
-            compute_dtype)
+            ir, Q.quantize(ir, TR.map_leaves(lambda t: t.cpu(), fold),
+                           stats, mode=int8_mode), dev, compute_dtype)
         del placed
     if int8:
         def forward(xv, xl):

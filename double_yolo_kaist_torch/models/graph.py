@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config.ir import GraphIR
 from ..ops import decode as K1
 from ..ops import stem as K3
+from ..ops.act import activate
 from ..ops.decode import decode_head_plain as decode_head  # noqa: F401
 from ..ops.decode import reshape_head  # noqa: F401
 from ..utils import tree as TR
@@ -88,6 +89,22 @@ def place_variables(variables: dict, device) -> dict:
 
 # -------------------------------------------------------------- unfolded apply
 
+class _DropoutDraws:
+    """Dropout uniforms drawn from one CUDA generator, one tensor a node,
+    kept for the call so that a recompute sees the same mask."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.drawn: dict = {}
+
+    def uniforms(self, node, x):
+        u = self.drawn.get(node.index)
+        if u is None:
+            u = self.drawn[node.index] = torch.rand(
+                x.shape, generator=self.generator, device=x.device)
+        return u
+
+
 def _exec_node(node, p, s, x, x2, cache, *, train, seed):
     """One IR node of the unfolded forward. Returns (x, new BN state entry
     or None, head conv output or None)."""
@@ -127,9 +144,12 @@ def _exec_node(node, p, s, x, x2, cache, *, train, seed):
         if train and seed is not None and node.p > 0:
             # one generator per node from (seed, index): a checkpointed
             # segment recomputes the same mask
-            gen = torch.Generator(device=x.device)
-            gen.manual_seed(seed + node.index)
-            x = L.dropout(x, node.p, gen)
+            if isinstance(seed, _DropoutDraws):
+                x = L.dropout(x, node.p, None, u=seed.uniforms(node, x))
+            else:
+                gen = torch.Generator(device=x.device)
+                gen.manual_seed(seed + node.index)
+                x = L.dropout(x, node.p, gen)
     elif kind == "yolo":
         head = x
     else:
@@ -153,8 +173,12 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
         statistics; False -> ((decoded (B, rows, no) fp32, raw heads),
         state), the heads decoded by :func:`..ops.decode.decode_heads`
         (kernel K1 on CUDA).
-      rng: generator for dropout (train only); one number is drawn from it
-        per call, and only when a dropout node has p > 0.
+      rng: generator for dropout (train only), used only when a dropout
+        node has p > 0. A CPU generator gives one number a call, which
+        seeds each node's own generator; a CUDA generator gives each
+        node's uniforms itself, on the device, so that a step captured in
+        a CUDA graph with the generator registered draws new masks at each
+        replay (a checkpointed segment's recompute reuses the draws).
       compute_dtype: dtype the activations run in; params stay fp32 and BN
         statistics are fp32.
       remat_segments: > 0 splits the layer sequence into this many
@@ -171,7 +195,10 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
     seed = None
     if train and rng is not None and any(
             n.kind == "dropout" and n.p > 0 for n in ir.nodes):
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=rng))
+        if rng.device.type == "cuda":
+            seed = _DropoutDraws(rng)
+        else:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=rng))
 
     n = len(ir.nodes)
     if remat_segments and train:
@@ -202,9 +229,13 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
     heads = []
     for seg_nodes in segments:
         if len(segments) > 1:
+            # no RNG state to keep: dropout draws from explicit
+            # generators (and its CUDA draws are kept for the recompute),
+            # and reading the default generator's state is not allowed
+            # while a CUDA graph is captured
             x, added, seg_state, seg_heads = checkpoint(
                 run_segment, seg_nodes, params, state, x, x2, cache,
-                use_reentrant=False)
+                use_reentrant=False, preserve_rng_state=False)
         else:
             x, added, seg_state, seg_heads = run_segment(
                 seg_nodes, params, state, x, x2, cache)
@@ -314,7 +345,7 @@ def conv_folded(node, inp, p):
     ``F.conv2d``."""
     if K3.matches(node):
         return K3.stem_conv_s2(inp, p["k3"], node.act)
-    return L.activate(node.act, L.conv2d(inp, p["w"], p["b"],
+    return activate(node.act, L.conv2d(inp, p["w"], p["b"],
                                          stride=node.stride, pad=node.pad,
                                          groups=node.groups))
 
@@ -350,8 +381,8 @@ def run_graph(ir: GraphIR, params: dict, xv, xl=None, *, dtype,
         elif kind == "dwconv":
             y = L.conv2d(rd(x), p["dw"]["w"], p["dw"]["b"],
                          stride=node.stride, pad=1, groups=node.in_ch)
-            y = L.activate("relu6", y)
-            x = L.activate("relu6", L.conv2d(y, p["pw"]["w"], p["pw"]["b"]))
+            y = activate("relu6", y)
+            x = activate("relu6", L.conv2d(y, p["pw"]["w"], p["pw"]["b"]))
         elif kind == "se":
             x = L.squeeze_excitation(rd(x), p)
         elif kind == "inception":
@@ -394,11 +425,9 @@ def decode_heads(heads, bs: int, device):
     :func:`..ops.decode.decode_heads` decodes every head into its slice of
     the decoded output (kernel K1 on CUDA, one launch; the plain version on
     the CPU)."""
-    rows = sum(len(n.anchors) * h.shape[2] * h.shape[3] for h, n in heads)
-    decoded = torch.empty((bs, rows, heads[0][1].nc + 5),
-                          dtype=torch.float32, device=device)
-    K1.decode_heads([(h, n.anchors, n.yolo_stride) for h, n in heads],
-                    [n.bf_type for _, n in heads], out=decoded)
+    decoded = K1.decode_heads([(h, n.anchors, n.yolo_stride)
+                               for h, n in heads],
+                              [n.bf_type for _, n in heads])
     return decoded, [reshape_head(h, len(n.anchors), n.nc + 5)
                      for h, n in heads]
 

@@ -22,44 +22,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops.act import _hard_sigmoid, activate
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1   # torch convention: new = (1 - m) * old + m * batch
-
-
-# ----------------------------------------------------------------- activations
-
-def _softplus(x):
-    """max(x, 0) + log1p(exp(-|x|)): the JAX package's select-free softplus."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
-
-
-def _mish(x):
-    return x * torch.tanh(_softplus(x))
-
-
-def _leaky(x):
-    """max(x, 0.1 x) with 0.1 in ``x``'s dtype: JAX types the Python scalar
-    weakly, so in bf16 it multiplies by bf16(0.1), not by fp32(0.1)."""
-    return torch.maximum(x, x * torch.tensor(0.1, dtype=x.dtype))
-
-
-def _hard_sigmoid(x):
-    return torch.clamp((x + 3.0) / 6.0, 0.0, 1.0)
-
-
-ACTIVATIONS = {
-    "linear": lambda x: x,
-    "leaky": _leaky,
-    "relu": torch.relu,
-    "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
-    "mish": _mish,
-    "hard-sigmoid": _hard_sigmoid,
-    "hard-swish": lambda x: x * _hard_sigmoid(x),
-}
-
-
-def activate(name: str, x):
-    return ACTIVATIONS[name](x)
 
 
 # ------------------------------------------------------------------- conv ops
@@ -220,11 +186,14 @@ def depthwise_separable(x, params, state, *, stride=(1, 1), train=False):
     return y.to(x.dtype), {"dw": s_dw, "pw": s_pw}
 
 
-def dropout(x, p: float, generator: torch.Generator):
+def dropout(x, p: float, generator: torch.Generator, u=None):
     """Zero each element with probability ``p``, scale the rest by
-    1 / (1 - p); the mask comes from ``generator`` (on ``x``'s device)."""
+    1 / (1 - p); the mask comes from ``generator`` (on ``x``'s device), or
+    from the uniforms ``u`` when they are given."""
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if u is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    mask = u < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                     device=x.device)).to(x.dtype)
 

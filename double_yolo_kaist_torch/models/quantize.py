@@ -53,6 +53,7 @@ import torch.nn.functional as F
 
 from ..config.ir import GraphIR
 from ..ops import qgemm as K4
+from ..utils import npz as NPZ
 from . import graph as G
 from . import layers as L
 
@@ -472,10 +473,7 @@ def save_quantized(path: str, qvars: dict, *, mode: str,
             flat[prefix[:-1]] = t
 
     walk({"q": _to_numpy_tree(qvars)}, "")
-    bf16_keys = [k for k, a in flat.items() if isinstance(a, torch.Tensor)]
-    for k in bf16_keys:
-        flat[k] = flat[k].view(torch.int16).numpy().view(np.uint16)
-    flat["__bf16__"] = np.asarray(bf16_keys)
+    flat = NPZ.encode(flat)
     flat["__mode__"] = np.asarray(mode)
     flat["__hw__"] = (np.asarray(hw, np.int64) if hw is not None
                       else np.asarray([], np.int64))
@@ -488,12 +486,12 @@ def load_quantized(path: str) -> tuple[dict, str, tuple | None]:
     back bit-exact. An artifact holding keys of the JAX package's TPU-only
     rewrites (s2d kernels, the int8 fused stem) is refused: the port cannot
     run them and must not drop them silently."""
-    meta = ("__mode__", "__hw__", "__bf16__")
+    meta = ("__mode__", "__hw__", NPZ.BF16)
     with np.load(path) as z:
         mode = str(z["__mode__"])
         hw_arr = z["__hw__"]
         hw = tuple(int(x) for x in hw_arr) if hw_arr.size else None
-        bf16 = set(z["__bf16__"].tolist()) if "__bf16__" in z.files else set()
+        bf16 = NPZ.bf16_keys(z)
         tpu_only = sorted(k for k in z.files if k not in meta
                           and _TPU_ONLY_KEYS & set(k.split("/")))
         if tpu_only:
@@ -510,11 +508,7 @@ def load_quantized(path: str) -> tuple[dict, str, tuple | None]:
                 continue
             arr = z[key]
             parts = key.split("/")
-            if key in bf16:
-                t = torch.from_numpy(arr.view(np.int16).copy()).view(
-                    torch.bfloat16)
-            else:
-                t = torch.from_numpy(np.array(arr, copy=True))
+            t = NPZ.decode(arr, key in bf16)
             if parts[-1] in _KERNEL_KEYS and t.dim() == 4:
                 t = t.permute(3, 2, 0, 1).contiguous()
             node = tree

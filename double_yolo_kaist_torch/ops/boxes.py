@@ -62,7 +62,7 @@ def bbox_iou(box1, box2, xywh: bool = False, giou: bool = False,
             + torch.square((b2y1 + b2y2) - (b1y1 + b1y2))) / 4.0
     if diou:
         return iou - rho2 / c2
-    epsv = torch.tensor(eps, dtype=h1.dtype, device=h1.device)
+    epsv = torch.full((), eps, dtype=h1.dtype, device=h1.device)
     v = (4.0 / math.pi ** 2) * torch.square(
         torch.arctan(w2 / torch.maximum(h2, epsv))
         - torch.arctan(w1 / torch.maximum(h1, epsv)))

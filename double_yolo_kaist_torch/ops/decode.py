@@ -12,8 +12,9 @@ produces, channels-last bf16 with six values a row, takes a path of 16-byte
 loads and stores.
 
 :func:`decode_heads` (and :func:`decode_head`, the same call with one head)
-launches the kernel for CUDA tensors and takes :func:`decode_head_plain`
-only for CPU tensors.
+calls the registered operator ``dyk::decode_heads_into`` (:mod:`.library`),
+which launches the kernel (:func:`launch`) for CUDA tensors and takes
+:func:`decode_head_plain` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -116,6 +117,8 @@ def _check(specs, types):
     a head's (shape, strides, dtype, device, anchors as fp32 bytes, stride)."""
     if len(types) != len(specs):
         raise ValueError(f"{len(types)} bf_types for {len(specs)} heads")
+    if not specs:
+        raise ValueError("decode_heads needs at least one head")
     device = specs[0][3]
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_heads runs on cpu or cuda, not {device}")
@@ -190,6 +193,41 @@ def _specs(heads):
                   for x, a, s in heads])
 
 
+def _types(heads, bf_type):
+    types = (bf_type,) * len(heads) if isinstance(bf_type, str) \
+        else tuple(bf_type)
+    if len(types) != len(heads):
+        raise ValueError(f"{len(types)} bf_types for {len(heads)} heads")
+    for t in types:
+        if t not in ("yolov3", "yolov4"):
+            raise ValueError(f"unknown bf_type {t}")
+    return types
+
+
+def op_args(heads, bf_type):
+    """The arguments of the registered operator ``dyk::decode_heads_into``
+    (:mod:`.library`) after its output, for ``heads`` as
+    :func:`decode_heads` takes them: the head tensors, every head's anchors
+    in one flat list of floats, anchors a head, strides, and the v4 flags."""
+    types = _types(heads, bf_type)
+    flat = [float(v) for _, a, _ in heads
+            for v in np.asarray(a, np.float32).reshape(-1)]
+    return ([x for x, _, _ in heads], flat,
+            [len(np.asarray(a).reshape(-1, 2)) for _, a, _ in heads],
+            [int(s) for _, _, s in heads], [t == "yolov4" for t in types])
+
+
+def op_heads(xs, anchors, n_anchors, strides, v4):
+    """The inverse of :func:`op_args`: ([(x, anchors (na, 2), stride)],
+    bf_types), inside the operator."""
+    heads, at = [], 0
+    for x, na, s in zip(xs, n_anchors, strides):
+        heads.append((x, np.asarray(anchors[at:at + 2 * na],
+                                    np.float32).reshape(na, 2), s))
+        at += 2 * na
+    return heads, tuple("yolov4" if f else "yolov3" for f in v4)
+
+
 def decode_heads(heads, bf_type, out=None, row_offset: int = 0):
     """Decode the heads of one forward.
 
@@ -198,26 +236,27 @@ def decode_heads(heads, bf_type, out=None, row_offset: int = 0):
     heads, or one per head. Head i's ``na*ny*nx`` rows follow head i-1's,
     from ``row_offset`` on, in ``out`` (bs, total rows, no) fp32, which is
     returned; with ``out=None`` a new tensor holds exactly the heads' rows.
-    CPU tensors go to :func:`decode_head_plain`; CUDA tensors to the kernel
-    (one launch for up to four heads), or this raises."""
+    Every call goes through the registered operator
+    ``dyk::decode_heads_into`` (:mod:`.library`): CPU tensors to
+    :func:`decode_head_plain`, CUDA tensors to the kernel (one launch for
+    up to four heads), or it raises."""
+    from . import library  # noqa: F401  (registers the operators)
+
     heads = list(heads)
     if not heads:
         raise ValueError("decode_heads needs at least one head")
-    types = (bf_type,) * len(heads) if isinstance(bf_type, str) \
-        else tuple(bf_type)
-    specs = _specs(heads)
-    device = heads[0][0].device
-    if device.type == "cuda":
-        if out is None:
-            row_offset = 0
-        bs, no, total, launches = _plan(
-            specs, types, None if out is None else out.stride(0), row_offset)
-    else:
-        bs, no, rows = _check(specs, types)
-        total = sum(rows)
+    args = op_args(heads, bf_type)
     if out is None:
-        out = torch.empty((bs, total, no), dtype=torch.float32, device=device)
+        hs, types = op_heads(*args)
+        bs, no, rows = _check(_specs(hs), types)
+        out = torch.empty((bs, sum(rows), no), dtype=torch.float32,
+                          device=hs[0][0].device)
         row_offset = 0
+    torch.ops.dyk.decode_heads_into(out, *args, row_offset)
+    return out
+
+
+def check_out(out, device, bs: int, no: int, total: int, row_offset: int):
     if (out.dtype != torch.float32 or out.dim() != 3 or out.shape[0] != bs
             or out.shape[2] != no or out.shape[1] < row_offset + total
             or row_offset < 0):
@@ -227,13 +266,30 @@ def decode_heads(heads, bf_type, out=None, row_offset: int = 0):
     if out.device != device:
         raise ValueError(f"out on {out.device}, input on {device}")
 
-    if device.type == "cpu":
-        offset = row_offset
-        for (x, anchors, stride), t, n in zip(heads, types, rows):
-            out[:, offset:offset + n] = decode_head_plain(
-                reshape_head(x, len(anchors), no), anchors, stride, t)
-            offset += n
-        return out
+
+def decode_plain_into(heads, types, out, row_offset: int):
+    """The plain version of one call (CPU tensors): each head's rows into
+    its slice of ``out``."""
+    bs, no, rows = _check(_specs(heads), types)
+    check_out(out, heads[0][0].device, bs, no, sum(rows), row_offset)
+    offset = row_offset
+    for (x, anchors, stride), t, n in zip(heads, types, rows):
+        out[:, offset:offset + n] = decode_head_plain(
+            reshape_head(x, len(anchors), no), anchors, stride, t)
+        offset += n
+    return out
+
+
+def launch(heads, types, out, row_offset: int):
+    """The kernel's launches for one call (CUDA tensors) into ``out`` from
+    ``row_offset``. The launch plan comes from the tensors' own layout
+    (:func:`_plan`)."""
+    device = heads[0][0].device
+    if device.type != "cuda":
+        raise ValueError(f"decode_heads runs on cpu or cuda, not {device}")
+    bs, no, total, launches = _plan(_specs(heads), types, out.stride(0),
+                                    row_offset)
+    check_out(out, device, bs, no, total, row_offset)
     if not out.is_contiguous():
         raise ValueError("decode kernel writes a contiguous output")
 

@@ -10,8 +10,9 @@ triangle of the IoU bitmask in rank order into one block's shared memory,
 and one warp there runs the dependent rounds as a scan for the first rank
 still alive.
 
-:func:`nms_indices` launches the kernel for CUDA tensors and takes
-:func:`nms_indices_plain` only for CPU tensors.
+:func:`nms_indices` calls the registered operator ``dyk::nms_indices``
+(:mod:`.library`), which launches the kernel (:func:`launch`) for CUDA
+tensors and takes :func:`nms_indices_plain` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -55,8 +56,17 @@ def nms_indices_plain(boxes, scores, iou_thres: float, max_det: int):
 def nms_indices(boxes, scores, iou_thres: float, max_det: int):
     """Greedy NMS per image. boxes (B, K, 4) fp32 xyxy, scores (B, K) fp32
     in any order, K <= 1024. Returns idx (B, max_det) int32 and valid
-    (B, max_det) bool. A CPU tensor goes to :func:`nms_indices_plain`; a
-    CUDA tensor to the kernel, or this raises."""
+    (B, max_det) bool. The call goes through the registered operator
+    ``dyk::nms_indices`` (:mod:`.library`): a CPU tensor to
+    :func:`nms_indices_plain`, a CUDA tensor to the kernel, or it raises."""
+    from . import library  # noqa: F401  (registers the operators)
+
+    check(boxes, scores, max_det)
+    return torch.ops.dyk.nms_indices(boxes, scores, float(iou_thres),
+                                     int(max_det))
+
+
+def check(boxes, scores, max_det: int):
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.dim() != 2 \
             or scores.shape != boxes.shape[:2]:
         raise ValueError(f"boxes {tuple(boxes.shape)} / scores "
@@ -64,20 +74,24 @@ def nms_indices(boxes, scores, iou_thres: float, max_det: int):
     if boxes.device != scores.device:
         raise ValueError(f"boxes on {boxes.device}, scores on {scores.device}")
     if boxes.device.type == "cpu":
-        return nms_indices_plain(boxes, scores, iou_thres, max_det)
+        return
     if boxes.device.type != "cuda":
         raise ValueError(f"nms_indices runs on cpu or cuda, not {boxes.device}")
     bs, k = scores.shape
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError(f"NMS kernel takes fp32, got {boxes.dtype}/"
                         f"{scores.dtype}")
-    if not (boxes.is_contiguous() and scores.is_contiguous()):
-        raise ValueError("NMS kernel takes contiguous boxes and scores")
     if not (1 <= k <= MAX_K and bs >= 1 and max_det >= 1):
         raise ValueError(f"NMS kernel: need 1 <= K <= {MAX_K}, bs >= 1 and "
                          f"max_det >= 1; got K={k}, bs={bs}, "
                          f"max_det={max_det}")
 
+
+def launch(boxes, scores, iou_thres: float, max_det: int):
+    """The kernel's launch (CUDA tensors, checked by :func:`check`)."""
+    if not (boxes.is_contiguous() and scores.is_contiguous()):
+        raise ValueError("NMS kernel takes contiguous boxes and scores")
+    bs, k = scores.shape
     idx = torch.empty((bs, max_det), dtype=torch.int32, device=boxes.device)
     valid = torch.empty((bs, max_det), dtype=torch.bool, device=boxes.device)
     lib = _build.library("nms.cu")

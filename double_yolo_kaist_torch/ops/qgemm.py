@@ -16,8 +16,9 @@ The kernel's ``wgmma`` products read both operands K-major, so
 it places the model): no request transposes anything. :func:`choose_tile`
 picks the block's output tile from the shape.
 
-:func:`qgemm` launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors. :func:`int_mm` and :func:`epilogue_plain`
+:func:`qgemm` calls the registered operator ``dyk::qgemm`` (:mod:`.library`),
+which launches the kernel (:func:`launch`) for CUDA tensors and takes the
+plain version only for CPU tensors. :func:`int_mm` and :func:`epilogue_plain`
 also serve the kxk int8 convs of ``models/quantize.py``, which stay an
 im2col + ``torch._int_mm`` as the JAX package left them to XLA.
 """
@@ -29,8 +30,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..models import layers as L
 from . import _build
+from . import act as L
 
 ACTS = {"linear": 0, "leaky": 1, "mish": 2, "relu": 3, "relu6": 4}
 _MAX_M = 2 ** 24                    # rows of one launch
@@ -145,15 +146,29 @@ def qgemm(x, w, scale, bias, act: str, out_inv_s=None,
     """x (..., K) s8 contiguous, ``w`` the (N, K) weights that
     :func:`pack_weights` makes (a (K, N) matrix with K != N is refused),
     scale/bias (N,) fp32 -> (..., N): s8 when ``out_inv_s`` (a scalar) is
-    given, else ``out_dtype``. CPU tensors go to the plain version
-    (:func:`int_mm` + :func:`epilogue_plain`); CUDA tensors to the kernel,
-    or this raises."""
+    given, else ``out_dtype``. The call goes through the registered
+    operator ``dyk::qgemm`` (:mod:`.library`): CPU tensors to the plain
+    version (:func:`plain`), CUDA tensors to the kernel, or it raises."""
+    from . import library  # noqa: F401  (registers the operators)
+
     _check(x, w, scale, bias, act, out_dtype)
+    return torch.ops.dyk.qgemm(
+        x, w, scale, bias, act,
+        None if out_inv_s is None else float(out_inv_s), out_dtype)
+
+
+def plain(x, w, scale, bias, act: str, out_inv_s, out_dtype):
+    """:func:`qgemm` on CPU tensors: :func:`int_mm` + :func:`epilogue_plain`
+    with the (N, K) weights."""
     lead, k, n = x.shape[:-1], x.shape[-1], w.shape[0]
-    if x.device.type == "cpu":
-        acc = int_mm(x.reshape(-1, k), w)
-        return epilogue_plain(acc, scale, bias, act, out_inv_s,
-                              out_dtype).reshape(*lead, n)
+    acc = int_mm(x.reshape(-1, k), w)
+    return epilogue_plain(acc, scale, bias, act, out_inv_s,
+                          out_dtype).reshape(*lead, n)
+
+
+def launch(x, w, scale, bias, act: str, out_inv_s, out_dtype):
+    """The kernel's launch (CUDA tensors, checked by :func:`_check`)."""
+    lead, k, n = x.shape[:-1], x.shape[-1], w.shape[0]
     if x.device.type != "cuda":
         raise ValueError(f"qgemm runs on cpu or cuda, not {x.device}")
     if any(t.device != x.device for t in (w, scale, bias)):

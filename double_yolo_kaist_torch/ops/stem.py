@@ -13,8 +13,9 @@ fills ahead of the ``wgmma`` products; its design notes are in the source.
 
 Tensors are NCHW in shape and channels-last in memory (the port's layout),
 so the kernel reads and writes NHWC as the TPU kernel did. Kernels are OIHW.
-:func:`stem_conv_s2` launches the kernel for a CUDA tensor and takes
-:func:`stem_conv_s2_plain` only for a CPU tensor. The kernel reads the
+:func:`stem_conv_s2` calls the registered operator ``dyk::stem_conv_s2``
+(:mod:`.library`), which launches the kernel (:func:`launch`) for a CUDA
+tensor and takes :func:`stem_conv_s2_plain` only for a CPU tensor. The kernel reads the
 weights in a packed form, so the conv takes them as :func:`pack_weights`
 makes them, once (:func:`..models.graph.place_folded` does, when it places
 the model), and a stem conv is one launch.
@@ -28,8 +29,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..models import layers as L
 from . import _build
+from . import act as L
 
 C_IN = 32
 ACTS = {"leaky": 1, "mish": 2}     # act codes of csrc/stem.cu
@@ -136,12 +137,19 @@ def _cuda_input(x, weights: StemWeights):
 def stem_conv_s2(x, weights: StemWeights, act: str):
     """3x3 s2 p1 conv + bias + act for C_in = 32, ``weights`` from
     :func:`pack_weights`. Returns (B, O, ceil(H/2), ceil(W/2)) in
-    ``x.dtype``, channels-last. A CPU tensor goes to
-    :func:`stem_conv_s2_plain`; a CUDA tensor to the kernel, or this
+    ``x.dtype``, channels-last. The call goes through the registered
+    operator ``dyk::stem_conv_s2`` (:mod:`.library`), which takes the
+    weights as their four tensors: a CPU tensor to
+    :func:`stem_conv_s2_plain`, a CUDA tensor to the kernel, or it
     raises."""
+    from . import library  # noqa: F401  (registers the operators)
+
     _check(x, weights, act)
-    if x.device.type == "cpu":
-        return stem_conv_s2_plain(x, weights.w, weights.b, act)
+    return torch.ops.dyk.stem_conv_s2(x, *weights, act)
+
+
+def launch(x, weights: StemWeights, act: str):
+    """The kernel's launch (a CUDA tensor)."""
     xc = _cuda_input(x, weights)
     B, _, H, W = x.shape
     O = weights.w.shape[0]

@@ -13,12 +13,15 @@ GET /healthz -> {"status": "ok", "model": ..., "microbatch": {stats}}
 
 Mirrors the JAX package's ``cli/serve.py`` (stdlib ``http.server``; the
 flags are its flags, plus ``--device``). Concurrent requests coalesce in a
-:class:`.serving.MicroBatcher` (buckets 1, 4 and ``--microbatch``); on CUDA
+:class:`.microbatch.MicroBatcher` (buckets 1, 4 and ``--microbatch``); on CUDA
 each bucket is served from one CUDA graph, captured at startup unless
 ``--no-warmup``. ``--int8-qvars`` serves a quantized-variables artifact
 (``python -m double_yolo_kaist_torch.calibrate --quantized-out``), or
-writes this server's first quantization there. ``--exported`` and ``--dp``
-are not ported yet and raise.
+writes this server's first quantization there. ``--exported <file>``
+serves a one-file artifact (``python -m double_yolo_kaist_torch.
+export_model``) through :class:`.export.ExportedPredictor`: the flags it
+bakes in are refused or ignored, as in the JAX package, and the server
+imports no model code. ``--dp`` (queue 1 item 12) raises.
 """
 
 from __future__ import annotations
@@ -44,11 +47,11 @@ class ThreadingHTTPServer(_ThreadingHTTPServer):
 def make_handler(predictor, model_name: str):
     """``predictor`` maps stacked frames to per-frame results: a
     :class:`.serving.Predictor` (called as ``predictor(v[None], l[None])``)
-    or a :class:`.serving.MicroBatcher` (requests coalesce across handler
+    or a :class:`.microbatch.MicroBatcher` (requests coalesce across handler
     threads)."""
     import cv2
 
-    from .serving import MicroBatcher, QueueFull
+    from .microbatch import MicroBatcher, QueueFull
 
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, payload: dict):
@@ -114,8 +117,8 @@ def main(argv=None):
     p.add_argument("--cfg", type=str, default="")
     p.add_argument("--weights", type=str, default="")
     p.add_argument("--exported", type=str, default="",
-                   help="serve a one-file exported artifact (not ported "
-                        "yet)")
+                   help="serve a one-file exported artifact (python -m "
+                        "double_yolo_kaist_torch.export_model)")
     p.add_argument("--img-size", type=int, default=512)
     p.add_argument("--conf-thres", type=float, default=0.1)
     p.add_argument("--int8", action="store_true",
@@ -166,19 +169,18 @@ def main(argv=None):
                    help="torch device; cpu runs the plain PyTorch path")
     opt = p.parse_args(argv)
 
-    if opt.exported:
-        raise NotImplementedError(
-            "--exported (a one-file exported artifact) is not ported yet "
-            "(ROADMAP.md, queue 1 item 13)")
     if opt.dp:
         raise NotImplementedError(
             "--dp (data-parallel serving) is not ported yet (ROADMAP.md, "
             "queue 1 item 12)")
+    if opt.exported:
+        return serve_exported(opt)
     if not opt.cfg:
-        raise SystemExit("--cfg is required")
+        raise SystemExit("--cfg is required (or pass --exported)")
 
     from .common import build_model
-    from .serving import MicroBatcher, Predictor
+    from .microbatch import MicroBatcher
+    from .serving import Predictor
 
     ir, variables = build_model(opt.cfg, opt.weights)
     # with micro-batching on, coalesced groups need padded batch buckets
@@ -207,16 +209,67 @@ def main(argv=None):
         predictor = MicroBatcher(predictor, max_batch=opt.microbatch,
                                  max_wait_ms=opt.microbatch_wait_ms,
                                  max_queue=opt.max_queue or None)
-    server = ThreadingHTTPServer(
-        (opt.host, opt.port),
-        make_handler(predictor, os.path.basename(str(opt.cfg))))
-    print(f"serving on http://{opt.host}:{opt.port}", flush=True)
+    _serve(opt, predictor, os.path.basename(str(opt.cfg)),
+           f"serving on http://{opt.host}:{opt.port}")
+
+
+def _serve(opt, predictor, name: str, banner: str):
+    from .microbatch import MicroBatcher
+
+    server = ThreadingHTTPServer((opt.host, opt.port),
+                                 make_handler(predictor, name))
+    print(banner, flush=True)
     try:
         server.serve_forever()
     finally:
         server.server_close()
         if isinstance(predictor, MicroBatcher):
             predictor.close()
+
+
+def serve_exported(opt):
+    """``--exported``: serve an artifact (JAX ``cli/serve.py:172-217``).
+    Everything about it was fixed at export time: flags that would change
+    what it computes are refused, the rest are ignored with a note."""
+    from .export import ExportedPredictor
+    from .microbatch import MicroBatcher
+
+    if opt.int8:
+        raise SystemExit(
+            "--exported bakes precision into the artifact: re-export with "
+            "python -m double_yolo_kaist_torch.export_model --int8 for "
+            "int8")
+    ignored = [name for name, val, dflt in (
+        ("--cfg", opt.cfg, ""), ("--weights", opt.weights, ""),
+        ("--conf-thres", opt.conf_thres, 0.1),
+        ("--img-size", opt.img_size, 512),
+        ("--int8-calib", opt.int8_calib, ""),
+        ("--int8-qvars", opt.int8_qvars, ""),
+        ("--calibration-batches", opt.calibration_batches, 2),
+        ("--calibration-pct", opt.calibration_pct, 100.0),
+        ("--warmup-hw", opt.warmup_hw, None)) if val != dflt]
+    if ignored:
+        print(f"# --exported: ignoring {', '.join(ignored)} (baked into the "
+              f"artifact at export time)", flush=True)
+    predictor = ExportedPredictor(opt.exported, device=opt.device)
+    if predictor.batch > 1:
+        print(f"# note: artifact compiled for batch {predictor.batch}; this "
+              f"server issues single-frame requests, each padded to "
+              f"{predictor.batch} — export with --batch 1 for lowest "
+              f"per-request latency", flush=True)
+    if not opt.no_warmup:
+        t0 = time.perf_counter()
+        predictor.warmup()
+        print(f"# warmup {predictor.src_hw} in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if opt.microbatch:
+        # coalesced groups fill the artifact's batch instead of each
+        # request padding it alone
+        predictor = MicroBatcher(predictor, max_batch=opt.microbatch,
+                                 max_wait_ms=opt.microbatch_wait_ms,
+                                 max_queue=opt.max_queue or None)
+    _serve(opt, predictor, os.path.basename(opt.exported),
+           f"serving exported artifact on http://{opt.host}:{opt.port}")
 
 
 if __name__ == "__main__":

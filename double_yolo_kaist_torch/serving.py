@@ -5,8 +5,8 @@ Counterpart of the JAX package's ``serving.py``. ``Predictor`` folds once,
 pads each request into its batch bucket and runs one body per bucket:
 uint8 letterbox -> forward -> NMS -> one packed ``(B, max_det, 7)`` array
 with ``valid`` as channel 6, as the JAX package's ``_full_program`` does;
-the host undoes the letterbox (``unpack_detections``, export.py:133-151 in
-the JAX package). The forward is bf16 or, with ``int8=True``, the
+the host undoes the letterbox (``unpack_detections``, kept in
+:mod:`.export`, as the JAX package keeps it in its export.py:133-151). The forward is bf16 or, with ``int8=True``, the
 post-training-quantized path of :mod:`.models.quantize` in any of its
 modes, calibrated on the first requests served, or from a calibration
 artifact, or loaded finished from a quantized-variables artifact.
@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import os
 import threading
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -32,117 +31,20 @@ import torch
 
 from . import resolve_device
 from .config.ir import GraphIR, compile_cfg
+from .cuda_graphs import Graph as _Graph
+from .cuda_graphs import Stage as _Stage
+from .cuda_graphs import capture
 from .data.letterbox import make_letterbox_fn
+from .export import unpack_detections
 from .models import graph
 from .models import quantize as Q
-from .ops import _build
 from .ops.nms import non_max_suppression
-
-
-def unpack_detections(det, valid, real, ratio: float, pad, src_hw):
-    """Packed (B, max_det, 6) detections + valid mask (numpy) -> per-image
-    (boxes xyxy in the ORIGINAL frame, scores, classes) for the first
-    ``real`` images: subtract the pad, divide by the ratio, clip to the
-    frame (reference utils.scale_coords semantics)."""
-    out = []
-    for i in range(real):
-        d = det[i][valid[i]]
-        boxes = d[:, :4].copy()
-        if len(boxes):
-            boxes[:, [0, 2]] -= pad[0]
-            boxes[:, [1, 3]] -= pad[1]
-            boxes /= ratio
-            boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, src_hw[1])
-            boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, src_hw[0])
-        out.append((boxes, d[:, 4], d[:, 5].astype(int)))
-    return out
 
 
 def pack(det, valid):
     """(det (B, max_det, 6), valid (B, max_det)) -> (B, max_det, 7), valid
     as channel 6 (JAX serving.py:209-213)."""
     return torch.cat([det, valid[..., None].to(det.dtype)], dim=-1)
-
-
-def capture(fn, device, pool=None):
-    """Capture ``fn()`` (no arguments; its inputs are static tensors) as a
-    CUDA graph on ``device``. ``fn`` runs once eagerly on a side stream
-    first, so that kernel libraries are loaded, K1's launch plan is made and
-    cuDNN has chosen its kernels before capture. Returns (graph, fn's
-    output, {kernel: launches the graph holds}); the wrappers' counts of
-    the capture itself are taken back, since nothing launched then. A
-    failed capture raises: nothing falls back to eager execution."""
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        fn()
-    current.wait_stream(side)
-    before = dict(_build.launches)
-    cuda_graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(cuda_graph, pool=pool):
-        out = fn()
-    held = {k: n - before.get(k, 0) for k, n in _build.launches.items()
-            if n != before.get(k, 0)}
-    for name, n in held.items():
-        _build.launches[name] -= n
-    return cuda_graph, out, held
-
-
-class _Stage:
-    """The static uint8 inputs of one (bucket, source size): device tensors
-    that the graphs of that bucket read, and, on CUDA, pinned host staging
-    that requests are copied through. Slots past a request's frames are
-    zero, as the JAX package pads them."""
-
-    def __init__(self, bucket: int, src_hw: tuple, device):
-        shape = (bucket,) + tuple(src_hw) + (3,)
-        self.dev = tuple(torch.zeros(shape, dtype=torch.uint8, device=device)
-                         for _ in range(2))
-        self.host = (tuple(torch.zeros(shape, dtype=torch.uint8,
-                                       pin_memory=True) for _ in range(2))
-                     if device.type == "cuda" else None)
-        self.filled = 0          # slots the previous request wrote
-
-    def load(self, chunk_v: np.ndarray, chunk_l: np.ndarray) -> None:
-        """Frames in, zeros after them; only the slots that changed move."""
-        real = len(chunk_v)
-        n = max(real, self.filled)
-        for i, chunk in enumerate((chunk_v, chunk_l)):
-            dev = self.dev[i]
-            if self.host is None:
-                dev[:real].copy_(torch.from_numpy(chunk))
-                dev[real:n].zero_()
-                continue
-            host = self.host[i].numpy()
-            host[:real] = chunk
-            host[real:n] = 0
-            dev[:n].copy_(self.host[i][:n], non_blocking=True)
-        self.filled = real
-
-
-class _Graph:
-    """One captured body: the CUDA graph, its packed output on the device
-    and its pinned host copy, and the kernel launches the graph holds (the
-    wrappers count these on each replay, since they do not run then)."""
-
-    def __init__(self, cuda_graph, out, launches: dict):
-        self.graph = cuda_graph
-        self.out = out
-        self.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        self.launches = launches
-        self.replays = 0
-
-    def run(self, real: int) -> np.ndarray:
-        """Replay, count the graph's launches, and fetch the first ``real``
-        rows of the packed output (one device-to-host copy)."""
-        self.graph.replay()
-        for name, n in self.launches.items():
-            _build.launches[name] += n
-        self.replays += 1
-        self.host.copy_(self.out, non_blocking=True)
-        torch.cuda.current_stream(self.out.device).synchronize()
-        return self.host.numpy()[:real].copy()
 
 
 class Predictor:
@@ -288,20 +190,22 @@ class Predictor:
         self._cal_batches = []
         return True
 
-    def _forward(self, xv, xl, quant: bool):
+    def _forward(self, xv, xl, quant: bool, variables=None):
         if quant:
-            return Q.apply_quantized(self.ir, self.qvars, xv, xl,
+            return Q.apply_quantized(self.ir, variables or self.qvars, xv, xl,
                                      compute_dtype=self._dtype,
                                      mode=self._int8_mode)
-        return graph.apply_folded(self.ir, self.folded, xv, xl,
+        return graph.apply_folded(self.ir, variables or self.folded, xv, xl,
                                   compute_dtype=self._dtype)
 
-    def _body(self, v_u8, l_u8, quant: bool):
+    def _body(self, v_u8, l_u8, quant: bool, variables=None):
         """One padded bucket, uint8 (B, H, W, 3) -> packed (B, max_det, 7):
-        what a graph captures (the JAX package's ``_full_program``)."""
+        what a graph captures (the JAX package's ``_full_program``) and what
+        :func:`..export.export_serving_artifact` exports, there with the
+        placed ``variables`` as the program's inputs."""
         fn, _, _ = self._preprocess(tuple(v_u8.shape[1:3]))
         xv, xl = fn(v_u8, l_u8)
-        io, _ = self._forward(xv, xl, quant)
+        io, _ = self._forward(xv, xl, quant, variables)
         return pack(*non_max_suppression(io, **self._nms_kw))
 
     @torch.inference_mode()
@@ -393,142 +297,3 @@ class Predictor:
             out.extend(unpack_detections(packed[..., :6], packed[..., 6] > 0.5,
                                          len(chunk_v), ratio[0], pad, src_hw))
         return out
-
-
-class QueueFull(RuntimeError):
-    """Raised by MicroBatcher.submit when the pending queue exceeds
-    max_queue: the server sheds the request (HTTP 503) instead of letting
-    tail latency grow without bound."""
-
-
-class MicroBatcher:
-    """Cross-request micro-batching: coalesce concurrent single-frame
-    requests into one batched predictor call (the JAX package's
-    ``serving.MicroBatcher``).
-
-    * one dispatcher thread owns the device; request threads enqueue
-      frames and block on a per-request event;
-    * the dispatcher takes everything pending (same source shape, up to
-      ``max_batch``) the moment it is free, so an idle server runs a lone
-      request at once;
-    * while a batch runs, new arrivals pile up and form the next batch, so
-      under load the batch size follows the device's throughput;
-    * ``max_wait_ms`` (default 0) holds the first request of a batch for a
-      fixed window so that more arrivals join it, trading tail latency for
-      bigger buckets;
-    * ``max_queue`` bounds the frames waiting: beyond it ``submit`` raises
-      :class:`QueueFull`;
-    * an error of a batch is raised in every submitter of that batch.
-
-    Results equal unbatched serving: the fixed-shape NMS is per image, and
-    the predictor zero-pads partial buckets itself.
-    """
-
-    def __init__(self, predictor, *, max_batch: int = 16,
-                 max_wait_ms: float = 0.0, max_queue: int | None = None):
-        self.predictor = predictor
-        self.max_batch = int(max_batch)
-        self.max_wait = float(max_wait_ms) / 1e3
-        self.max_queue = None if max_queue is None else int(max_queue)
-        self._lock = threading.Lock()
-        self._arrived = threading.Condition(self._lock)
-        self._pending: list = []       # request dicts, first in first out
-        self._stop = False
-        self._n_batches = 0
-        self._n_frames = 0
-        self._size_hist: dict = {}
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name="microbatch-dispatcher")
-        self._thread.start()
-
-    @property
-    def stats(self) -> dict:
-        """Coalescing statistics: how well concurrent traffic batches."""
-        with self._lock:
-            n = max(self._n_batches, 1)
-            return {"batches": self._n_batches, "frames": self._n_frames,
-                    "mean_batch": round(self._n_frames / n, 2),
-                    "size_hist": dict(sorted(self._size_hist.items()))}
-
-    def close(self) -> None:
-        with self._lock:
-            self._stop = True
-            self._arrived.notify()
-        self._thread.join(timeout=5)
-
-    def submit(self, v_img: np.ndarray, l_img: np.ndarray | None = None):
-        """One frame in (H, W, 3) uint8 -> (boxes, scores, classes). Blocks
-        until the coalesced batch holding this frame completes. Thread-safe:
-        call it from each request handler thread."""
-        req = {"v": np.asarray(v_img),
-               "l": np.asarray(v_img if l_img is None else l_img),
-               "done": threading.Event(), "t0": time.monotonic()}
-        if req["v"].shape != req["l"].shape:
-            raise ValueError(f"visible/lwir shape mismatch: "
-                             f"{req['v'].shape} vs {req['l'].shape}")
-        with self._lock:
-            if self._stop:
-                raise RuntimeError("MicroBatcher is closed")
-            if (self.max_queue is not None
-                    and len(self._pending) >= self.max_queue):
-                raise QueueFull(
-                    f"{len(self._pending)} requests already queued "
-                    f"(max_queue={self.max_queue})")
-            self._pending.append(req)
-            self._arrived.notify()
-        req["done"].wait()
-        if "err" in req:
-            raise req["err"]
-        return req["res"]
-
-    def _take_batch(self) -> list:
-        """Called with the lock held and requests pending: pop the oldest
-        request and every same-shape request after it, up to max_batch."""
-        if self.max_wait > 0:
-            deadline = self._pending[0]["t0"] + self.max_wait
-            while len(self._pending) < self.max_batch and not self._stop:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    break
-                self._arrived.wait(left)
-                if not self._pending:   # raced with close()
-                    return []
-        shape = self._pending[0]["v"].shape
-        take, keep = [], []
-        for r in self._pending:
-            if r["v"].shape == shape and len(take) < self.max_batch:
-                take.append(r)
-            else:
-                keep.append(r)
-        self._pending = keep
-        return take
-
-    def _loop(self) -> None:
-        while True:
-            with self._lock:
-                while not self._pending and not self._stop:
-                    self._arrived.wait()
-                if self._stop:
-                    batch, self._pending = self._pending, []
-                    for r in batch:
-                        r["err"] = RuntimeError("MicroBatcher closed")
-                        r["done"].set()
-                    return
-                batch = self._take_batch()
-                if batch:
-                    self._n_batches += 1
-                    self._n_frames += len(batch)
-                    self._size_hist[len(batch)] = (
-                        self._size_hist.get(len(batch), 0) + 1)
-            if not batch:
-                continue
-            try:
-                res = self.predictor(np.stack([r["v"] for r in batch]),
-                                     np.stack([r["l"] for r in batch]))
-                for r, out in zip(batch, res):
-                    r["res"] = out
-            except Exception as e:  # noqa: BLE001 — delivered to submitters
-                for r in batch:
-                    r["err"] = e
-            for r in batch:
-                r["done"].set()

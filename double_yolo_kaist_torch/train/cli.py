@@ -10,8 +10,9 @@ The flags are those of the JAX package's ``cli/train.py``, plus
 writes ``<out-dir>/<name>/last``, ``best`` (checkpoint directories in the
 JAX package's layout) and ``results.txt``. ``--snow`` (the snowflake
 cutout, with CLAHE) and ``--clahe`` (CLAHE in training and evaluation)
-change the data as the JAX package's flags do. ``--steps-per-dispatch``
-above 1 (queue 1 item 17) and ``--no-dp`` (item 12) raise
+change the data as the JAX package's flags do. ``--steps-per-dispatch K``
+runs K optimizer steps a call (on CUDA one captured graph of the step
+replayed K times). ``--no-dp`` (queue 1 item 12) raises
 ``NotImplementedError``.
 """
 
@@ -25,7 +26,7 @@ from .. import resolve_device
 from ..common import DEFAULT_HYP, build_model, resolve_cfg
 from ..config.parser import load_hyp, parse_data_cfg
 from ..data.dataset import KaistDataset
-from .trainer import DATA_PARALLEL_NOT_PORTED, MULTI_STEP_NOT_PORTED, Trainer
+from .trainer import DATA_PARALLEL_NOT_PORTED, Trainer
 
 
 def str2bool(v: str) -> bool:
@@ -78,7 +79,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--cutoff", type=int, default=-1,
                    help="darknet .weights layer cutoff for transfer learning")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="optimizer steps per dispatch (only 1 is ported)")
+                   help="optimizer steps per dispatch (on CUDA one captured "
+                        "graph of the step, replayed K times)")
     p.add_argument("--remat-segments", type=int, default=0,
                    help="gradient-checkpoint the forward into N segments")
     p.add_argument("--no-dp", action="store_true",
@@ -99,8 +101,6 @@ def main(argv=None):
     # what is not ported, and a missing card, refuse before any work
     if opt.no_dp:
         raise NotImplementedError(DATA_PARALLEL_NOT_PORTED)
-    if opt.steps_per_dispatch > 1:
-        raise NotImplementedError(MULTI_STEP_NOT_PORTED)
     resolve_device(opt.device)
     opt.cfg = resolve_cfg(opt.cfg)
     hyp = load_hyp(opt.hyp)

@@ -58,6 +58,21 @@ def focal_scale(x, t, gamma: float, alpha: float = 0.25):
     return alpha_f * torch.pow(1.0 - p_t, gamma)
 
 
+_CONSTS: dict = {}
+
+
+def _const(values, dtype, device) -> torch.Tensor:
+    """A constant tensor of ``values``, made once a (values, dtype,
+    device): a step captured in a CUDA graph may copy nothing from the
+    host, so the capture reuses what its warm-up run made."""
+    arr = np.asarray(values)
+    key = (arr.tobytes(), arr.shape, dtype, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(arr, dtype=dtype, device=device)
+    return t
+
+
 def smooth_bce(eps: float = 0.0):
     """Positive / negative label-smoothing targets (reference
     utils.py:204-206)."""
@@ -114,10 +129,10 @@ def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0):
         pi = pi.to(fdt)
         _, na, ny, nx, no = pi.shape
         nc = spec.nc
-        anchors = torch.as_tensor(spec.anchors_vec, dtype=fdt, device=dev)
+        anchors = _const(spec.anchors_vec, fdt, dev)
 
         # normalized labels on this grid (reference utils.py:328-339)
-        gain = torch.tensor([nx, ny], dtype=fdt, device=dev)
+        gain = _const((nx, ny), fdt, dev)
         gxy = targets[..., 1:3].to(fdt) * gain                  # (B, T, 2)
         gwh = targets[..., 3:5].to(fdt) * gain
         tcls = targets[..., 0].to(torch.int64)
@@ -150,7 +165,7 @@ def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0):
         else:
             pxy = torch.sigmoid(ps[:, :2])
             pwh = torch.minimum(torch.exp(ps[:, 2:4]),
-                                torch.tensor(1e3, dtype=fdt, device=dev)) \
+                                torch.full((), 1e3, dtype=fdt, device=dev)) \
                 * anchors[ai]
         pbox = torch.cat([pxy, pwh], dim=-1)
         tbox = torch.cat([gxy_f - gij.to(fdt), gwh_f], dim=-1)

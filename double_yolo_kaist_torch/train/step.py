@@ -6,6 +6,12 @@ to the activations' dtype at its use, BN statistics in fp32), the fixed-
 shape loss, the backward (fp32 gradients through the casts), the
 optimizer update and the EMA. The casts are explicit, as JAX makes them,
 not ``autocast``'s.
+
+Several steps per dispatch (:func:`make_multi_step`,
+:func:`make_fused_multi_step`; JAX's ``lax.scan`` over K steps in one
+program) are, on CUDA, one CUDA graph of the whole step (forward, loss,
+backward, optimizer and EMA, the state updated in place) replayed K times
+(:class:`CapturedSteps`); on the CPU, K eager steps.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from .. import resolve_device
+from ..ops import _build
 from ..models import graph
 from ..utils import tree as TR
 from . import loss as LS
@@ -68,6 +75,7 @@ def make_train_step(ir, hyp: dict, tx, *, gr: float = 1.0,
     specs = LS.head_specs(ir)
 
     def step_fn(state: TrainState, batch: dict, rng=None):
+        tx.ensure_lr_table(state.step + 1)
         xv = _to_float(batch["v"])
         xl = _to_float(batch["l"]) if "l" in batch else None
         leaves = TR.leaves(state.params)
@@ -84,8 +92,7 @@ def make_train_step(ir, hyp: dict, tx, *, gr: float = 1.0,
         with torch.no_grad():
             gnorm = global_norm(grads)
             updates, opt_state = tx.update(grads, state.opt_state, leaves)
-            if updates is not None:
-                torch._foreach_add_(leaves, updates)
+            torch._foreach_add_(leaves, updates)
             ema = state.ema
             if ema is not None:
                 ema = OPT.ema_update(ema, state.params, ema_decay)
@@ -99,9 +106,253 @@ def make_train_step(ir, hyp: dict, tx, *, gr: float = 1.0,
 
 
 def metrics_to_host(metrics: dict) -> dict:
-    """The step's metrics as Python floats, in one device fetch."""
-    vals = torch.stack([metrics[k].float() for k in METRICS]).cpu().tolist()
+    """The step's metrics as Python floats, in one device fetch; of stacked
+    metrics (several steps), the last step's (JAX's ``ravel()[-1]``)."""
+    vals = torch.stack([metrics[k].float().reshape(-1)[-1]
+                        for k in METRICS]).cpu().tolist()
     return dict(zip(METRICS, vals))
+
+
+# ------------------------------------------------------ several steps a call
+
+# warm-up runs of a step on a side stream before it is captured (the state
+# is put back after them)
+WARMUP_STEPS = 2
+
+
+class _StepGraph:
+    """One captured step: the graph, its static batch buffers, the state
+    trees it updates in place, and its metrics output."""
+
+    def __init__(self, graph, batch, state, metrics, table, rng, launches):
+        self.graph = graph
+        self.batch = batch
+        self.state = state
+        self.metrics = metrics
+        self.table = table
+        self.rng = rng
+        self.launches = launches
+
+    def adopt(self, state: TrainState) -> None:
+        """Copy the values of ``state`` into the graph's own tensors where
+        they are other tensors (a state loaded from a checkpoint, or moved
+        on by eager steps)."""
+        mine, theirs = [], []
+        for a, b in zip(_state_leaves(self.state), _state_leaves(state)):
+            if a is not b:
+                mine.append(a)
+                theirs.append(b)
+        if mine:
+            with torch.no_grad():
+                torch._foreach_copy_(mine, theirs)
+
+
+def _state_leaves(state: TrainState) -> list:
+    return (TR.leaves(state.params) + TR.leaves(state.bn_state)
+            + TR.leaves(state.opt_state) + TR.leaves(state.ema))
+
+
+class CapturedSteps:
+    """Optimizer steps replayed from CUDA graphs: one graph per batch
+    signature (the names, shapes and dtypes of a batch's tensors), of the
+    whole of ``step_fn`` on static batch buffers, the state updated in
+    place (:class:`.optim.Optimizer`), BN
+    statistics copied into their buffers. Before capture the step runs
+    :data:`WARMUP_STEPS` times on a side stream, as ``serving.capture``
+    does, and the state and ``rng`` are put back, so a replay is exactly
+    the eager step that would have run. A failed capture raises; nothing
+    falls back to eager steps.
+
+    ``rng``: a CUDA generator for dropout, registered with each graph so
+    that every replay draws new masks, or None."""
+
+    def __init__(self, step_fn, tx):
+        self.step_fn = step_fn
+        self.tx = tx
+        self.graphs: dict = {}
+        self.pool = None
+        self.replays = 0
+
+    def _capture(self, state: TrainState, batch: dict, rng) -> _StepGraph:
+        dev = next(iter(batch.values())).device
+        static_batch = {k: v.clone() for k, v in batch.items()}
+        static = TrainState(state.params, state.bn_state, state.opt_state,
+                            state.step, state.ema)
+        bn = TR.leaves(state.bn_state)
+        kept = _state_leaves(static)
+
+        def body():
+            new, m = self.step_fn(static, static_batch, rng)
+            torch._foreach_copy_(bn, TR.leaves(new.bn_state))
+            moved = [(a, b) for t in ("params", "opt_state", "ema")
+                     for a, b in zip(TR.leaves(getattr(new, t)),
+                                     TR.leaves(getattr(static, t)))]
+            if any(a is not b for a, b in moved):
+                raise RuntimeError("a captured step must update the state "
+                                   "in place")
+            return torch.stack([m[k].float() for k in METRICS])
+
+        saved = [t.detach().clone() for t in kept]
+        rng_state = None if rng is None else rng.get_state()
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                body()
+        current.wait_stream(side)
+        with torch.no_grad():
+            torch._foreach_copy_(kept, saved)
+        if rng is not None:
+            rng.set_state(rng_state)
+        del saved
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        before = dict(_build.launches)
+        graph = torch.cuda.CUDAGraph()
+        if rng is not None:
+            graph.register_generator_state(rng)
+        with torch.cuda.graph(graph, pool=self.pool):
+            metrics = body()
+        held = {k: n - before.get(k, 0) for k, n in _build.launches.items()
+                if n != before.get(k, 0)}
+        for name, n in held.items():
+            _build.launches[name] -= n
+        return _StepGraph(graph, static_batch, static, metrics,
+                          self.tx.lr_table, rng, held)
+
+    def __call__(self, state: TrainState, batch_at, k: int, rng=None):
+        """K steps: ``batch_at(i)`` gives step i's batch. Returns (state,
+        stacked metrics (K,) a name)."""
+        self.tx.ensure_lr_table(state.step + k)
+        first = batch_at(0)
+        sig = tuple((name, tuple(v.shape), v.dtype)
+                    for name, v in sorted(first.items()))
+        g = self.graphs.get(sig)
+        if g is None or g.table is not self.tx.lr_table or g.rng is not rng:
+            g = self.graphs[sig] = self._capture(state, first, rng)
+        g.adopt(state)
+        out = torch.empty((k, len(METRICS)), dtype=torch.float32,
+                          device=g.metrics.device)
+        for i in range(k):
+            batch = first if i == 0 else batch_at(i)
+            for name, buf in g.batch.items():
+                buf.copy_(batch[name], non_blocking=True)
+            g.graph.replay()
+            for name, n in g.launches.items():
+                _build.launches[name] += n
+            self.replays += 1
+            out[i].copy_(g.metrics)
+        st = g.state
+        return (TrainState(st.params, st.bn_state, st.opt_state,
+                           state.step + k, st.ema),
+                {name: out[:, j] for j, name in enumerate(METRICS)})
+
+
+def _eager_steps(step_fn, state: TrainState, batch_at, k: int, rng=None):
+    ms = []
+    for i in range(k):
+        state, m = step_fn(state, batch_at(i), rng)
+        ms.append(m)
+    return state, {name: torch.stack([m[name] for m in ms])
+                   for name in METRICS}
+
+
+def _on_cuda(state: TrainState) -> bool:
+    leaves = TR.leaves(state.params)
+    return bool(leaves) and leaves[0].is_cuda
+
+
+def make_multi_step(ir, hyp: dict, tx, *, gr: float = 1.0,
+                    compute_dtype=torch.bfloat16, ema_decay: float = 0.9999,
+                    remat_segments: int = 0):
+    """K optimizer steps a call (JAX step.py:103-133):
+    (state, batches, rng) -> (state, stacked metrics), where every leaf of
+    ``batches`` has a leading K axis and each metric comes back as (K,).
+
+    On CUDA the step is captured once per batch signature as a CUDA graph
+    and replayed K times, each replay on the next batch copied into its
+    static buffers (:class:`CapturedSteps`, kept as ``fn.captured``); the
+    metrics stay on the device until the caller fetches them. On the CPU it
+    runs K eager steps of :func:`make_train_step`. ``rng``: as for
+    :func:`make_train_step` (on CUDA a CUDA generator, or None)."""
+    step_fn = make_train_step(ir, hyp, tx, gr=gr,
+                              compute_dtype=compute_dtype,
+                              ema_decay=ema_decay,
+                              remat_segments=remat_segments)
+    captured = CapturedSteps(step_fn, tx)
+
+    def multi(state: TrainState, batches: dict, rng=None):
+        k = next(iter(batches.values())).shape[0]
+
+        def batch_at(i):
+            return {name: v[i] for name, v in batches.items()}
+
+        if _on_cuda(state):
+            return captured(state, batch_at, k, rng)
+        return _eager_steps(step_fn, state, batch_at, k, rng)
+
+    multi.captured = captured
+    multi.step_fn = step_fn
+    return multi
+
+
+def augment_generator(seed: int, b0: int) -> torch.Generator:
+    """The augment generator of the batch at offset ``b0`` of an epoch
+    seeded ``seed``, as :func:`..data.pipeline.train_batches` seeds it."""
+    return torch.Generator().manual_seed(int(seed) * 1_000_003 + int(b0))
+
+
+def make_fused_multi_step(ir, hyp: dict, tx, aug_fn, *, gr: float = 1.0,
+                          compute_dtype=torch.bfloat16,
+                          ema_decay: float = 0.9999, remat_segments: int = 0,
+                          images_in: bool = False, multi_step=None):
+    """K steps a call with the augmentation in the same call (JAX
+    step.py:136-238, without its ``double_buffer``).
+
+    ``aug_fn``: :func:`..data.pipeline.make_train_augment_fn` with
+    ``from_pool=not images_in``. The call is
+    ``(state, pool_v, pool_l, xs, aug_seed, rng)`` with ``xs = {"b0": (K,),
+    "load": (K, 4B), "targets": (K, B, T, 5), "tmask": (K, B, T)}``, or
+    with ``images_in`` ``(state, xs, aug_seed, rng)`` where ``xs`` holds
+    the gathered source rows ``"v_u8"`` / ``"l_u8"`` (K, 4B, H, W, 3) in
+    place of ``"load"``. Step k's augment generator is seeded from
+    ``aug_seed`` and ``b0[k]`` exactly as ``train_batches`` seeds it
+    (:func:`augment_generator`), so fused equals unfused. On CUDA each
+    batch is augmented on the device as the step before it replays (the
+    augment draws its randoms on the host) and the step is the captured
+    graph of :func:`make_multi_step`; on the CPU, K eager steps.
+    ``multi_step``: a :func:`make_multi_step` function whose step and
+    graphs to share (the fused calls of several sizes then capture into
+    one memory pool); by default a new one."""
+    multi = multi_step or make_multi_step(
+        ir, hyp, tx, gr=gr, compute_dtype=compute_dtype,
+        ema_decay=ema_decay, remat_segments=remat_segments)
+
+    def run(state, xs, aug_seed, rng, rows_at):
+        k = len(xs["b0"])
+        dev = xs["targets"].device
+
+        def batch_at(i):
+            gen = augment_generator(aug_seed, int(xs["b0"][i]))
+            return aug_fn(gen, *rows_at(i), xs["targets"][i].to(dev),
+                          xs["tmask"][i].to(dev))
+
+        if _on_cuda(state):
+            return multi.captured(state, batch_at, k, rng)
+        return _eager_steps(multi.step_fn, state, batch_at, k, rng)
+
+    if images_in:
+        def fused(state, xs, aug_seed, rng=None):
+            return run(state, xs, aug_seed, rng,
+                       lambda i: (xs["v_u8"][i], xs["l_u8"][i]))
+    else:
+        def fused(state, pool_v, pool_l, xs, aug_seed, rng=None):
+            return run(state, xs, aug_seed, rng,
+                       lambda i: (pool_v, pool_l, xs["load"][i]))
+
+    fused.captured = multi.captured
+    return fused
 
 
 def make_eval_step(ir, *, compute_dtype=torch.bfloat16, folded: bool = False):

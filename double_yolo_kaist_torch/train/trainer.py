@@ -12,8 +12,13 @@ forward with kernels K1-K3, :func:`..eval.evaluator.evaluate_dataset`) ->
 package resumes the other's SGD or Adam run. Multi-scale training draws
 from a fixed set of size buckets.
 
-Not ported: ``steps_per_dispatch > 1`` (ROADMAP.md, queue 1 item 17) and
-data parallelism over several devices (item 12).
+``steps_per_dispatch = K > 1`` runs K optimizer steps a call
+(:func:`.step.make_multi_step`; on CUDA one captured graph of the step,
+replayed K times), the NaN check once a call. Where the split is resident
+(the device pool or the pinned host pool), the epoch gathers and augments
+inside that call (:meth:`Trainer._train_one_epoch_fused`), as the JAX
+package's fused epoch does. Not ported: data parallelism over several
+devices (ROADMAP.md, queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -21,10 +26,13 @@ from __future__ import annotations
 import math
 import os
 
+import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.pipeline import prefetch, train_batches
+from ..data.pipeline import (make_train_augment_fn, prefetch,
+                             select_image_pool, train_batch_plan,
+                             train_batches)
 from ..eval.evaluator import evaluate_dataset
 from ..models import graph
 from ..models import weights as W
@@ -33,16 +41,27 @@ from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import MetricLogger, ResultsWriter, TB_TAGS, make_tb_writer
 from ..utils.profiling import StepTimer
 from . import optim as OPT
-from .step import TrainState, create_train_state, make_train_step, \
-    metrics_to_host
+from .step import (TrainState, create_train_state, make_fused_multi_step,
+                   make_multi_step, make_train_step, metrics_to_host)
 
-MULTI_STEP_NOT_PORTED = (
-    "steps_per_dispatch > 1 (several optimizer steps per dispatch) is not "
-    "ported yet (ROADMAP.md, queue 1 item 17)")
 DATA_PARALLEL_NOT_PORTED = (
     "training over several devices is not ported yet (ROADMAP.md, queue 1 "
     "item 12); the port trains on one device")
 EPOCH_SEED = 123      # the JAX trainer's PRNGKey(123), folded by epoch
+
+
+def _group_batches(batches, k: int):
+    """Group k batches into one stacked batch for :func:`.step.
+    make_multi_step` (JAX trainer.py:34-47); a partial last group is
+    dropped, as ``drop_last`` drops a partial batch."""
+    group, idxs = [], []
+    for batch, idx in batches:
+        group.append(batch)
+        idxs.extend(list(idx))
+        if len(group) == k:
+            yield ({key: torch.stack([g[key] for g in group])
+                    for key in group[0]}, idxs)
+            group, idxs = [], []
 
 
 def multi_scale_buckets(img_size: int, gs: int = 32):
@@ -70,8 +89,9 @@ class Trainer:
         ``variables``: the starting weights (default ``graph.init(ir,
         seed)``)."""
         self.clahe = bool(getattr(train_dataset, "clahe", False))
-        if steps_per_dispatch > 1:
-            raise NotImplementedError(MULTI_STEP_NOT_PORTED)
+        if steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got "
+                             f"{steps_per_dispatch}")
         if data_parallel and devices is not None and len(devices) > 1:
             raise NotImplementedError(DATA_PARALLEL_NOT_PORTED)
         self.device = resolve_device(device)
@@ -106,9 +126,19 @@ class Trainer:
                                         variables=variables,
                                         device=self.device)
         self.remat_segments = remat_segments
-        self.step_fn = make_train_step(ir, self.hyp, self.tx,
-                                       compute_dtype=compute_dtype,
-                                       remat_segments=remat_segments)
+        self.steps_per_dispatch = steps_per_dispatch
+        make = make_multi_step if steps_per_dispatch > 1 else make_train_step
+        self.step_fn = make(ir, self.hyp, self.tx,
+                            compute_dtype=compute_dtype,
+                            remat_segments=remat_segments)
+        # fused K-step calls, made when a resident pool serves the epoch:
+        # one a (tier, size), sharing the step's captured graphs
+        self._fused_steps: dict = {}
+        # dropout's generator: a CUDA one that the captured steps register
+        # (reseeded each call), or a CPU one each call; None without dropout
+        self._dropout = any(n.kind == "dropout" and n.p > 0
+                            for n in ir.nodes)
+        self._cuda_rng = None
         self.start_epoch = 0
         self.best_map = 0.0
         self.results = ResultsWriter(os.path.join(self.out_dir, "results.txt"))
@@ -158,8 +188,28 @@ class Trainer:
 
     # ------------------------------------------------------------------- train
 
+    def _rng(self, seed: int, i: int):
+        """Dropout's generator for call ``i`` of the epoch seeded ``seed``."""
+        if not self._dropout:
+            return None
+        s = seed * 1_000_003 + i
+        if self.device.type != "cuda":
+            return torch.Generator().manual_seed(s)
+        if self._cuda_rng is None:
+            self._cuda_rng = torch.Generator(device=self.device)
+        return self._cuda_rng.manual_seed(s)
+
     def train_one_epoch(self, epoch: int, print_freq: int = 50):
         seed = EPOCH_SEED * 1_000_003 + epoch
+        K = self.steps_per_dispatch
+        if K > 1:
+            src_hw = tuple(int(x)
+                           for x in self.train_dataset.shapes[0][::-1])
+            tier, pool = select_image_pool(self.train_dataset, src_hw,
+                                           self.device_cache, self.device)
+            if tier is not None:
+                return self._train_one_epoch_fused(epoch, seed, tier, pool,
+                                                   print_freq)
         logger = MetricLogger(print_freq=print_freq)
         timer = StepTimer()
         sizes = (multi_scale_buckets(self.img_size) if self.multi_scale
@@ -168,18 +218,110 @@ class Trainer:
             self.train_dataset, self.batch_size, seed, img_size=sizes,
             hyp=self.hyp, snowflake=self.snowflake, clahe=self.clahe,
             seed_epoch=epoch, device_cache=self.device_cache,
-            device=self.device))
+            # K stacked batches share one shape: the multi-scale bucket is
+            # drawn once a group
+            size_every=K, device=self.device))
+        if K > 1:
+            batches = _group_batches(batches, K)
         last = {}
         for i, (batch, idx) in logger.log_every(batches, f"epoch {epoch}"):
             timer.data_ready()
-            rng = torch.Generator().manual_seed(seed * 1_000_003 + i)
-            self.state, metrics = self.step_fn(self.state, batch, rng)
-            last = metrics_to_host(metrics)
+            self.state, metrics = self.step_fn(self.state, batch,
+                                               self._rng(seed, i))
+            last = self._check(metrics, epoch, i, idx)
             timer.step_done()
-            if not math.isfinite(last["loss"]):
-                raise FloatingPointError(
-                    f"non-finite loss at epoch {epoch} step {i}: {last} "
-                    f"(images {[self.train_dataset.img_files[j] for j in idx]})")
+            logger.update(**last)
+        lr = float(self.schedule(self.state.step))
+        print(f"epoch {epoch} timing: {timer.summary()}", flush=True)
+        return last, lr
+
+    def _check(self, metrics, epoch: int, i: int, idx) -> dict:
+        """The call's last metrics on the host (one fetch), raising on a
+        non-finite loss."""
+        last = metrics_to_host(metrics)
+        if not math.isfinite(last["loss"]):
+            raise FloatingPointError(
+                f"non-finite loss at epoch {epoch} call {i}: {last} "
+                f"(images {[self.train_dataset.img_files[j] for j in idx]})")
+        return last
+
+    def _fused_for(self, tier: str, size: int):
+        key = (tier, size)
+        if key not in self._fused_steps:
+            src_hw = tuple(int(x)
+                           for x in self.train_dataset.shapes[0][::-1])
+            aug = make_train_augment_fn(src_hw, size, self.hyp,
+                                        snowflake=self.snowflake,
+                                        clahe=self.clahe,
+                                        from_pool=tier == "hbm")
+            # every size and tier shares the step's graphs and their pool
+            self._fused_steps[key] = make_fused_multi_step(
+                self.ir, self.hyp, self.tx, aug,
+                compute_dtype=self.compute_dtype,
+                remat_segments=self.remat_segments, images_in=tier != "hbm",
+                multi_step=self.step_fn)
+        return self._fused_steps[key]
+
+    def _train_one_epoch_fused(self, epoch: int, seed: int, tier: str, pool,
+                               print_freq: int = 50):
+        """The epoch over fused K-step calls (JAX trainer.py:241-357): the
+        host plans each group of K batches (indices, mosaic partners,
+        padded labels, one size a group, :func:`..data.pipeline.
+        train_batch_plan` with ``size_every=K``); each call gathers the
+        rows (from the device pool inside it, or, on the pinned host tier,
+        one two-stream gather of the group's rows right before it),
+        augments and steps K times. The augment generators are seeded as
+        ``train_batches`` seeds them, so the epoch equals the unfused
+        one."""
+        ds = self.train_dataset
+        K = self.steps_per_dispatch
+        sizes = (multi_scale_buckets(self.img_size) if self.multi_scale
+                 else [self.img_size])
+        dev = self.device
+
+        def groups():
+            buf = []
+            for b0, idx, load, t, m, size in train_batch_plan(
+                    ds, self.batch_size, sizes, seed_epoch=epoch,
+                    size_every=K):
+                buf.append((b0, idx, load, t, m))
+                if len(buf) == K:
+                    # size_every=K draws the bucket at group boundaries, so
+                    # the K batches share ``size``
+                    xs = {"b0": [int(b[0]) for b in buf],
+                          "targets": torch.from_numpy(
+                              np.stack([b[3] for b in buf])).to(dev),
+                          "tmask": torch.from_numpy(
+                              np.stack([b[4] for b in buf])).to(dev),
+                          "load": np.stack([b[2] for b in buf])}
+                    yield xs, np.concatenate([b[1] for b in buf]), size
+                    buf = []
+
+        logger = MetricLogger(print_freq=print_freq)
+        timer = StepTimer()
+        last = {}
+        for i, (xs, idx, size) in logger.log_every(groups(),
+                                                   f"epoch {epoch}"):
+            load = xs.pop("load")
+            if tier == "hbm":
+                xs["load"] = torch.from_numpy(load).long().to(dev)
+            else:
+                # one two-stream gather for the whole call; (K * 4B, H, W,
+                # 3) -> (K, 4B, ...)
+                hp_v, hp_l, hgather = pool
+                rows_v, rows_l = hgather((hp_v, hp_l), load.reshape(-1))
+                xs["v_u8"] = rows_v.reshape(load.shape + hp_v.shape[1:])
+                xs["l_u8"] = rows_l.reshape(load.shape + hp_l.shape[1:])
+            timer.data_ready()
+            step_fn = self._fused_for(tier, size)
+            rng = self._rng(seed, i)
+            if tier == "hbm":
+                self.state, metrics = step_fn(self.state, pool[0], pool[1],
+                                              xs, seed, rng)
+            else:
+                self.state, metrics = step_fn(self.state, xs, seed, rng)
+            last = self._check(metrics, epoch, i, idx)
+            timer.step_done()
             logger.update(**last)
         lr = float(self.schedule(self.state.step))
         print(f"epoch {epoch} timing: {timer.summary()}", flush=True)

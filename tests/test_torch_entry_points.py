@@ -335,9 +335,8 @@ def test_bench_new_int8_modes(capsys, mode):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--exported", "a.dykx"], "item 13"),
     (["--cfg", MNV3_NAME, "--dp", "2"], "item 12")],
-    ids=["argv0-item 13", "argv2-item 12"])     # the ids they always had
+    ids=["argv2-item 12"])     # the id it always had
 def test_serve_refuses_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         TSV.main(argv + ["--device", "cpu"])
@@ -409,6 +408,44 @@ def test_serve_int8_qvars(monkeypatch, tmp_path):
                                    for a in argv])
 
 
-def test_bench_refuses_check_ap():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TB.main(["--check-ap", "--device", "cpu"])
+def test_bench_check_ap(capsys):
+    """``bench --check-ap`` on the CPU: the overfit check's 60 epochs pass
+    its gates (AP@0.5 > 0.5, every int8 mode within its bound) and the
+    JSON line reports them."""
+    TB.main(["--check-ap", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "OVERFIT CHECK PASSED" in out and "INT8 AP GATE PASSED" in out
+    res = json.loads(out.strip().splitlines()[-1])
+    assert res["value"] > 0.5 and res["vs_baseline"] > 1.0
+    assert res["int8_worst_ap"] >= res["value"] - 0.15
+    assert res["unit"] == "AP" and res["device"] == "cpu"
+
+
+def test_serve_exported(monkeypatch, tmp_path, capsys):
+    """``serve --exported`` (the tiny cfg exported on the CPU at batch 2):
+    it serves an ExportedPredictor that answers as the Predictor it was
+    exported from, prints which baked-in flags it ignores, and refuses
+    ``--int8``."""
+    from double_yolo_kaist_torch.export import ExportedPredictor
+    from double_yolo_kaist_torch.export_model import main as export_main
+
+    path = str(tmp_path / "tiny.zip")
+    export_main(["--cfg", TINY, "--img-size", "64", "--src-hw", "64", "96",
+                 "--batch", "2", "--out", path, "--device", "cpu"])
+    assert "wrote" in capsys.readouterr().out
+    pred = _serve_built(monkeypatch, ["--exported", path, "--weights",
+                                      "ignored", "--img-size", "320"])
+    out = capsys.readouterr().out
+    assert "# --exported: ignoring --weights, --img-size" in out
+    assert isinstance(pred, ExportedPredictor)
+    ir, variables = TC.build_model(TINY)
+    ref = Predictor(ir, variables, img_size=64, batch_buckets=(2,),
+                    device="cpu")
+    frames = np.random.default_rng(5).integers(0, 256, (3, 64, 96, 3),
+                                               dtype=np.uint8)
+    for (b, s, c), (rb, rs, rc) in zip(pred(frames), ref(frames)):
+        np.testing.assert_array_equal(b, rb)
+        np.testing.assert_array_equal(s, rs)
+        np.testing.assert_array_equal(c, rc)
+    with pytest.raises(SystemExit, match="bakes precision"):
+        TSV.main(["--exported", path, "--int8", "--device", "cpu"])

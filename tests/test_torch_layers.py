@@ -15,6 +15,7 @@ from double_yolo_kaist_torch.config.ir import compile_blocks
 from double_yolo_kaist_torch.models import graph as TG
 from double_yolo_kaist_torch.models import layers as TL
 from double_yolo_kaist_torch.models.weights import from_jax_variables
+from double_yolo_kaist_torch.ops import act as TA
 
 JL.set_precision("highest")
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -39,10 +40,10 @@ def _x(shape=(2, 9, 11, 8), seed=0, scale=3.0):
 
 @pytest.mark.parametrize("name", sorted(JL.ACTIVATIONS))
 def test_activation(name):
-    assert set(TL.ACTIVATIONS) == set(JL.ACTIVATIONS)
+    assert set(TA.ACTIVATIONS) == set(JL.ACTIVATIONS)
     x = _x(scale=6.0)
     ref = np.asarray(JL.activate(name, jnp.asarray(x)))
-    mine = _nhwc(TL.activate(name, _nchw(x)))
+    mine = _nhwc(TA.activate(name, _nchw(x)))
     np.testing.assert_allclose(mine, ref, **TOL)
 
 

@@ -1,5 +1,6 @@
-"""MicroBatcher: cross-request coalescing, the port's ``serving.MicroBatcher``
-and ``QueueFull`` against the JAX package's.
+"""MicroBatcher: cross-request coalescing, the port's
+``microbatch.MicroBatcher`` and ``QueueFull`` against the JAX package's
+``serving`` ones.
 
 Every case of ``tests/test_microbatch.py`` runs here on both classes, each
 over the same fake predictor, so that the port keeps the JAX semantics:
@@ -18,14 +19,14 @@ import numpy as np
 import pytest
 
 from double_yolo_kaist_tpu import serving as JS
-from double_yolo_kaist_torch import serving as TS
+from double_yolo_kaist_torch import microbatch as TS
 
 IMPLS = {"jax": JS, "torch": TS}
 
 
 @pytest.fixture(params=sorted(IMPLS))
 def impl(request):
-    """The serving module under test: ``MicroBatcher`` and ``QueueFull``."""
+    """The module under test: ``MicroBatcher`` and ``QueueFull``."""
     return IMPLS[request.param]
 
 class FakePredictor:
