@@ -152,9 +152,33 @@ result line):
      (and K3 on the flagship), beside ``python -m
      double_yolo_kaist_torch.bench --check-ap``, which must exit 0 with
      its fp and int8 gates passed (``_check_ap``).
+ 16. slice 10 (``--only dp`` runs it alone): data parallelism on the one
+     card. (a) The flagship at full width, bf16 and int8 chain (both from
+     phase 15's quantized artifact), on the mesh [cuda:0, cuda:0] at
+     bucket 8: requests of 1, 3 and 8 frames bit-equal to one Predictor
+     at bucket 4 on each half, K1 and K2 twice, K3 four times and K4
+     twenty times (int8) a request; request ms of both. (b)
+     ``evaluate_dataset(mesh=)`` of MNv3 on phase 9's split: in fp32 the
+     single run's metrics within 1e-3 at batch 32, in bf16 its
+     predictions bit for bit against the single run at batch 16 (the
+     replicas' shape). (c) Two
+     gloo ranks on cuda:0, spawned: MNv3 (fixture weights) float64, 2 SGD
+     steps at a global bs 4 of 128x160, each rank within 1e-9 relative of
+     one process at bs 4 on the card; the flagship bf16 at a global bs 8
+     of 512x512, two ranks of 4: step ms, the gradient all-reduce's ms,
+     peak GiB a rank (one card: not a scaling number). (d) NCCL at world
+     size 1 in this process: phase 15's captured K = 4 steps (SGD) with
+     the all-reduce inside the graph bit-equal to eager steps; MNv3's bf16
+     K = 4 dispatch with the group against phase 15's without. (e)
+     ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+     double_yolo_kaist_torch.train`` (DYK_DISTRIBUTED=1) one epoch; ``serve
+     --dp 2`` exits naming the one card; ``serve --dp 1`` answers as the
+     in-process Predictor; the two gloo ranks run ``Trainer.fit`` for an
+     epoch of 8 pairs: rank 0 alone writes, equal params, the same
+     in-train mAP, K1 and K2 launched by each rank's evaluation.
 ``python3 chip_smoke.py --only train`` runs phases 12 and 13 alone,
-``--only int8aug`` phases 8 and 14, ``--only slice9`` phase 15 (no result
-line). After each phase the
+``--only int8aug`` phases 8 and 14, ``--only slice9`` phase 15, ``--only
+dp`` phase 16 (no result line). After each phase the
 script prints its elapsed time. Then a JSON line of
 kernel numbers, the nvidia-smi line, and last {"ok": true, "device":
 {...}}.
@@ -3032,11 +3056,15 @@ EXPORT_HW = (512, 640)
 EXPORT_BS = 8
 
 
-def _captured_equals_eager(torch, dev, mnv3_ir, mnv3_vars):
+def _captured_equals_eager(torch, dev, mnv3_ir, mnv3_vars, group=None,
+                           optimizers=(("SGD", True, 1), ("Adam", False, 1),
+                                       ("Adam accumulate=2", False, 2))):
     """MNv3 (fixture weights), fp32, bs 2, 128x160: K_STEPS steps replayed
     from one captured graph against K_STEPS eager steps from the same
     state and batches, with SGD, Adam and Adam over accumulate=2 (EMA on):
-    params, BN state, optimizer state, EMA and metrics bit for bit."""
+    params, BN state, optimizer state, EMA and metrics bit for bit.
+    ``group``: the steps' data-parallel group (phase 16: NCCL, its
+    collectives captured in the graph)."""
     from double_yolo_kaist_torch.train import optim as OPT
     from double_yolo_kaist_torch.train import step as ST
     from double_yolo_kaist_torch.utils.general import deterministic
@@ -3046,8 +3074,7 @@ def _captured_equals_eager(torch, dev, mnv3_ir, mnv3_vars):
     stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
     out = {}
     with deterministic():
-        for name, sgd, acc in (("SGD", True, 1), ("Adam", False, 1),
-                               ("Adam accumulate=2", False, 2)):
+        for name, sgd, acc in optimizers:
             runs = []
             for captured in (False, True):
                 sched = OPT.cosine_epoch_schedule(TRAIN_LR, 0.1, 3, 2)
@@ -3056,7 +3083,8 @@ def _captured_equals_eager(torch, dev, mnv3_ir, mnv3_vars):
                 st = ST.create_train_state(mnv3_ir, SEED, tx, ema=True,
                                            variables=mnv3_vars, device=dev)
                 multi = ST.make_multi_step(mnv3_ir, TRAIN_HYP, tx,
-                                           compute_dtype=torch.float32)
+                                           compute_dtype=torch.float32,
+                                           group=group)
                 if captured:
                     st, m = multi(st, stacked)
                     if multi.captured.replays != K_STEPS:
@@ -3076,15 +3104,17 @@ def _captured_equals_eager(torch, dev, mnv3_ir, mnv3_vars):
                 raise AssertionError(f"captured {name} steps differ from "
                                      f"eager: {out[name]}")
     print(f"captured K={K_STEPS} steps equal eager steps (MNv3 fp32, "
-          f"deterministic): {json.dumps(out)}", flush=True)
+          f"deterministic{', NCCL group' if group else ''}): "
+          f"{json.dumps(out)}", flush=True)
     return out
 
 
-def _ab_run(torch, ir, variables, dev, k):
+def _ab_run(torch, ir, variables, dev, k, group=None):
     """bf16 Adam at bs TRAIN_BS, TRAIN_HW^2 on K_STEPS fixed batches: K=1
     eager steps, or K=k steps a dispatch replayed from one captured graph.
     Step ms = median dispatch ms / k (host clock; the metrics' fetch
-    synchronises), images/s, device busy ms a step, peak memory."""
+    synchronises), images/s, device busy ms a step, peak memory.
+    ``group``: the steps' data-parallel group (phase 16)."""
     from double_yolo_kaist_torch.train import optim as OPT
     from double_yolo_kaist_torch.train import step as ST
     rng = np.random.default_rng(SEED + 16)
@@ -3109,7 +3139,7 @@ def _ab_run(torch, ir, variables, dev, k):
         n_warm, n_timed = AB_WARMUP * K_STEPS, AB_TIMED * K_STEPS
     else:
         fn = ST.make_multi_step(ir, TRAIN_HYP, tx,
-                                compute_dtype=torch.bfloat16)
+                                compute_dtype=torch.bfloat16, group=group)
 
         def one():
             state[0], m = fn(state[0], stacked)
@@ -3598,7 +3628,7 @@ def phase_slice9(torch, dev, launches, mnv3_ir, flagship_ir, root):
     artifact is held and timed against its Predictor; last, the artifacts
     load in a fresh process with no model code while ``serve --exported``
     answers. Needs phase 9's split and checkpoint under ``root``. Returns
-    the main-path launch counts of its runs."""
+    the main-path launch counts of its runs and its numbers."""
     from double_yolo_kaist_torch.models import weights
     t_phase = time.perf_counter()
     mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
@@ -3638,7 +3668,617 @@ def phase_slice9(torch, dev, launches, mnv3_ir, flagship_ir, root):
                              "than the artifact in process")
     print("slice9 numbers: " + json.dumps(numbers), flush=True)
     print(f"phase 15 in {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return counts
+    return counts, numbers
+
+
+# ----------------------------------------------------------- phase 16: dp
+
+DP_MESH_BS = 8                # the mesh's bucket: two replicas of 4
+DP_F64_HW = (128, 160)        # the two-rank float64 step, MNv3, bs 4
+DP_F64_BOUND = 1e-9           # relative, float64 summed in other orders
+DP_TRAIN_PAIRS = 8            # the two ranks' Trainer split
+DP_TIMEOUT = 600
+
+
+def _dp_mesh_serving(torch, dev, launches, flagship_ir, fvars, qpath):
+    """(a) The flagship at full width, bf16 and int8 chain (both sides
+    from one quantized artifact), on the mesh [cuda:0, cuda:0] at bucket
+    8: requests of 1, 3 and 8 frames bit-equal to a single-device
+    Predictor at bucket 4 on each half, K1-K4 launched by each replica;
+    the request ms of both. Returns the launch counts of the mesh runs."""
+    from double_yolo_kaist_torch.parallel import mesh as M
+    from double_yolo_kaist_torch.serving import Predictor
+    mesh = M.make_mesh([dev, dev])
+    rng = np.random.default_rng(SEED + 160)
+    frames = {n: (rng.integers(0, 256, (n, 512, 640, 3), dtype=np.uint8),
+                  rng.integers(0, 256, (n, 512, 640, 3), dtype=np.uint8))
+              for n in (1, 3, 8)}
+    n_heads = len(flagship_ir.yolo_indices)
+    half = DP_MESH_BS // 2
+    counts, numbers = {}, {}
+    for label, kw, per in (
+            ("bf16", {}, {"qgemm": 0}),
+            ("int8 chain", {"int8": True, "quantized": qpath},
+             {"qgemm": 20})):
+        single = Predictor(flagship_ir, fvars, img_size=640, device=dev,
+                           batch_buckets=(half,), **kw)
+        meshed = Predictor(flagship_ir, fvars, img_size=640, mesh=mesh,
+                           batch_buckets=(DP_MESH_BS,), **kw)
+        if meshed.batch_buckets != [DP_MESH_BS]:
+            raise AssertionError(f"mesh buckets {meshed.batch_buckets}")
+        if kw and (single.qvars is None or meshed.qvars is None):
+            raise AssertionError("an int8 Predictor did not load its "
+                                 "artifact")
+        # the first request of a bucket captures its graphs (an eager run
+        # each): not counted
+        meshed(*frames[8])
+        single(*frames[8])
+        torch.cuda.synchronize()
+        want = dict(per, stem_conv_s2=4, decode_head=2, nms_indices=2)
+        launches.clear()                   # the mesh path's run
+        outs = {n: _serve(torch, meshed, frames, launches, n, want, n_heads)
+                for n in (1, 3, 8)}
+        counts[f"dp mesh {label}"] = dict(launches)   # read just after it
+        for n, got in outs.items():
+            v, l = frames[n]
+            ref = single(v[:half], l[:half])
+            if n > half:
+                ref += single(v[half:], l[half:])
+            for i, ((b, s, c), (rb, rs, rc)) in enumerate(zip(got, ref)):
+                if not (np.array_equal(b, rb) and np.array_equal(s, rs)
+                        and np.array_equal(c, rc)):
+                    raise AssertionError(f"mesh {label}: frame {i} of a "
+                                         f"request of {n} differs from the "
+                                         f"single-device half")
+        for n in (1, 8):
+            for name, pred in (("mesh", meshed), ("single", single)):
+                ts = []
+                for _ in range(12):
+                    t0 = time.perf_counter()
+                    pred(*frames[n])
+                    torch.cuda.synchronize()
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                numbers[f"{label} {name} request of {n} ms"] = {
+                    "median": statistics.median(ts), "min": min(ts),
+                    "max": max(ts)}
+        del single, meshed
+        torch.cuda.empty_cache()
+    print(f"dp (a) mesh [cuda:0, cuda:0] at bucket {DP_MESH_BS} (two "
+          f"replicas of {half}) against one Predictor at bucket {half}, "
+          f"flagship 512x640: bit-equal; request ms {json.dumps(numbers)}",
+          flush=True)
+    return counts, numbers
+
+
+def _dp_mesh_eval(torch, dev, launches, mnv3_ir, root):
+    """(b) evaluate_dataset(mesh=) of MNv3 (fixture weights) on phase 9's
+    split. bf16: at batch EVAL_BS its predictions equal, bit for bit,
+    those of the single-device run at EVAL_BS / 2, the replicas' shape.
+    fp32 (TF32 off): at batch EVAL_BS its metrics are within 1e-3 of the
+    single-device run's at EVAL_BS (in bf16, cuDNN's kernels for the
+    replicas' batch of 16 and the single run's 32 differ, and the AP with
+    them: their difference is printed)."""
+    from double_yolo_kaist_torch.data.dataset import KaistDataset
+    from double_yolo_kaist_torch.eval.evaluator import evaluate_dataset
+    from double_yolo_kaist_torch.models import weights
+    from double_yolo_kaist_torch.parallel import mesh as M
+    mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
+    split = os.path.join(root, "eval80.txt")
+    mesh = M.make_mesh([dev, dev])
+
+    def run(bs, dtype, mesh=None):
+        ds = KaistDataset(split, EVAL_IMG, bs, rect=True)
+        kw = {"device": dev} if mesh is None else {"mesh": mesh}
+        return evaluate_dataset(mnv3_ir, mnv3_vars, ds, batch_size=bs,
+                                compute_dtype=dtype, **kw)
+
+    def metric_diff(a, b):
+        return max(abs(a["ap"] - b["ap"]), abs(a["lamr"] - b["lamr"]),
+                   float(np.abs(np.asarray(a["coco_stats"])
+                                - np.asarray(b["coco_stats"])).max()))
+
+    half = run(EVAL_BS // 2, torch.bfloat16)
+    single = run(EVAL_BS, torch.bfloat16)
+    launches.clear()                       # the mesh evaluation's run
+    meshed = run(EVAL_BS, torch.bfloat16, mesh)
+    counts = dict(launches)                # read just after it
+    batches = -(-EVAL_FRAMES // EVAL_BS)
+    if counts.get("decode_head") != 2 * batches or \
+            counts.get("nms_indices") != 2 * batches:
+        raise AssertionError(f"mesh eval: {batches} batches on 2 replicas "
+                             f"launched {counts}")
+    same = set(meshed["predictions"]) == set(half["predictions"]) and all(
+        np.array_equal(meshed["predictions"][k][0], half["predictions"][k][0])
+        and np.array_equal(meshed["predictions"][k][1],
+                           half["predictions"][k][1])
+        for k in half["predictions"])
+    with _NoTF32(torch):
+        f32 = run(EVAL_BS, torch.float32)
+        f32_mesh = run(EVAL_BS, torch.float32, mesh)
+    d32, d16 = metric_diff(f32_mesh, f32), metric_diff(meshed, single)
+    print(f"dp (b) mesh eval of MNv3 on {EVAL_FRAMES} pairs, batch "
+          f"{EVAL_BS} on two replicas: bf16 predictions equal to the single "
+          f"run at batch {EVAL_BS // 2}: {same}; fp32 AP {f32_mesh['ap']:.6f} "
+          f"(single {f32['ap']:.6f}), max metric diff {d32:.2e} (bound "
+          f"1e-3); bf16 against the single run at batch {EVAL_BS}: max "
+          f"metric diff {d16:.2e}; launches {counts}; bf16 fps mesh "
+          f"{meshed['fps']:.1f}, single {single['fps']:.1f}", flush=True)
+    if d32 > 1e-3 or not same:
+        raise AssertionError("the mesh evaluation differs from the "
+                             "single-device one")
+    return counts, {"fp32_max_metric_diff": d32,
+                    "bf16_max_metric_diff_other_shape": d16,
+                    "ap": meshed["ap"], "fps_mesh": meshed["fps"],
+                    "fps_single": single["fps"]}
+
+
+def _dp_f64_steps(torch, dev, ir, variables, group, rank, ranks):
+    """Two SGD steps of MNv3 in float64 (params, state and optimizer too)
+    at a global batch of 4, DP_F64_HW, on the rank's rows, under
+    deterministic algorithms (a run repeats: train-mode BN over so few
+    cells amplifies float64 rounding to ~1e-9); the metrics and the final
+    state's leaves as numpy arrays."""
+    from double_yolo_kaist_torch.train import optim as OPT
+    from double_yolo_kaist_torch.train import step as ST
+    from double_yolo_kaist_torch.utils import tree as TR
+    from double_yolo_kaist_torch.utils.general import deterministic
+    v = TR.map_leaves(lambda t: t.to(dev, torch.float64), variables)
+    params = TR.map_leaves(lambda p: p.clone().requires_grad_(True),
+                           v["params"])
+    tx = OPT.make_optimizer(TRAIN_HYP, OPT.cosine_epoch_schedule(
+        TRAIN_LR, 0.1, 3, 2), sgd=True)
+    st = ST.TrainState(params, v["state"], tx.init(params), 0, None)
+    step = ST.make_train_step(ir, TRAIN_HYP, tx, compute_dtype=torch.float64,
+                              group=group)
+    rng = np.random.default_rng(SEED + 161)
+    out = {}
+    n = 4 // ranks
+    for i in range(2):
+        batch = _train_batch(torch, rng, 4, DP_F64_HW, dev)
+        with deterministic():
+            st, m = step(st, {k: x[rank * n:(rank + 1) * n]
+                              for k, x in batch.items()})
+        for k, x in m.items():
+            out[f"step{i} {k}"] = x.detach().double().cpu().numpy()
+    for j, t in enumerate(ST._state_leaves(st)):
+        out[f"leaf {j:04d}"] = t.detach().double().cpu().numpy()
+    return out
+
+
+def _dp_flagship_steps(torch, dev, flagship_ir, group, rank, ranks):
+    """The flagship at full width, bf16 Adam, a global batch of TRAIN_BS
+    at TRAIN_HW^2 over the ranks: step ms (host clock, the metrics'
+    fetch synchronises), the ms of one all-reduce of the gradients' flat
+    buffer, the peak memory, and a digest of the params."""
+    import hashlib
+
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.train import optim as OPT
+    from double_yolo_kaist_torch.train import step as ST
+    from double_yolo_kaist_torch.utils import tree as TR
+    torch.cuda.reset_peak_memory_stats(dev)
+    tx = OPT.make_optimizer(TRAIN_HYP, lambda c: torch.tensor(TRAIN_LR))
+    st = ST.create_train_state(flagship_ir, SEED, tx, device=dev,
+                               variables=graph.init(flagship_ir, SEED))
+    step = ST.make_train_step(flagship_ir, TRAIN_HYP, tx,
+                              compute_dtype=torch.bfloat16, group=group)
+    rng = np.random.default_rng(SEED + 162)
+    batch = _train_batch(torch, rng, TRAIN_BS, (TRAIN_HW, TRAIN_HW), dev)
+    n = TRAIN_BS // ranks
+    mine = {k: x[rank * n:(rank + 1) * n] for k, x in batch.items()}
+    ms, losses = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        st, m = step(st, mine)
+        m = ST.metrics_to_host(m)
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    flat = torch.zeros(sum(p.numel() for p in TR.leaves(st.params)),
+                       device=dev)
+    ar = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(flat, group=group)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    digest = hashlib.sha256()
+    for p in TR.leaves(st.params):
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return {"step_ms_median": statistics.median(ms), "step_ms_min": min(ms),
+            "step_ms_max": max(ms),
+            "allreduce_ms_median": statistics.median(ar[1:]),
+            "grad_floats": flat.numel(),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "losses": losses, "params_sha256": digest.hexdigest()}
+
+
+def _dp_trainer(torch, dev, mnv3_ir, root, rank):
+    """``Trainer.fit`` of MNv3 (phase 9's checkpoint) for one epoch of
+    DP_TRAIN_PAIRS pairs of phase 9's split at a global batch of 4 under
+    the group; rank r writes into ``root/dp_runs/r<r>``. Returns the
+    kernels launched in the fit, the params' digest and the in-train
+    mAP."""
+    import hashlib
+
+    from double_yolo_kaist_torch.common import DEFAULT_HYP
+    from double_yolo_kaist_torch.config.parser import load_hyp
+    from double_yolo_kaist_torch.data.dataset import KaistDataset
+    from double_yolo_kaist_torch.models import weights
+    from double_yolo_kaist_torch.ops import _build
+    from double_yolo_kaist_torch.train.trainer import Trainer
+    from double_yolo_kaist_torch.utils import tree as TR
+    split = os.path.join(root, "dp8.txt")
+    hyp = load_hyp(DEFAULT_HYP)
+    hyp["cls"] *= 1 / 80.0
+    hyp["obj"] *= TRAIN_HW / 320.0
+    tr = Trainer(mnv3_ir, hyp, epochs=1, batch_size=4, img_size=TRAIN_HW,
+                 train_dataset=KaistDataset(split, TRAIN_HW, 4, augment=True,
+                                            hyp=hyp),
+                 val_dataset=KaistDataset(split, TRAIN_HW, 4, hyp=hyp,
+                                          rect=True),
+                 device=dev, out_dir=os.path.join(root, "dp_runs"),
+                 name=f"r{rank}",
+                 variables=weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ))
+    if tr.ranks != 2 or tr.rank != rank:
+        raise AssertionError(f"Trainer saw {tr.ranks} ranks, rank {tr.rank}")
+    _build.launches.clear()                # the rank's fit
+    best = tr.fit()
+    launched = dict(_build.launches)       # read just after it
+    digest = hashlib.sha256()
+    for p in TR.leaves(tr.state.params):
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return {"launches": launched, "params_sha256": digest.hexdigest(),
+            "best_map": best}
+
+
+def _dp_rank_main(rank: int, root: str) -> None:
+    """One of the two gloo ranks of phase 16 (c) and (e), on cuda:0; its
+    results go to ``root/dp_rank<r>.json`` and ``.npz``."""
+    import torch
+
+    from double_yolo_kaist_torch.config.ir import compile_cfg
+    from double_yolo_kaist_torch.models import weights
+    from double_yolo_kaist_torch.parallel import multihost as MH
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    MH.maybe_initialize_distributed(
+        coordinator=f"file://{os.path.join(root, 'gloo_rendezvous')}",
+        num_processes=2, process_id=rank, backend="gloo")
+    group = MH.data_group()
+    mnv3_ir = compile_cfg(MNV3_CFG)
+    f64 = _dp_f64_steps(torch, dev, mnv3_ir,
+                        weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ),
+                        group, rank, 2)
+    np.savez(os.path.join(root, f"dp_rank{rank}.npz"), **f64)
+    out = {"flagship": _dp_flagship_steps(torch, dev,
+                                          compile_cfg(FLAGSHIP_CFG), group,
+                                          rank, 2)}
+    torch.cuda.empty_cache()
+    out["trainer"] = _dp_trainer(torch, dev, mnv3_ir, root, rank)
+    with open(os.path.join(root, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _dp_spawn_ranks(root):
+    """Start the two gloo ranks of (c) and (e) (:func:`_dp_rank_main`),
+    their output to ``root/dp_rank<r>.log``."""
+    code = ("import sys; import chip_smoke; "
+            "chip_smoke._dp_rank_main(int(sys.argv[1]), sys.argv[2])")
+    procs = []
+    for r in range(2):
+        with open(os.path.join(root, f"dp_rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(r), root], cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=ROOT), stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs
+
+
+def _dp_two_ranks(torch, dev, mnv3_ir, root, procs):
+    """(c) and (e): the two gloo ranks on cuda:0 (``procs``), held against
+    one process at the whole batch on the card (float64 MNv3 steps, run
+    here while they run), each other (params) and what they wrote. Every
+    rank has ended when this returns."""
+    from double_yolo_kaist_torch.models import weights
+    try:
+        one = _dp_f64_steps(torch, dev, mnv3_ir,
+                            weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ),
+                            None, 0, 1)
+        for p in procs:
+            p.wait(timeout=DP_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(root, f"dp_rank{r}.log")) as f:
+                text = f.read()
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+    # relative as _leaf_err takes it: ||a - b|| / ||b|| an array; the
+    # largest element error over the array's largest magnitude beside it
+    worst, worst_el = (0.0, ""), (0.0, "")
+    for r in range(2):
+        with np.load(os.path.join(root, f"dp_rank{r}.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        if sorted(got) != sorted(one):
+            raise AssertionError("the ranks' float64 results have other "
+                                 "keys than one process's")
+        for k, want in one.items():
+            if not np.abs(want).max(initial=0.0) > 0:
+                continue
+            rel = float(np.linalg.norm(got[k] - want) / np.linalg.norm(want))
+            el = float(np.abs(got[k] - want).max() / np.abs(want).max())
+            worst = max(worst, (rel, f"rank {r} {k}"))
+            worst_el = max(worst_el, (el, f"rank {r} {k}"))
+    print(f"dp (c) two gloo ranks on cuda:0 (MNv3 fixture weights, "
+          f"float64, global bs 4 at {DP_F64_HW[0]}x{DP_F64_HW[1]}, 2 SGD "
+          f"steps) against one process at bs 4 on the card, {len(one)} "
+          f"arrays: worst relative error {worst[0]:.3e} ({worst[1]}; bound "
+          f"{DP_F64_BOUND}); worst element over the array's largest "
+          f"{worst_el[0]:.3e} ({worst_el[1]})", flush=True)
+    failed = [] if worst[0] <= DP_F64_BOUND else [
+        "two gloo ranks disagree with one process"]
+    res = []
+    for r in range(2):
+        with open(os.path.join(root, f"dp_rank{r}.json")) as f:
+            res.append(json.load(f))
+    fl = [x["flagship"] for x in res]
+    print("dp (c) flagship bf16, global bs 8 at 512x512 over two gloo "
+          "ranks of 4 on ONE card (a correctness run, not a scaling "
+          "number): " + json.dumps(fl), flush=True)
+    if fl[0]["params_sha256"] != fl[1]["params_sha256"] or not all(
+            np.isfinite(x["losses"]).all() for x in fl):
+        raise AssertionError("the flagship's ranks diverged")
+    tr = [x["trainer"] for x in res]
+    runs = os.path.join(root, "dp_runs")
+    wrote = {r: sorted(os.listdir(os.path.join(runs, f"r{r}")))
+             for r in range(2)}
+    print(f"dp (e) Trainer.fit under two gloo ranks, MNv3, "
+          f"{DP_TRAIN_PAIRS} pairs, one epoch: {json.dumps(tr)}; files "
+          f"written {wrote}", flush=True)
+    if tr[0]["params_sha256"] != tr[1]["params_sha256"]:
+        raise AssertionError("the Trainer's ranks hold other params")
+    if tr[0]["best_map"] != tr[1]["best_map"]:
+        raise AssertionError("the ranks report other in-train mAPs")
+    if not {"last", "results.txt"} <= set(wrote[0]) or {
+            "last", "results.txt", "best"} & set(wrote[1]):
+        raise AssertionError(f"rank 0 alone must write: {wrote}")
+    for r, x in enumerate(tr):
+        if not (x["launches"].get("decode_head", 0) > 0
+                and x["launches"].get("nms_indices", 0) > 0):
+            raise AssertionError(f"rank {r}'s in-train evaluation launched "
+                                 f"{x['launches']}")
+    if failed:
+        raise AssertionError(failed[0])
+    return {f"dp trainer rank {r}": x["launches"]
+            for r, x in enumerate(tr)}, {"flagship": fl, "trainer": tr,
+                                         "f64_worst_rel": worst[0],
+                                         "f64_worst_element": worst_el[0]}
+
+
+def _dp_nccl(torch, dev, mnv3_ir, ab_without):
+    """(d) NCCL with world size 1 in this process: K_STEPS captured steps
+    with the gradient all-reduce in the graph equal K_STEPS eager steps
+    (phase 15's check, with the group); the K_STEPS dispatch of MNv3 bf16
+    with the group against phase 15's without one (``ab_without``, or
+    timed here)."""
+    from double_yolo_kaist_torch.models import weights
+    dist = torch.distributed
+    mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        # one optimizer: the group's collectives are the same in each
+        equal = _captured_equals_eager(torch, dev, mnv3_ir, mnv3_vars,
+                                       group=group,
+                                       optimizers=(("SGD", True, 1),))
+        with_group = _ab_run(torch, mnv3_ir, mnv3_vars, dev, K_STEPS,
+                             group=group)
+    finally:
+        dist.destroy_process_group()
+    if ab_without is None:
+        ab_without = _ab_run(torch, mnv3_ir, mnv3_vars, dev, K_STEPS)
+    print(f"dp (d) NCCL world size 1: captured K={K_STEPS} steps with the "
+          f"all-reduce in the graph equal eager steps; MNv3 bf16 bs "
+          f"{TRAIN_BS} {TRAIN_HW}x{TRAIN_HW} K={K_STEPS} step "
+          f"{with_group['step_ms_median']:.3f} ms with the group (busy "
+          f"{with_group['busy_pct']:.1f}%) against "
+          f"{ab_without['step_ms_median']:.3f} ms without (busy "
+          f"{ab_without['busy_pct']:.1f}%)", flush=True)
+    return {"equal": equal, "with_group": with_group,
+            "without_group": ab_without}
+
+
+def _dp_entry_points(root):
+    """(e) the entry points as subprocesses, started together: ``python -m
+    torch.distributed.run --nproc_per_node 1 -m double_yolo_kaist_torch.
+    train`` with DYK_DISTRIBUTED=1 (one epoch of MNv3 on DP_TRAIN_PAIRS
+    pairs), ``serve --dp 2`` (must exit naming the one visible card) and
+    ``serve --dp 1`` (answers one request). Returns (serve --dp 1's answer,
+    its frame)."""
+    import base64
+    data = os.path.join(root, "dp8.data")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    train = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "double_yolo_kaist_torch.train",
+         "--cfg", MNV3_NAME, "--weights", os.path.join(root, "mnv3_ckpt"),
+         "--data", data, "--img-size", str(TRAIN_HW), "--batch-size", "4",
+         "--epochs", "1", "--out-dir", os.path.join(root, "dp_torchrun"),
+         "--name", "mnv3"], cwd=ROOT, env=dict(env, DYK_DISTRIBUTED="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    serve = [sys.executable, "-m", "double_yolo_kaist_torch.serve", "--cfg",
+             MNV3_NAME, "--weights", os.path.join(root, "mnv3_ckpt"),
+             "--img-size", "640", "--warmup-hw", "512", "640"]
+    refused = subprocess.run(serve + ["--dp", "2"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+    last = (refused.stdout + refused.stderr).strip().splitlines()[-1:]
+    print(f"dp (e) serve --dp 2: exit {refused.returncode}, {last}",
+          flush=True)
+    if refused.returncode == 0 or \
+            "--dp 2: only 1 device(s) visible" not in refused.stderr:
+        raise AssertionError("serve --dp 2 did not refuse the one card")
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    proc = subprocess.Popen(serve + ["--dp", "1", "--port", str(port)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    rng = np.random.default_rng(SEED + 163)
+    v, l = (rng.integers(0, 256, (512, 640, 3), dtype=np.uint8)
+            for _ in range(2))
+    t0 = time.perf_counter()
+    try:
+        while True:
+            try:
+                if _http(f"{url}/healthz", timeout=2)["status"] == "ok":
+                    break
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError(f"serve --dp 1 exited "
+                                         f"{proc.returncode}:\n"
+                                         f"{proc.stdout.read()[-3000:]}")
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("serve --dp 1 did not come up")
+                time.sleep(0.5)
+        answer = _http(f"{url}/detect", json.dumps({
+            "visible": base64.b64encode(v.tobytes()).decode(),
+            "lwir": base64.b64encode(l.tobytes()).decode(),
+            "encoding": "raw", "shape": [512, 640]}).encode())
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    print(f"dp (e) serve --dp 1: up in {time.perf_counter() - t0:.1f} s, "
+          f"{[x for x in out.splitlines() if 'data-parallel' in x]}, "
+          f"{len(answer['boxes'])} detections", flush=True)
+    text, _ = train.communicate(timeout=DP_TIMEOUT)
+    print(f"dp (e) torch.distributed.run --nproc_per_node 1 -m "
+          f"double_yolo_kaist_torch.train: exit {train.returncode}; last "
+          f"lines:\n  " + "\n  ".join(text.splitlines()[-3:]), flush=True)
+    out_dir = os.path.join(root, "dp_torchrun", "mnv3")
+    if train.returncode != 0 or not os.path.exists(
+            os.path.join(out_dir, "last", "manifest.json")) or \
+            len(_results_lines(os.path.join(out_dir, "results.txt"))) != 1:
+        raise AssertionError(f"train under torch.distributed.run failed:\n"
+                             f"{text[-3000:]}")
+    return answer, (v, l)
+
+
+def _dp_split(root):
+    """DP_TRAIN_PAIRS pairs of phase 9's split and a data file for them."""
+    with open(os.path.join(root, "eval80.txt")) as f:
+        lines = f.read().splitlines()[:DP_TRAIN_PAIRS]
+    split = os.path.join(root, "dp8.txt")
+    with open(split, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "dp8.data"), "w") as f:
+        f.write(f"classes=1\ntrain={split}\nvalid={split}\ntest={split}\n")
+
+
+def _chain_artifact(torch, dev, flagship_ir, fvars, root):
+    """The flagship's int8 chain artifact of phase 15 (calibrated on two
+    requests of 8), made here when phase 15 did not run."""
+    from double_yolo_kaist_torch.serving import Predictor
+    qpath = os.path.join(root, "flagship_chain_q.npz")
+    if not os.path.exists(qpath):
+        rng = np.random.default_rng(SEED + 17)
+        frames = tuple(rng.integers(0, 256, (EXPORT_BS,) + EXPORT_HW + (3,),
+                                    dtype=np.uint8) for _ in range(2))
+        cal = Predictor(flagship_ir, fvars, img_size=640, int8=True,
+                        batch_buckets=(EXPORT_BS,), quantized=qpath,
+                        device=dev)
+        for _ in range(2):
+            cal(*frames)
+    return qpath
+
+
+def phase_dp(torch, dev, launches, mnv3_ir, flagship_ir, root,
+             ab_without=None):
+    """Phase 16: data parallelism on one card. The two gloo ranks of (c)
+    and (e) and (e)'s subprocesses start first and run beside (b) and the
+    one-process float64 reference; then (a) and (d) run alone. Each part
+    runs even when one before it failed; the phase fails if any did. Needs phase 9's split and
+    checkpoint under ``root``. Returns (launch counts of its main-path
+    runs, numbers)."""
+    from double_yolo_kaist_torch.bench import seeded_variables
+    from double_yolo_kaist_torch.models import weights
+    from double_yolo_kaist_torch.serving import Predictor
+    t_phase = time.perf_counter()
+    smi = _smi_line()
+    _dp_split(root)
+    numbers, counts, failed = {"card": smi}, {}, []
+
+    def part(name, fn):
+        try:
+            c, numbers[name] = fn()
+            counts.update(c)
+        except Exception:                  # noqa: BLE001 — report, go on
+            traceback.print_exc()
+            failed.append(name)
+        _stamp(t_phase, f"phase 16 {name}")
+
+    def entry_and_eval():
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+            entry = ex.submit(_dp_entry_points, root)
+            try:
+                c, n = _dp_mesh_eval(torch, dev, launches, mnv3_ir, root)
+            finally:
+                answer, (v, l) = entry.result()
+        buckets = (1, 4, 16)
+        pred = Predictor(mnv3_ir,
+                         weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ),
+                         img_size=640, batch_buckets=buckets, device=dev)
+        if not _matching_bucket((answer["boxes"], answer["scores"],
+                                 answer["classes"]),
+                                _alone(pred, v, l, buckets)):
+            raise AssertionError("serve --dp 1 answered other detections "
+                                 "than the in-process Predictor")
+        return {"dp mesh eval": c}, n
+
+    def mesh_serving():
+        fvars = seeded_variables(flagship_ir, SEED)
+        qpath = _chain_artifact(torch, dev, flagship_ir, fvars, root)
+        return _dp_mesh_serving(torch, dev, launches, flagship_ir, fvars,
+                                qpath)
+
+    # the ranks run beside (b) and the entry points: their step times
+    # are the one card's under that load, not a scaling number
+    procs = _dp_spawn_ranks(root)
+    part("(b) and the entry points", entry_and_eval)
+    part("(c) and (e)'s ranks",
+         lambda: _dp_two_ranks(torch, dev, mnv3_ir, root, procs))
+    torch.cuda.empty_cache()
+    part("(a)", mesh_serving)
+    torch.cuda.empty_cache()
+    part("(d)", lambda: ({}, _dp_nccl(torch, dev, mnv3_ir, ab_without)))
+    print(f"dp numbers ({smi}; one card: no multi-card number): "
+          + json.dumps(numbers), flush=True)
+    print(f"phase 16 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"phase 16 parts failed: {failed}")
+    return counts, numbers
+
+
+def _only_dp(torch, dev, mnv3_ir, flagship_ir) -> int:
+    """``--only dp``: phase 16 alone, on phase 9's split labelled and
+    checkpointed as phase 9 does it (it prints no result line)."""
+    from double_yolo_kaist_torch.ops import _build
+    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
+        _labelled_split(torch, dev, mnv3_ir, root)
+        phase_dp(torch, dev, _build.launches, mnv3_ir, flagship_ir, root)
+    print("chip_smoke --only dp: phase 16 passed", flush=True)
+    return 0
 
 
 def _labelled_split(torch, dev, mnv3_ir, root):
@@ -3770,6 +4410,8 @@ def main() -> int:
         return _only_int8aug(torch, dev, ir)
     if sys.argv[1:] == ["--only", "slice9"]:
         return _only_slice9(torch, dev, ir, flagship_ir)
+    if sys.argv[1:] == ["--only", "dp"]:
+        return _only_dp(torch, dev, ir, flagship_ir)
     results = {}
     for name, fn in (("K1", lambda: phase_decode(torch, ir, dev,
                                                  _build.launches)),
@@ -3853,14 +4495,26 @@ def main() -> int:
                 traceback.print_exc()
                 failed.append("int8 modes and augment")
             _stamp(t_start, "int8 modes and augment")
+        ab = None
         if not failed:
             try:
-                counts.update(phase_slice9(torch, dev, _build.launches, ir,
-                                           flagship_ir, root))
+                c, numbers = phase_slice9(torch, dev, _build.launches, ir,
+                                          flagship_ir, root)
+                counts.update(c)
+                ab = numbers["ab"][f"MNv3 K={K_STEPS}"]
             except Exception:              # noqa: BLE001
                 traceback.print_exc()
                 failed.append("slice 9")
             _stamp(t_start, "slice 9")
+        if not failed:
+            try:
+                c, _ = phase_dp(torch, dev, _build.launches, ir,
+                                flagship_ir, root, ab)
+                counts.update(c)
+            except Exception:              # noqa: BLE001
+                traceback.print_exc()
+                failed.append("slice 10")
+            _stamp(t_start, "slice 10")
     if failed:
         return _fail(f"phases failed: {failed}")
 
@@ -3870,8 +4524,9 @@ def main() -> int:
         runs of phase 10, the micro-batched run of phase 11, the Trainer's
         epoch of phase 13, the int8 runs of each mode and the edge eval of
         phase 14, the exported and Predictor replays and the K-step train
-        runs' evaluations of phase 15), each counted from 0 just before
-        its run and read just after it."""
+        runs' evaluations of phase 15, the mesh Predictors, the mesh
+        evaluation and the two ranks' Trainer fits of phase 16), each
+        counted from 0 just before its run and read just after it."""
         return sum(c.get(kernel, 0) for c in counts.values())
 
     kernels = [

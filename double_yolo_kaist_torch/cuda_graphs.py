@@ -25,16 +25,17 @@ def capture(fn, device, pool=None):
     output, {kernel: launches the graph holds}); the wrappers' counts of
     the capture itself are taken back, since nothing launched then. A
     failed capture raises: nothing falls back to eager execution."""
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        fn()
-    current.wait_stream(side)
-    before = dict(_build.launches)
-    cuda_graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(cuda_graph, pool=pool):
-        out = fn()
+    with torch.cuda.device(device):
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            fn()
+        current.wait_stream(side)
+        before = dict(_build.launches)
+        cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cuda_graph, pool=pool):
+            out = fn()
     held = {k: n - before.get(k, 0) for k, n in _build.launches.items()
             if n != before.get(k, 0)}
     for name, n in held.items():
@@ -61,6 +62,14 @@ class Stage:
         """Frames in, zeros after them; only the slots that changed move."""
         real = len(chunk_v)
         n = max(real, self.filled)
+        if self.host is not None:
+            with torch.cuda.device(self.dev[0].device):
+                self._load(chunk_v, chunk_l, real, n)
+        else:
+            self._load(chunk_v, chunk_l, real, n)
+        self.filled = real
+
+    def _load(self, chunk_v, chunk_l, real: int, n: int) -> None:
         for i, chunk in enumerate((chunk_v, chunk_l)):
             dev = self.dev[i]
             if self.host is None:
@@ -71,7 +80,6 @@ class Stage:
             host[:real] = chunk
             host[real:n] = 0
             dev[:n].copy_(self.host[i][:n], non_blocking=True)
-        self.filled = real
 
 
 class Graph:
@@ -89,10 +97,21 @@ class Graph:
     def run(self, real: int) -> np.ndarray:
         """Replay, count the graph's launches, and fetch the first ``real``
         rows of the packed output (one device-to-host copy)."""
-        self.graph.replay()
+        self.launch()
+        return self.fetch(real)
+
+    def launch(self) -> None:
+        """Replay on the output's card and start the copy of the packed
+        output to the host; :meth:`fetch` waits for it. A mesh launches
+        every replica before it fetches any."""
+        with torch.cuda.device(self.out.device):
+            self.graph.replay()
+            self.host.copy_(self.out, non_blocking=True)
         for name, n in self.launches.items():
             _build.launches[name] += n
         self.replays += 1
-        self.host.copy_(self.out, non_blocking=True)
+
+    def fetch(self, real: int) -> np.ndarray:
+        """The first ``real`` rows of the launched replay's output."""
         torch.cuda.current_stream(self.out.device).synchronize()
         return self.host.numpy()[:real].copy()

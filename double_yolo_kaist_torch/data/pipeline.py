@@ -45,7 +45,7 @@ N_SNOW, N_THR, CUT_STEP = 80, 24, 32
 def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
                           snowflake: bool = False, clahe: bool = False,
                           epoch_partners: bool = True,
-                          from_pool: bool = False):
+                          from_pool: bool = False, shard=None):
     """The train-time augmentation program (JAX pipeline.py:45-222, its
     ``gather`` route, unchunked, fp32 pixels).
 
@@ -74,7 +74,13 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
     affine, HSV, flip); the cutout stream is drawn only with
     ``snowflake`` and moves none of the others. ``fn.heavy`` runs the
     transforms from given randoms, as JAX's ``heavy`` does, and
-    ``fn.draw(generator, nb)`` returns them."""
+    ``fn.draw(generator, nb)`` returns them.
+
+    ``shard``: (rank, ranks) under data parallelism. The inputs are still
+    the global batch's; the randoms are drawn for all of it, then rank r
+    keeps the images ``[r B / W, (r + 1) B / W)``, their mosaic partners
+    and their randoms, so that each image is augmented as in the run on
+    one process and the ranks' outputs stacked are that run's batch."""
     s = img_size
     r = s / max(src_hw)
     h1, w1 = int(src_hw[0] * r), int(src_hw[1] * r)
@@ -142,16 +148,43 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
     def fn(generator, v_u8, l_u8, *rest):
         if from_pool:
             load_idx, labels, lmask = rest
-            v_u8 = v_u8.index_select(0, load_idx)
-            l_u8 = l_u8.index_select(0, load_idx)
         else:
             labels, lmask = rest
-        nb = v_u8.shape[0] // 4 if epoch_partners else v_u8.shape[0]
-        return heavy(v_u8, l_u8, labels, lmask, **draw(generator, nb))
+        rows = labels.shape[0]
+        nb = rows // 4 if epoch_partners else rows
+        d = draw(generator, nb)
+        if shard is not None:
+            d, need = _rank_draws(d, nb, *shard)
+            labels, lmask = labels[need.to(labels.device)], \
+                lmask[need.to(lmask.device)]
+            if from_pool:
+                load_idx = load_idx[need.to(load_idx.device)]
+            else:
+                v_u8 = v_u8[need.to(v_u8.device)]
+                l_u8 = l_u8[need.to(l_u8.device)]
+        if from_pool:
+            v_u8 = v_u8.index_select(0, load_idx)
+            l_u8 = l_u8.index_select(0, load_idx)
+        return heavy(v_u8, l_u8, labels, lmask, **d)
 
     fn.heavy = heavy
     fn.draw = draw
     return fn
+
+
+def _rank_draws(d: dict, nb: int, rank: int, ranks: int):
+    """Rank ``rank``'s rows of the randoms ``d`` drawn for a batch of
+    ``nb``, and the input rows they read (``need``); their ``idx`` then
+    indexes those rows."""
+    if nb % ranks:
+        raise ValueError(f"batch {nb} does not split over {ranks} ranks")
+    lo, hi = rank * nb // ranks, (rank + 1) * nb // ranks
+    out = {k: None if v is None
+           else tuple(t[lo:hi] for t in v) if isinstance(v, tuple)
+           else v[lo:hi] for k, v in d.items()}
+    need = torch.unique(out["idx"].reshape(-1), sorted=True)
+    out["idx"] = torch.searchsorted(need, out["idx"])
+    return out, need
 
 
 def make_eval_preprocess_fn(src_hw, dst_hw, img_size: int,
@@ -393,14 +426,16 @@ def prefetch(iterator, depth: int = 2):
 
 
 def eval_batches(dataset, batch_size: int, device_cache: bool | None = None,
-                 device=None):
+                 device=None, shard=None):
     """Yield (v, l, indices, (ratio, pad)) rect-letterboxed batches on
     ``device`` (None means ``cuda``; the evaluator passes its device).
 
     ``device_cache``: the residency tier (:func:`select_image_pool`). Pooling
     needs one source shape for the whole split (KAIST has one); a
     mixed-shape split streams, and each batch is split into runs of
-    consecutive same-shape images, one sub-batch per run."""
+    consecutive same-shape images, one sub-batch per run. ``shard``:
+    (rank, ranks): only the batches ``k`` with ``k % ranks == rank``, the
+    rank's share of an evaluation split over processes."""
     device = resolve_device(device)
     n = len(dataset)
     fns: dict = {}
@@ -411,7 +446,9 @@ def eval_batches(dataset, batch_size: int, device_cache: bool | None = None,
             src_hw0 = tuple(int(x) for x in shapes[0][::-1])
             tier, pool = select_image_pool(dataset, src_hw0, device_cache,
                                            device)
-    for b0 in range(0, n, batch_size):
+    for k, b0 in enumerate(range(0, n, batch_size)):
+        if shard is not None and k % shard[1] != shard[0]:
+            continue
         idx_full = np.arange(b0, min(b0 + batch_size, n))
         shp = [tuple(int(x) for x in dataset.shapes[i]) for i in idx_full]
         runs, start = [], 0
@@ -485,7 +522,7 @@ def train_batches(dataset, batch_size: int, seed: int, *, img_size,
                   drop_last: bool = True, seed_epoch: int = 0,
                   epoch_partners: bool = True,
                   device_cache: bool | None = None, size_every: int = 1,
-                  device=None):
+                  device=None, shard=None):
     """Yield (augmented batch on ``device``, image indices) for one epoch
     (JAX pipeline.py:535-617).
 
@@ -495,7 +532,10 @@ def train_batches(dataset, batch_size: int, seed: int, *, img_size,
     ``seed`` and b0. The split's pairs come from the residency tier
     :func:`select_image_pool` picks (the device pool, the pinned host pool,
     or per-batch decode: with epoch partners that loads 4 x batch_size
-    pairs a batch). ``device``: None means ``cuda``."""
+    pairs a batch). ``device``: None means ``cuda``. ``shard``: (rank,
+    ranks) under data parallelism: every rank plans and draws the global
+    batch, and yields its rows of it (:func:`make_train_augment_fn`); the
+    indices are the global batch's."""
     device = resolve_device(device)
     src_hw = tuple(int(x) for x in dataset.shapes[0][::-1])
     tier, pool = select_image_pool(dataset, src_hw, device_cache, device)
@@ -510,7 +550,7 @@ def train_batches(dataset, batch_size: int, seed: int, *, img_size,
     augs = {s: make_train_augment_fn(src_hw, s, hyp, snowflake=snowflake,
                                      clahe=clahe,
                                      epoch_partners=epoch_partners,
-                                     from_pool=tier == "hbm")
+                                     from_pool=tier == "hbm", shard=shard)
             for s in sizes}
     for b0, idx, load, t, m, size in train_batch_plan(
             dataset, batch_size, sizes,

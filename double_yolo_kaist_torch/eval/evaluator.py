@@ -8,7 +8,8 @@ the int8 PTQ forward in any mode, also from a quantized-variables
 artifact), the head decode
 (kernel K1), the stem convs (K3), the quantized 1x1 convs (K4) and the
 greedy NMS (K2). On the host: the letterbox undo and the metrics
-(:mod:`.metrics`, :mod:`.coco_map`).
+(:mod:`.metrics`, :mod:`.coco_map`). The forward runs on one device, on
+the replicas of a device mesh, or split over the processes of a group.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from ..data.pipeline import eval_batches, prefetch
 from ..models import graph
 from ..models import quantize as Q
 from ..ops.nms import non_max_suppression
+from ..parallel import mesh as M
+from ..parallel import multihost as MH
 from ..utils import tree as TR
 from .coco_map import evaluate_coco
 from .metrics import compute_ap_lamr
@@ -53,7 +56,8 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
                      calibration_batches: int = 2,
                      calibration_pct: float = 100.0, calibration=None,
                      quantized=None, merge: bool = False, mesh=None,
-                     device_cache: bool | None = None, device=None):
+                     device_cache: bool | None = None, device=None,
+                     group=None):
     """Run the full eval loop. Returns a dict with the 12 COCO stats, ap,
     lamr, fps, the curves, the per-image predictions, and ``seconds``:
     host time in the forward + NMS + fetch (``infer``), in the whole batch
@@ -72,17 +76,40 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
     ``int8_mode``), with no fold, calibration or quantization; when it does
     not, the int8 path runs as without it. ``device_cache``: the residency
     tier of the split (:func:`..data.pipeline.eval_batches`). ``device``:
-    None means ``cuda``; the CPU runs only when asked for."""
+    None means ``cuda``; the CPU runs only when asked for.
+
+    ``mesh``: a :class:`..parallel.mesh.Mesh`: the forward + NMS runs
+    data-parallel over its replicas (JAX evaluator.py:62-128, 222-250).
+    The variables (or int8 weights) are placed on each replica once; a
+    batch is padded to a multiple of the mesh size, split into equal
+    shards, every replica's shard is launched before the one fetch of the
+    batch, and the padding rows are dropped. ``device`` is then the
+    mesh's first replica, where batches and calibration run.
+
+    ``group``: a ``torch.distributed`` group of processes that split the
+    evaluation: batch k runs on rank ``k % W``, each rank's detections
+    (in the original frame, fixed shape) go through
+    :func:`..parallel.multihost.allgather_predictions`, and every rank
+    computes the same metrics from all of them."""
     if mesh is not None:
-        raise NotImplementedError(
-            "evaluation over several devices is not ported yet (ROADMAP.md, "
-            "queue 1 item 12)")
-    dev = resolve_device(device)
+        if group is not None:
+            raise ValueError("evaluate_dataset takes a mesh or a group, "
+                             "not both")
+        mesh = M.check_mesh(mesh)
+        dev = mesh.replicas[0]
+    else:
+        dev = resolve_device(device)
     artifact = bool(quantized and os.path.exists(str(quantized)))
     # a frozen artifact is evaluated literally, whatever the plan says
     if int8 and not artifact and Q.warn_if_empty_plan(
             ir, int8_mode, "evaluating the folded path"):
         int8 = False
+
+    devices = [dev] if mesh is None else mesh.replicas
+
+    def place(make):
+        """``make(device)`` for each replica, once a device."""
+        return M.per_device(devices, make)
 
     if int8 and artifact:
         qv, qmode, _ = Q.load_quantized(str(quantized))
@@ -90,17 +117,21 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
             raise ValueError(f"quantized artifact {quantized} was built for "
                              f"mode={qmode!r}, eval requested "
                              f"{int8_mode!r}")
-        qvars = Q.place_quantized(ir, qv, dev, compute_dtype)
+        reps = place(lambda d: Q.place_quantized(ir, qv, d, compute_dtype))
     elif not (folded or int8):        # int8 runs the folded path
-        unfolded = graph.place_variables(variables, dev)
+        reps = place(lambda d: graph.place_variables(variables, d))
 
-        def forward(xv, xl):
+        def forward(unfolded, xv, xl):
             (io, raw), _ = graph.apply(ir, unfolded, xv, xl, train=False,
                                        compute_dtype=compute_dtype)
             return io, raw
     else:
         fold = graph.fold_batchnorm(ir, variables)
-        placed = graph.place_folded(ir, fold, dev, compute_dtype)
+        if int8 and not artifact:
+            placed = graph.place_folded(ir, fold, dev, compute_dtype)
+        else:
+            reps = place(lambda d: graph.place_folded(ir, fold, d,
+                                                      compute_dtype))
     if int8 and not artifact:
         if calibration and os.path.exists(str(calibration)):
             stats, _ = Q.load_calibration(str(calibration))
@@ -122,41 +153,63 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
         # live (as Predictor quantizes): edge mode's scales are host
         # arrays, and the int8 model of live weights on the card must be
         # the one their checkpoint gives
-        qvars = Q.place_quantized(
-            ir, Q.quantize(ir, TR.map_leaves(lambda t: t.cpu(), fold),
-                           stats, mode=int8_mode), dev, compute_dtype)
+        qv = Q.quantize(ir, TR.map_leaves(lambda t: t.cpu(), fold), stats,
+                        mode=int8_mode)
         del placed
+        reps = place(lambda d: Q.place_quantized(ir, qv, d, compute_dtype))
     if int8:
-        def forward(xv, xl):
+        def forward(qvars, xv, xl):
             return Q.apply_quantized(ir, qvars, xv, xl,
                                      compute_dtype=compute_dtype,
                                      mode=int8_mode)
     elif folded:
-        def forward(xv, xl):
+        def forward(placed, xv, xl):
             return graph.apply_folded(ir, placed, xv, xl,
                                       compute_dtype=compute_dtype)
 
-    @torch.inference_mode()
-    def infer(xv, xl):
-        io, _ = forward(xv, xl)
+    def packed_dets(variables, xv, xl):
+        io, _ = forward(variables, xv, xl)
         det, valid = non_max_suppression(
             io, conf_thres=conf_thres, iou_thres=iou_thres,
             multi_label=multi_label, max_det=max_det, merge=merge)
         # the valid mask as a 7th channel: one fetch per batch
-        packed = torch.cat([det, valid[..., None].to(det.dtype)], dim=-1)
-        return packed.cpu().numpy()          # the fetch synchronises
+        return torch.cat([det, valid[..., None].to(det.dtype)], dim=-1)
+
+    @torch.inference_mode()
+    def infer(xv, xl):
+        if mesh is None:
+            return packed_dets(reps[0], xv, xl).cpu().numpy()
+        real = xv.shape[0]
+        shards = M.shard_batch(
+            {"v": M.pad_to_multiple(xv, mesh.size),
+             "l": M.pad_to_multiple(xl, mesh.size)}, mesh)
+        outs = []
+        for r, (sh, rdev) in enumerate(zip(shards, mesh.replicas)):
+            with M.device_scope(rdev):
+                outs.append(packed_dets(reps[r], sh["v"], sh["l"]))
+        # every shard is launched before the one fetch of the batch
+        packed = torch.cat([o.to(dev) for o in outs]).cpu().numpy()
+        return packed[:real]          # the padding rows go
 
     preds = []
     coco_preds = {}
     n_images = n_batches = 0
     fwd_time = 0.0
+    ranks = 1 if group is None else torch.distributed.get_world_size(group)
+    rank = 0 if group is None else torch.distributed.get_rank(group)
+    if ranks > 1:
+        n_all = len(dataset)
+        mine = {"boxes": np.zeros((n_all, max_det, 4), np.float32),
+                "scores": np.zeros((n_all, max_det), np.float32),
+                "count": np.zeros((n_all,), np.int32)}
     # the batch loop is a span that a torch.profiler trace shows by this
     # name: a device busy share reads the kernels that start inside it
     with torch.profiler.record_function(LOOP_SPAN):
         t_loop = time.perf_counter()
         # host decode and preprocess launches overlap the forward
-        it = prefetch(eval_batches(dataset, batch_size,
-                                   device_cache=device_cache, device=dev))
+        it = prefetch(eval_batches(
+            dataset, batch_size, device_cache=device_cache, device=dev,
+            shard=(rank, ranks) if ranks > 1 else None))
         if progress:
             import tqdm
             it = tqdm.tqdm(it, desc="evaluating")
@@ -178,12 +231,19 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
                     boxes = _undo_letterbox(d[:, :4], ratio, pad, orig_hw)
                 else:
                     boxes = np.zeros((0, 4))
+                if ranks > 1:
+                    mine["boxes"][img_id, :len(d)] = boxes
+                    mine["scores"][img_id, :len(d)] = d[:, 4]
+                    mine["count"][img_id] = len(d)
+                    continue
                 coco_preds[int(img_id)] = (boxes, d[:, 4])
                 for b, s in zip(boxes, d[:, 4]):
                     preds.append({"img_id": int(img_id), "conf": float(s),
                                   "bbox": b})
         loop_time = time.perf_counter() - t_loop
 
+    if ranks > 1:
+        coco_preds, preds = _merge_ranks(mine, batch_size, ranks, group)
     t0 = time.perf_counter()
     preds.sort(key=lambda p: -p["conf"])
     ap_lamr = compute_ap_lamr(preds, dataset.labels, dataset.shapes)
@@ -201,3 +261,20 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
             "seconds": {"infer": fwd_time, "loop": loop_time,
                         "metrics": metrics_time},
             "batches": n_batches}
+
+
+def _merge_ranks(mine: dict, batch_size: int, ranks: int, group):
+    """Every rank's detections, gathered: image i comes from the rank that
+    ran its batch, ``(i // batch_size) % ranks``. Returns (coco_preds,
+    preds) as one process builds them, in image order."""
+    alls = MH.allgather_predictions(mine, group)
+    coco_preds, preds = {}, []
+    for i in range(len(mine["count"])):
+        r = (i // batch_size) % ranks
+        n = int(alls["count"][r, i])
+        boxes = alls["boxes"][r, i, :n] if n else np.zeros((0, 4))
+        scores = alls["scores"][r, i, :n]
+        coco_preds[i] = (boxes, scores)
+        for b, s in zip(boxes, scores):
+            preds.append({"img_id": i, "conf": float(s), "bbox": b})
+    return coco_preds, preds

@@ -176,6 +176,10 @@ def export_serving_artifact(predictor, src_hw, batch: int,
     predictor must be quantized already (``quantized=`` / ``calibration=``
     artifacts, or its calibration requests served): an artifact is
     deterministic, not traffic-dependent. Returns the meta dict."""
+    if predictor.mesh is not None:
+        raise ValueError(
+            "export is single-replica: build the Predictor without a mesh "
+            "(scale out by running one exported replica per card)")
     quant = bool(predictor._int8)
     if quant and predictor.qvars is None:
         raise ValueError(

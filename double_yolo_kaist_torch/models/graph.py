@@ -105,27 +105,28 @@ class _DropoutDraws:
         return u
 
 
-def _exec_node(node, p, s, x, x2, cache, *, train, seed):
+def _exec_node(node, p, s, x, x2, cache, *, train, seed, group=None):
     """One IR node of the unfolded forward. Returns (x, new BN state entry
-    or None, head conv output or None)."""
+    or None, head conv output or None). ``group``: BN's statistics group
+    (:func:`.layers.batch_norm`)."""
     kind = node.kind
     ns = head = None
     if kind == "conv":
         inp = x2 if node.takes_second_input else x
         x, bn_s = L.conv_bn_act(inp, p, s, stride=node.stride, pad=node.pad,
                                 groups=node.groups, act=node.act, bn=node.bn,
-                                train=train)
+                                train=train, group=group)
         if node.bn and train:
             ns = bn_s
     elif kind == "dwconv":
         x, bn_s = L.depthwise_separable(x, p, s, stride=node.stride,
-                                        train=train)
+                                        train=train, group=group)
         if train:
             ns = bn_s
     elif kind == "se":
         x = L.squeeze_excitation(x, p)
     elif kind == "inception":
-        x, bn_s = L.inception(x, p, s, train=train)
+        x, bn_s = L.inception(x, p, s, train=train, group=group)
         if train:
             ns = bn_s
     elif kind == "maxpool":
@@ -159,7 +160,7 @@ def _exec_node(node, p, s, x, x2, cache, *, train, seed):
 
 def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
           rng: torch.Generator | None = None, compute_dtype=None,
-          remat_segments: int = 0):
+          remat_segments: int = 0, group=None):
     """Run the unfolded graph (JAX graph.py:148-233).
 
     Args:
@@ -184,6 +185,9 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
       remat_segments: > 0 splits the layer sequence into this many
         ``torch.utils.checkpoint`` segments (train only): activations
         inside a segment are recomputed in the backward pass.
+      group: a ``torch.distributed`` group over which each train-mode BN
+        takes the whole batch's statistics, each rank holding an equal
+        share of it (JAX's ``axis_name``; :func:`.layers.batch_norm`).
     """
     params, state = variables["params"], variables["state"]
     dtype = compute_dtype or xv.dtype
@@ -215,7 +219,7 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
             key = f"l{node.index}"
             x, ns, head = _exec_node(node, params.get(key), state.get(key),
                                      x, x2, {**cache, **new_cache},
-                                     train=train, seed=seed)
+                                     train=train, seed=seed, group=group)
             if ns is not None:
                 seg_state[key] = ns
             if head is not None:

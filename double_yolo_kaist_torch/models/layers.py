@@ -101,12 +101,13 @@ def weighted_fusion(x, extras: list, w=None):
     return x
 
 
-def inception(x, params, state=None, *, train: bool = False):
+def inception(x, params, state=None, *, train: bool = False, group=None):
     """4-branch GoogLeNet block, every branch conv + BN + leaky (JAX
     layers.py:452-478). With ``state`` None the params are BN-folded (each
     branch conv carries ``w``/``b``, JAX graph.py:606-613) and the block
     returns its output; otherwise it runs BN from ``state`` (batch
-    statistics when ``train``) and returns (output, new state)."""
+    statistics when ``train``, over ``group`` when one is given) and
+    returns (output, new state)."""
     if state is None:
         def branch(inp, name, pad=0):
             return activate("leaky", conv2d(inp, params[name]["w"],
@@ -122,7 +123,8 @@ def inception(x, params, state=None, *, train: bool = False):
 
     def cba(inp, name, pad=0):
         y, new_state[name] = conv_bn_act(inp, params[name], state[name],
-                                         pad=pad, act="leaky", train=train)
+                                         pad=pad, act="leaky", train=train,
+                                         group=group)
         return y
 
     b1 = cba(x, "b1_1")
@@ -134,19 +136,34 @@ def inception(x, params, state=None, *, train: bool = False):
 
 # ------------------------------------------------------- trainable conv ops
 
-def batch_norm(x, params, state, train: bool):
+def batch_norm(x, params, state, train: bool, group=None):
     """BatchNorm2d over NCHW. Returns (y in ``x``'s dtype, new state).
 
     In train mode the statistics are the batch's, in fp32 (or wider): the
     mean, then a two-pass variance E[(x - mean)^2]; the running state moves
     by momentum 0.1 towards the mean and the *unbiased* variance (JAX
     layers.py:297-341). The batch statistics carry gradients into ``y``;
-    the returned state is detached."""
+    the returned state is detached.
+
+    ``group``: a ``torch.distributed`` group whose ranks each hold an
+    equal share of the batch. The statistics are then the whole batch's,
+    as JAX's ``pmean`` branch takes them (layers.py:320-329): the mean of
+    the ranks' means, the mean of the ranks' squared deviations from it,
+    and ``n`` the global count. The all-reduces are differentiable
+    (:func:`..parallel.multihost.all_reduce_sum`), so the gradient flows
+    through the global statistics to every rank."""
     if train:
         xf = _at_least_f32(x)
         mean = xf.mean(dim=(0, 2, 3))
-        var = torch.square(xf - mean[:, None, None]).mean(dim=(0, 2, 3))
         n = x.shape[0] * x.shape[2] * x.shape[3]
+        if group is not None:
+            from ..parallel.multihost import all_reduce_sum
+            w = torch.distributed.get_world_size(group)
+            mean = all_reduce_sum(mean, group) / w
+        var = torch.square(xf - mean[:, None, None]).mean(dim=(0, 2, 3))
+        if group is not None:
+            var = all_reduce_sum(var, group) / w
+            n = n * w
         unbiased = var.detach() * (n / max(n - 1, 1))
         new_state = {
             "mean": (1 - BN_MOMENTUM) * state["mean"]
@@ -163,25 +180,26 @@ def batch_norm(x, params, state, train: bool):
 
 
 def conv_bn_act(x, params, state, *, stride=(1, 1), pad=0, groups=1,
-                act="linear", bn=True, train=False):
+                act="linear", bn=True, train=False, group=None):
     """Conv (output in ``x``'s dtype) + BN or bias + activation (JAX
     layers.py:344-374). Returns (y, new BN state or ``state``)."""
     y = conv2d(x, params["w"], stride=stride, pad=pad, groups=groups)
     if bn:
-        y, state = batch_norm(y, params["bn"], state, train)
+        y, state = batch_norm(y, params["bn"], state, train, group)
     else:
         y = y + params["b"].to(y.dtype)[:, None, None]
     return activate(act, y.to(x.dtype)), state
 
 
-def depthwise_separable(x, params, state, *, stride=(1, 1), train=False):
+def depthwise_separable(x, params, state, *, stride=(1, 1), train=False,
+                        group=None):
     """3x3 depthwise + BN + ReLU6, then 1x1 pointwise + BN + ReLU6 (JAX
     layers.py:377-388, reference layers.py:218-234)."""
     y = conv2d(x, params["dw"]["w"], stride=stride, pad=1, groups=x.shape[1])
-    y, s_dw = batch_norm(y, params["dw"]["bn"], state["dw"], train)
+    y, s_dw = batch_norm(y, params["dw"]["bn"], state["dw"], train, group)
     y = activate("relu6", y)
     y = conv2d(y, params["pw"]["w"])
-    y, s_pw = batch_norm(y, params["pw"]["bn"], state["pw"], train)
+    y, s_pw = batch_norm(y, params["pw"]["bn"], state["pw"], train, group)
     y = activate("relu6", y)
     return y.to(x.dtype), {"dw": s_dw, "pw": s_pw}
 

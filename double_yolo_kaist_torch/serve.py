@@ -21,7 +21,9 @@ writes this server's first quantization there. ``--exported <file>``
 serves a one-file artifact (``python -m double_yolo_kaist_torch.
 export_model``) through :class:`.export.ExportedPredictor`: the flags it
 bakes in are refused or ignored, as in the JAX package, and the server
-imports no model code. ``--dp`` (queue 1 item 12) raises.
+imports no model code. ``--dp N`` serves data-parallel over N replicas
+(``-1``: every visible card; with ``--device cpu``, N CPU replicas): the
+Predictor's mesh (:mod:`.parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -144,8 +146,9 @@ def main(argv=None):
                    help="max-abs calibration percentile (100.0 = exact "
                         "max-abs)")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel serving over N devices (not ported "
-                        "yet)")
+                   help="data-parallel serving over N devices (-1 = every "
+                        "visible card): requests shard over the batch, the "
+                        "weights are replicated")
     p.add_argument("--microbatch", type=int, default=16,
                    help="coalesce concurrent /detect requests into one "
                         "batched device call of up to this many frames; 0 "
@@ -169,10 +172,6 @@ def main(argv=None):
                    help="torch device; cpu runs the plain PyTorch path")
     opt = p.parse_args(argv)
 
-    if opt.dp:
-        raise NotImplementedError(
-            "--dp (data-parallel serving) is not ported yet (ROADMAP.md, "
-            "queue 1 item 12)")
     if opt.exported:
         return serve_exported(opt)
     if not opt.cfg:
@@ -183,6 +182,7 @@ def main(argv=None):
     from .serving import Predictor
 
     ir, variables = build_model(opt.cfg, opt.weights)
+    mesh = make_serving_mesh(opt.dp, opt.device) if opt.dp else None
     # with micro-batching on, coalesced groups need padded batch buckets
     # beyond bs 1
     buckets = ((1,) if not opt.microbatch
@@ -194,7 +194,7 @@ def main(argv=None):
                           calibration_pct=opt.calibration_pct,
                           calibration=opt.int8_calib or None,
                           quantized=opt.int8_qvars or None,
-                          device=opt.device)
+                          device=opt.device, mesh=mesh)
     if not opt.no_warmup:
         h, w = opt.warmup_hw or (max(64, opt.img_size),
                                  max(64, int(opt.img_size * 1.25)))
@@ -211,6 +211,28 @@ def main(argv=None):
                                  max_queue=opt.max_queue or None)
     _serve(opt, predictor, os.path.basename(str(opt.cfg)),
            f"serving on http://{opt.host}:{opt.port}")
+
+
+def make_serving_mesh(dp: int, device: str):
+    """The mesh of ``--dp`` (JAX cli/serve.py:229-239): the first ``dp``
+    visible cards (``-1``: all of them), or ``dp`` CPU replicas with
+    ``--device cpu``."""
+    import torch
+
+    from .parallel import mesh as M
+
+    if torch.device(device).type == "cpu":
+        devs = [torch.device("cpu")] * (1 if dp < 0 else dp)
+    else:
+        from . import resolve_device
+        resolve_device(device)
+        visible = torch.cuda.device_count()
+        n = visible if dp < 0 else dp
+        if n > visible:
+            raise SystemExit(f"--dp {n}: only {visible} device(s) visible")
+        devs = [torch.device("cuda", i) for i in range(n)]
+    print(f"# data-parallel serving over {len(devs)} replica(s)", flush=True)
+    return M.make_mesh(devs)
 
 
 def _serve(opt, predictor, name: str, banner: str):
@@ -234,11 +256,12 @@ def serve_exported(opt):
     from .export import ExportedPredictor
     from .microbatch import MicroBatcher
 
-    if opt.int8:
+    if opt.int8 or opt.dp:
         raise SystemExit(
-            "--exported bakes precision into the artifact: re-export with "
-            "python -m double_yolo_kaist_torch.export_model --int8 for "
-            "int8")
+            "--exported bakes precision and replica layout into the "
+            "artifact: re-export with python -m "
+            "double_yolo_kaist_torch.export_model --int8 for int8, and "
+            "scale out by running one server per card instead of --dp")
     ignored = [name for name, val, dflt in (
         ("--cfg", opt.cfg, ""), ("--weights", opt.weights, ""),
         ("--conf-thres", opt.conf_thres, 0.1),

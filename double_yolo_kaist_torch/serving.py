@@ -18,6 +18,14 @@ pinned host staging, then into the graph's static device inputs, replays,
 and copies the packed output back once. The head decode runs kernel K1,
 the greedy NMS kernel K2, the stem convs kernel K3 and the quantized 1x1
 convs kernel K4, inside the graph. On the CPU the same body runs eagerly.
+
+With a device mesh (``mesh=``, :mod:`.parallel.mesh`) the Predictor is
+data-parallel, as the JAX package's is over its mesh: the buckets round
+up to multiples of the mesh size, the folded (and int8) variables are
+placed on each replica's device once, a bucket is split into equal
+shards, one a replica, and each replica serves its shard from its own
+CUDA graph. Every replica's replay is launched before the first fetch;
+the shards' detections are concatenated in order.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from .export import unpack_detections
 from .models import graph
 from .models import quantize as Q
 from .ops.nms import non_max_suppression
+from .parallel import mesh as M
 
 
 def pack(det, valid):
@@ -55,7 +64,8 @@ class Predictor:
                  compute_dtype=torch.bfloat16, int8: bool = False,
                  int8_mode: str = "chain", calibration_batches: int = 2,
                  calibration_pct: float = 100.0, calibration=None,
-                 quantized=None, merge: bool = False, device=None):
+                 quantized=None, merge: bool = False, device=None,
+                 mesh=None):
         """``cfg``: a ``.cfg`` path or a compiled :class:`GraphIR`.
         ``variables``: the port's ``{"params", "state"}`` (see
         :mod:`.models.weights`). ``device``: ``None`` means ``"cuda"``; the
@@ -87,24 +97,41 @@ class Predictor:
         over ``calibration``.
 
         ``merge``: merge-NMS (conf-weighted box fusion) in place of plain
-        greedy NMS, as ``detect --merge-nms`` asks for."""
+        greedy NMS, as ``detect --merge-nms`` asks for.
+
+        ``mesh``: a :class:`.parallel.mesh.Mesh`; every bucket is served
+        data-parallel over its replicas (JAX serving.py:33-110), the
+        buckets rounded up to multiples of the mesh size. ``device`` is
+        then the mesh's first replica, where int8 calibration runs on the
+        gathered batch."""
         self.ir: GraphIR = compile_cfg(cfg) if isinstance(cfg, str) else cfg
-        self.device = resolve_device(device)
+        self.mesh = None if mesh is None else M.check_mesh(mesh)
+        self._replicas = ([resolve_device(device)] if mesh is None
+                          else self.mesh.replicas)
+        self.device = self._replicas[0]
+        n = len(self._replicas)
         self.img_size = img_size
-        self.batch_buckets = sorted(set(batch_buckets))
+        # buckets split evenly over the replicas
+        self.batch_buckets = sorted({-(-b // n) * n for b in batch_buckets})
         self._dtype = compute_dtype
         self._nms_kw = dict(conf_thres=conf_thres, iou_thres=iou_thres,
                             multi_label=multi_label, max_det=max_det,
                             merge=merge)
         folded = graph.fold_batchnorm(self.ir, variables)
-        self.folded = graph.place_folded(self.ir, folded, self.device,
-                                         compute_dtype)
+        self._folded_r = M.per_device(
+            self._replicas,
+            lambda d: graph.place_folded(self.ir, folded, d, compute_dtype))
+        self.folded = self._folded_r[0]
+        self._qvars_r = [None] * n
         self._pre_cache: dict = {}
         # staging and graphs are shared by every request: one at a time
         self._lock = threading.Lock()
-        self._stages: dict = {}          # (bucket, src_hw) -> _Stage
-        self._graphs: dict = {}          # (bucket, src_hw, quant) -> _Graph
-        self._pool = None                # one memory pool for every graph
+        # replica r's (bucket, src_hw) -> _Stage of bucket / n frames and
+        # (bucket, src_hw, quant) -> _Graph; replica 0's are _stages and
+        # _graphs
+        self._stages_r: list = [{} for _ in range(n)]
+        self._graphs_r: list = [{} for _ in range(n)]
+        self._pools: dict = {}           # one memory pool a device
         self._int8_mode = int8_mode
         self._q_path = str(quantized) if quantized else None
         # an artifact on disk is served as it is, whatever the plan says
@@ -125,6 +152,21 @@ class Predictor:
         elif int8 and self._cal_path and os.path.exists(self._cal_path):
             stats, _ = Q.load_calibration(self._cal_path)
             self._quantize_from_stats(stats)
+
+    @property
+    def _stages(self) -> dict:
+        return self._stages_r[0]
+
+    @property
+    def _graphs(self) -> dict:
+        return self._graphs_r[0]
+
+    def _set_qvars(self, qv) -> None:
+        """Place the int8 variables ``qv`` (host) on each replica once."""
+        self._qvars_r = M.per_device(
+            self._replicas,
+            lambda d: Q.place_quantized(self.ir, qv, d, self._dtype))
+        self.qvars = self._qvars_r[0]
 
     def _bucket(self, n: int) -> int:
         for b in self.batch_buckets:
@@ -159,7 +201,7 @@ class Predictor:
                 f"from the prepare size, so edge artifacts require an exact "
                 f"match — re-export with python -m "
                 f"double_yolo_kaist_torch.calibrate")
-        self.qvars = Q.place_quantized(self.ir, qv, self.device, self._dtype)
+        self._set_qvars(qv)
 
     def _quantize_from_stats(self, stats: dict) -> None:
         """Quantize the folded weights with calibration ``stats`` (CPU) and
@@ -171,8 +213,9 @@ class Predictor:
                         mode=self._int8_mode)
         if self._q_path and not os.path.exists(self._q_path):
             Q.save_quantized(self._q_path, qv, mode=self._int8_mode, hw=hw)
-        self.qvars = Q.place_quantized(self.ir, qv, self.device, self._dtype)
-        self._graphs = {k: g for k, g in self._graphs.items() if not k[2]}
+        self._set_qvars(qv)
+        self._graphs_r = [{k: g for k, g in graphs.items() if not k[2]}
+                          for graphs in self._graphs_r]
 
     def _ensure_calibrated(self, xv, xl) -> bool:
         """Keep a calibration batch, then quantize once enough are kept.
@@ -220,26 +263,37 @@ class Predictor:
         io, _ = self._forward(xv, xl, quant)
         return non_max_suppression(io, **self._nms_kw)
 
-    def _stage(self, bucket: int, src_hw: tuple) -> _Stage:
-        stage = self._stages.get((bucket, src_hw))
+    def _stage(self, bucket: int, src_hw: tuple, r: int = 0) -> _Stage:
+        """Replica ``r``'s static inputs of (bucket, src_hw): its shard of
+        bucket / n frames."""
+        stages = self._stages_r[r]
+        stage = stages.get((bucket, src_hw))
         if stage is None:
-            stage = self._stages[(bucket, src_hw)] = _Stage(bucket, src_hw,
-                                                           self.device)
+            stage = stages[(bucket, src_hw)] = _Stage(
+                bucket // len(self._replicas), src_hw, self._replicas[r])
         return stage
 
-    def _graph(self, bucket: int, src_hw: tuple, quant: bool) -> _Graph:
-        """The graph of (bucket, src_hw, quant), captured on first use on
-        the stage's static inputs (:func:`capture`)."""
+    def _vars(self, quant: bool, r: int):
+        return (self._qvars_r if quant else self._folded_r)[r]
+
+    def _graph(self, bucket: int, src_hw: tuple, quant: bool,
+               r: int = 0) -> _Graph:
+        """Replica ``r``'s graph of (bucket, src_hw, quant), captured on
+        first use on its stage's static inputs (:func:`capture`)."""
         key = (bucket, src_hw, quant)
-        g = self._graphs.get(key)
+        g = self._graphs_r[r].get(key)
         if g is not None:
             return g
-        v, l = self._stage(bucket, src_hw).dev
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        cuda_graph, out, held = capture(lambda: self._body(v, l, quant),
-                                        self.device, self._pool)
-        g = self._graphs[key] = _Graph(cuda_graph, out, held)
+        v, l = self._stage(bucket, src_hw, r).dev
+        dev = self._replicas[r]
+        if dev not in self._pools:
+            with torch.cuda.device(dev):
+                self._pools[dev] = torch.cuda.graph_pool_handle()
+        variables = self._vars(quant, r)
+        cuda_graph, out, held = capture(
+            lambda: self._body(v, l, quant, variables), dev,
+            self._pools[dev])
+        g = self._graphs_r[r][key] = _Graph(cuda_graph, out, held)
         return g
 
     @torch.inference_mode()
@@ -247,15 +301,27 @@ class Predictor:
         """One chunk of a request -> its packed rows (real, max_det, 7),
         numpy. Called with the lock held."""
         real = len(chunk_v)
-        stage = self._stage(bucket, src_hw)
-        stage.load(chunk_v, chunk_l)
-        v, l = stage.dev
+        n = len(self._replicas)
+        m = bucket // n
+        stages = [self._stage(bucket, src_hw, r) for r in range(n)]
+        for r, stage in enumerate(stages):
+            stage.load(chunk_v[r * m:(r + 1) * m], chunk_l[r * m:(r + 1) * m])
         if self._int8 and self.qvars is None:
-            # calibration requests run eagerly (they keep their inputs)
+            # calibration requests run eagerly (they keep their inputs),
+            # on the batch gathered on the first replica
+            v, l = (torch.cat([st.dev[i].to(self.device) for st in stages])
+                    for i in (0, 1))
             return pack(*self.run_batch(v, l))[:real].cpu().numpy()
+        quant = self._int8
         if self.device.type != "cuda":
-            return self._body(v, l, self._int8)[:real].numpy()
-        return self._graph(bucket, src_hw, self._int8).run(real)
+            outs = [self._body(*st.dev, quant, self._vars(quant, r))
+                    for r, st in enumerate(stages)]
+            return torch.cat(outs)[:real].numpy()
+        graphs = [self._graph(bucket, src_hw, quant, r) for r in range(n)]
+        for g in graphs:
+            g.launch()
+        out = np.concatenate([g.fetch(m) for g in graphs])
+        return out[:real]
 
     @torch.inference_mode()
     def warmup(self, src_hw: tuple, batch: Optional[int] = None) -> None:
@@ -267,11 +333,13 @@ class Predictor:
         b = self._bucket(batch) if batch else self.batch_buckets[0]
         src_hw = tuple(src_hw)
         with self._lock:
-            stage = self._stage(b, src_hw)
-            if self.device.type == "cuda":
-                self._graph(b, src_hw, False).run(0)
-            else:
-                self._body(*stage.dev, quant=False)
+            for r in range(len(self._replicas)):
+                stage = self._stage(b, src_hw, r)
+                if self.device.type == "cuda":
+                    self._graph(b, src_hw, False, r).run(0)
+                else:
+                    self._body(*stage.dev, quant=False,
+                               variables=self._folded_r[r])
 
     def __call__(self, v_imgs: np.ndarray, l_imgs: Optional[np.ndarray] = None):
         """v_imgs / l_imgs: (N, H, W, 3) uint8 RGB at native size.

@@ -12,8 +12,16 @@ JAX package's layout) and ``results.txt``. ``--snow`` (the snowflake
 cutout, with CLAHE) and ``--clahe`` (CLAHE in training and evaluation)
 change the data as the JAX package's flags do. ``--steps-per-dispatch K``
 runs K optimizer steps a call (on CUDA one captured graph of the step
-replayed K times). ``--no-dp`` (queue 1 item 12) raises
-``NotImplementedError``.
+replayed K times).
+
+Data-parallel training runs one process a card:
+
+    DYK_DISTRIBUTED=1 python -m torch.distributed.run --nproc_per_node N \
+        -m double_yolo_kaist_torch.train --batch-size <global batch> ...
+
+Each rank then trains on ``cuda:$LOCAL_RANK`` (NCCL; gloo with
+``--device cpu``), and rank 0 alone writes. ``--no-dp`` trains each
+process alone, as the JAX package's flag turns its mesh off.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ from .. import resolve_device
 from ..common import DEFAULT_HYP, build_model, resolve_cfg
 from ..config.parser import load_hyp, parse_data_cfg
 from ..data.dataset import KaistDataset
-from .trainer import DATA_PARALLEL_NOT_PORTED, Trainer
+from ..parallel.multihost import maybe_initialize_distributed
+from .trainer import Trainer
 
 
 def str2bool(v: str) -> bool:
@@ -84,8 +93,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat-segments", type=int, default=0,
                    help="gradient-checkpoint the forward into N segments")
     p.add_argument("--no-dp", action="store_true",
-                   help="disable data parallelism (not ported: the port "
-                        "trains on one device)")
+                   help="train this process alone even when launched in a "
+                        "torch.distributed group")
     p.add_argument("--device-cache", choices=("auto", "on", "off"),
                    default="auto",
                    help="keep the split's u8 pairs resident (device memory "
@@ -98,10 +107,23 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     opt = make_parser().parse_args(argv)
-    # what is not ported, and a missing card, refuse before any work
-    if opt.no_dp:
-        raise NotImplementedError(DATA_PARALLEL_NOT_PORTED)
-    resolve_device(opt.device)
+    # a missing card refuses before any work
+    dev = resolve_device(opt.device)
+    # opt-in (DYK_DISTRIBUTED=1, as torch.distributed.run's ranks are
+    # launched); one process trains as it always did
+    owned = not torch.distributed.is_initialized()
+    joined = maybe_initialize_distributed(
+        backend="nccl" if dev.type == "cuda" else "gloo")
+    if joined and dev.type == "cuda" and dev.index is None:
+        opt.device = f"cuda:{torch.cuda.current_device()}"
+    try:
+        _train(opt)
+    finally:
+        if joined and owned:
+            torch.distributed.destroy_process_group()
+
+
+def _train(opt):
     opt.cfg = resolve_cfg(opt.cfg)
     hyp = load_hyp(opt.hyp)
     data_dict = parse_data_cfg(opt.data)
@@ -137,6 +159,7 @@ def main(argv=None):
                       accumulate=opt.accumulate, snowflake=opt.snow,
                       remat_segments=opt.remat_segments,
                       steps_per_dispatch=opt.steps_per_dispatch,
+                      data_parallel=not opt.no_dp,
                       device_cache={"auto": None, "on": True,
                                     "off": False}[opt.device_cache],
                       device=opt.device, variables=variables)

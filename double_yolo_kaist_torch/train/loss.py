@@ -96,7 +96,8 @@ def _last_wins_scatter(shape, lin, valid, values):
     return out[:n].reshape(shape)
 
 
-def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0):
+def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0,
+                 group=None):
     """The 3-component YOLO loss (JAX train/loss.py:60-160).
 
     Args:
@@ -108,9 +109,16 @@ def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0):
       hyp: box / obj / cls gains, cls_pw / obj_pw, iou_t, fl_gamma and
         optionally 'ciou' (reference hyp.scratch.4.yaml).
       gr: IoU ratio of the objectness targets (reference train.py:171).
+      group: a ``torch.distributed`` group whose ranks each hold an equal
+        share of the batch. The normalisers are then the whole batch's,
+        as JAX's global-batch loss takes them (loss.py:110, 134, 146,
+        154): the match count all-reduced, the cell count the ranks' sum.
+        Each rank's result is its share of the global loss: the shares
+        sum to it, and so do their gradients.
 
     Returns {box_loss, obj_loss, class_loss}, scalars, hyp-weighted.
     """
+    ranks = 1 if group is None else torch.distributed.get_world_size(group)
     B, T = targets.shape[:2]
     dev = raw_heads[0].device
     use_ciou = "ciou" in hyp
@@ -145,7 +153,13 @@ def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0):
 
         # every (image, target, anchor) candidate, in (b, t, a) order
         m = match.reshape(-1)
-        w_cnt = torch.clamp_min(m.sum(), 1)
+        n_match = m.sum()
+        if group is not None:
+            # in the loss's float type: gloo reduces CUDA floats; counts
+            # are exact there
+            n_match = n_match.to(fdt)
+            torch.distributed.all_reduce(n_match, group=group)
+        w_cnt = torch.clamp_min(n_match, 1)
         bi = torch.arange(B, device=dev)[:, None, None].expand(B, T, na) \
             .reshape(-1)
         ai = torch.arange(na, device=dev).expand(B, T, na).reshape(-1)
@@ -182,7 +196,10 @@ def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0):
         obj_l = bce_with_logits(pi[..., 4], tobj, hyp["obj_pw"])
         if fl_gamma > 0:
             obj_l = obj_l * focal_scale(pi[..., 4], tobj, fl_gamma)
-        lobj = lobj + obj_l.mean()
+        if group is None:
+            lobj = lobj + obj_l.mean()
+        else:
+            lobj = lobj + obj_l.sum() / (obj_l.numel() * ranks)
 
         if nc > 1:
             onehot = torch.arange(nc, device=dev) == cls_f[:, None]

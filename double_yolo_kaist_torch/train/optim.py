@@ -106,8 +106,10 @@ def _count(n: int = 0, device=None) -> torch.Tensor:
 
 
 def _zeros_like(tree):
-    return TR.map_leaves(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                         tree)
+    """fp32 zeros shaped like each leaf (float64 for float64 leaves, as
+    optax's state follows the params under ``jax_enable_x64``)."""
+    return TR.map_leaves(lambda p: torch.zeros_like(
+        p, dtype=torch.promote_types(p.dtype, torch.float32)), tree)
 
 
 class Optimizer:

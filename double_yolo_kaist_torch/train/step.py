@@ -23,6 +23,7 @@ import torch
 from .. import resolve_device
 from ..ops import _build
 from ..models import graph
+from ..parallel import multihost as MH
 from ..utils import tree as TR
 from . import loss as LS
 from . import optim as OPT
@@ -63,7 +64,7 @@ def global_norm(tensors) -> torch.Tensor:
 
 def make_train_step(ir, hyp: dict, tx, *, gr: float = 1.0,
                     compute_dtype=torch.bfloat16, ema_decay: float = 0.9999,
-                    remat_segments: int = 0):
+                    remat_segments: int = 0, group=None):
     """(state, batch, rng) -> (new state, metrics): one optimizer step.
 
     batch: {"v": (B, H, W, 3), "l": (B, H, W, 3) [dual-stream only],
@@ -71,7 +72,15 @@ def make_train_step(ir, hyp: dict, tx, *, gr: float = 1.0,
     [0, 1] on the params' device. ``rng``: a torch.Generator for dropout,
     or None. The metrics (``METRICS``) are fp32 scalars on the device;
     ``grad_norm`` is the norm of the raw gradients, before the freeze mask
-    and the decay. The params are updated in place."""
+    and the decay. The params are updated in place.
+
+    ``group``: data parallelism over a ``torch.distributed`` group whose
+    ranks each step on an equal share of the global batch: BN and the
+    loss take the global batch's statistics and normalisers, each rank's
+    loss is its share of the global loss, and the gradients and loss
+    terms are summed over the ranks in one all-reduce of one flat buffer
+    before the update, so every rank applies the global batch's step and
+    reports its metrics (JAX's jitted step over a sharded batch)."""
     specs = LS.head_specs(ir)
 
     def step_fn(state: TrainState, batch: dict, rng=None):
@@ -82,13 +91,15 @@ def make_train_step(ir, hyp: dict, tx, *, gr: float = 1.0,
         raws, new_bn = graph.apply(
             ir, {"params": state.params, "state": state.bn_state}, xv, xl,
             train=True, rng=rng, compute_dtype=compute_dtype,
-            remat_segments=remat_segments)
+            remat_segments=remat_segments, group=group)
         ld = LS.compute_loss(raws, batch["targets"], batch["tmask"], specs,
-                             hyp, gr)
+                             hyp, gr, group=group)
         total = LS.total_loss(ld)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
+        if group is not None:
+            grads, ld, total = _sum_over_ranks(grads, ld, group)
         with torch.no_grad():
             gnorm = global_norm(grads)
             updates, opt_state = tx.update(grads, state.opt_state, leaves)
@@ -103,6 +114,25 @@ def make_train_step(ir, hyp: dict, tx, *, gr: float = 1.0,
                           ema), metrics
 
     return step_fn
+
+
+def _sum_over_ranks(grads, ld, group):
+    """The gradients and loss terms summed over ``group``'s ranks, in one
+    all-reduce of one flat buffer (one collective a step, inside a
+    captured step's graph under NCCL)."""
+    names = list(ld)
+    parts = [g.reshape(-1) for g in grads] + [ld[k].detach().reshape(1)
+                                              for k in names]
+    dtype = parts[0].dtype
+    for p in parts[1:]:
+        dtype = torch.promote_types(dtype, p.dtype)
+    flat = torch.cat([p.to(dtype) for p in parts])
+    torch.distributed.all_reduce(flat, group=group)
+    out = list(flat.split([p.numel() for p in parts]))
+    grads = [o.view(g.shape).to(g.dtype) for o, g in zip(out, grads)]
+    ld = {k: o.reshape(()).to(ld[k].dtype)
+          for k, o in zip(names, out[len(grads):])}
+    return grads, ld, LS.total_loss(ld)
 
 
 def metrics_to_host(metrics: dict) -> dict:
@@ -166,15 +196,24 @@ class CapturedSteps:
     ``rng``: a CUDA generator for dropout, registered with each graph so
     that every replay draws new masks, or None."""
 
-    def __init__(self, step_fn, tx):
+    def __init__(self, step_fn, tx, group=None):
         self.step_fn = step_fn
         self.tx = tx
+        self.group = group
         self.graphs: dict = {}
         self.pool = None
         self.replays = 0
 
     def _capture(self, state: TrainState, batch: dict, rng) -> _StepGraph:
         dev = next(iter(batch.values())).device
+        if self.group is not None:
+            backend = MH.backend_of(self.group)
+            if backend != "nccl":
+                raise RuntimeError(
+                    f"several steps a dispatch capture the step's "
+                    f"collectives in a CUDA graph, which the {backend} "
+                    f"backend cannot do: train with NCCL, or with "
+                    f"steps_per_dispatch=1")
         static_batch = {k: v.clone() for k, v in batch.items()}
         static = TrainState(state.params, state.bn_state, state.opt_state,
                             state.step, state.ema)
@@ -265,7 +304,7 @@ def _on_cuda(state: TrainState) -> bool:
 
 def make_multi_step(ir, hyp: dict, tx, *, gr: float = 1.0,
                     compute_dtype=torch.bfloat16, ema_decay: float = 0.9999,
-                    remat_segments: int = 0):
+                    remat_segments: int = 0, group=None):
     """K optimizer steps a call (JAX step.py:103-133):
     (state, batches, rng) -> (state, stacked metrics), where every leaf of
     ``batches`` has a leading K axis and each metric comes back as (K,).
@@ -275,12 +314,17 @@ def make_multi_step(ir, hyp: dict, tx, *, gr: float = 1.0,
     static buffers (:class:`CapturedSteps`, kept as ``fn.captured``); the
     metrics stay on the device until the caller fetches them. On the CPU it
     runs K eager steps of :func:`make_train_step`. ``rng``: as for
-    :func:`make_train_step` (on CUDA a CUDA generator, or None)."""
+    :func:`make_train_step` (on CUDA a CUDA generator, or None).
+
+    ``group``: as for :func:`make_train_step`. Under NCCL the collectives
+    are captured in the step's graph (the warm-up steps before capture run
+    them too); gloo's cannot be captured, so on CUDA a gloo group
+    raises."""
     step_fn = make_train_step(ir, hyp, tx, gr=gr,
                               compute_dtype=compute_dtype,
                               ema_decay=ema_decay,
-                              remat_segments=remat_segments)
-    captured = CapturedSteps(step_fn, tx)
+                              remat_segments=remat_segments, group=group)
+    captured = CapturedSteps(step_fn, tx, group)
 
     def multi(state: TrainState, batches: dict, rng=None):
         k = next(iter(batches.values())).shape[0]
@@ -306,7 +350,8 @@ def augment_generator(seed: int, b0: int) -> torch.Generator:
 def make_fused_multi_step(ir, hyp: dict, tx, aug_fn, *, gr: float = 1.0,
                           compute_dtype=torch.bfloat16,
                           ema_decay: float = 0.9999, remat_segments: int = 0,
-                          images_in: bool = False, multi_step=None):
+                          images_in: bool = False, multi_step=None,
+                          group=None):
     """K steps a call with the augmentation in the same call (JAX
     step.py:136-238, without its ``double_buffer``).
 
@@ -324,10 +369,12 @@ def make_fused_multi_step(ir, hyp: dict, tx, aug_fn, *, gr: float = 1.0,
     graph of :func:`make_multi_step`; on the CPU, K eager steps.
     ``multi_step``: a :func:`make_multi_step` function whose step and
     graphs to share (the fused calls of several sizes then capture into
-    one memory pool); by default a new one."""
+    one memory pool); by default a new one, over ``group``. Under data
+    parallelism ``aug_fn`` is made with the rank's ``shard``: the call
+    takes the global batches' plans and each rank steps on its rows."""
     multi = multi_step or make_multi_step(
         ir, hyp, tx, gr=gr, compute_dtype=compute_dtype,
-        ema_decay=ema_decay, remat_segments=remat_segments)
+        ema_decay=ema_decay, remat_segments=remat_segments, group=group)
 
     def run(state, xs, aug_seed, rng, rows_at):
         k = len(xs["b0"])

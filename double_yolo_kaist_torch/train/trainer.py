@@ -17,8 +17,16 @@ from a fixed set of size buckets.
 replayed K times), the NaN check once a call. Where the split is resident
 (the device pool or the pinned host pool), the epoch gathers and augments
 inside that call (:meth:`Trainer._train_one_epoch_fused`), as the JAX
-package's fused epoch does. Not ported: data parallelism over several
-devices (ROADMAP.md, queue 1 item 12).
+package's fused epoch does.
+
+Data parallelism is one process a card under ``torch.distributed``
+(:mod:`..parallel.multihost`; JAX's mesh over the devices of one
+program): in a group of W > 1 processes every rank plans and draws the
+global batch and steps on its B / W rows of it, BN and the loss take the
+global batch's statistics, and one all-reduce a step sums the gradients,
+so every rank applies the global step. Only rank 0 writes checkpoints,
+``results.txt`` and TensorBoard; the in-train evaluation is split over
+the ranks and every rank gets the same metrics.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from ..data.pipeline import (make_train_augment_fn, prefetch,
 from ..eval.evaluator import evaluate_dataset
 from ..models import graph
 from ..models import weights as W
+from ..parallel import multihost as MH
 from ..utils import tree as TR
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import MetricLogger, ResultsWriter, TB_TAGS, make_tb_writer
@@ -44,9 +53,11 @@ from . import optim as OPT
 from .step import (TrainState, create_train_state, make_fused_multi_step,
                    make_multi_step, make_train_step, metrics_to_host)
 
-DATA_PARALLEL_NOT_PORTED = (
-    "training over several devices is not ported yet (ROADMAP.md, queue 1 "
-    "item 12); the port trains on one device")
+ONE_PROCESS_A_CARD = (
+    "the port trains data-parallel with one process a card, not over "
+    "several devices of one process; launch DYK_DISTRIBUTED=1 python -m "
+    "torch.distributed.run --nproc_per_node <cards> -m "
+    "double_yolo_kaist_torch.train ...")
 EPOCH_SEED = 123      # the JAX trainer's PRNGKey(123), folded by epoch
 
 
@@ -87,14 +98,30 @@ class Trainer:
                  variables: dict | None = None):
         """``device``: None means ``cuda`` (the CPU only when asked for).
         ``variables``: the starting weights (default ``graph.init(ir,
-        seed)``)."""
+        seed)``).
+
+        ``data_parallel``: in a ``torch.distributed`` group of more than
+        one process, train data-parallel over it (``batch_size`` is the
+        global batch and must split evenly over the ranks); False trains
+        this process alone, as JAX's ``--no-dp`` does. ``devices``: a list
+        of several raises ``ValueError`` (the port trains one process a
+        card; launch it under ``torch.distributed.run``)."""
         self.clahe = bool(getattr(train_dataset, "clahe", False))
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got "
                              f"{steps_per_dispatch}")
-        if data_parallel and devices is not None and len(devices) > 1:
-            raise NotImplementedError(DATA_PARALLEL_NOT_PORTED)
+        if devices is not None and len(devices) > 1:
+            raise ValueError(ONE_PROCESS_A_CARD)
         self.device = resolve_device(device)
+        self.group = MH.data_group(data_parallel)
+        self.ranks = 1 if self.group is None else MH.process_count()
+        self.rank = MH.process_index() if self.group is not None else 0
+        if batch_size % self.ranks:
+            raise ValueError(f"batch size {batch_size} does not split over "
+                             f"{self.ranks} data-parallel ranks")
+        if self.group is not None:
+            print(f"data parallel: {self.ranks} processes "
+                  f"({batch_size // self.ranks} images each)", flush=True)
         self.ir = ir
         self.hyp = dict(hyp)
         self.epochs = epochs
@@ -130,7 +157,7 @@ class Trainer:
         make = make_multi_step if steps_per_dispatch > 1 else make_train_step
         self.step_fn = make(ir, self.hyp, self.tx,
                             compute_dtype=compute_dtype,
-                            remat_segments=remat_segments)
+                            remat_segments=remat_segments, group=self.group)
         # fused K-step calls, made when a resident pool serves the epoch:
         # one a (tier, size), sharing the step's captured graphs
         self._fused_steps: dict = {}
@@ -176,8 +203,25 @@ class Trainer:
             self.epochs += loaded["epoch"]    # fine-tune extension
         if loaded["training_results"]:
             self.results.write_text(loaded["training_results"])
+        self._sync_state()
+
+    def _sync_state(self):
+        """Under data parallelism, rank 0's state on every rank (after a
+        resume, or weights set from outside)."""
+        if self.group is not None:
+            MH.broadcast_tensors(TR.leaves(self.state.params)
+                                 + TR.leaves(self.state.bn_state)
+                                 + TR.leaves(self.state.opt_state)
+                                 + TR.leaves(self.state.ema), self.group)
+
+    @property
+    def _shard(self):
+        """(rank, ranks) of the data-parallel batch split, or None."""
+        return None if self.group is None else (self.rank, self.ranks)
 
     def save(self, path: str, epoch: int):
+        if not MH.is_main_process():
+            return
         tree = self._jax_tree()
         save_checkpoint(path, params=tree["params"],
                         bn_state=tree["bn_state"],
@@ -192,7 +236,8 @@ class Trainer:
         """Dropout's generator for call ``i`` of the epoch seeded ``seed``."""
         if not self._dropout:
             return None
-        s = seed * 1_000_003 + i
+        # under data parallelism each rank draws its own masks
+        s = seed * 1_000_003 + i + self.rank * 7_919
         if self.device.type != "cuda":
             return torch.Generator().manual_seed(s)
         if self._cuda_rng is None:
@@ -220,7 +265,7 @@ class Trainer:
             seed_epoch=epoch, device_cache=self.device_cache,
             # K stacked batches share one shape: the multi-scale bucket is
             # drawn once a group
-            size_every=K, device=self.device))
+            size_every=K, device=self.device, shard=self._shard))
         if K > 1:
             batches = _group_batches(batches, K)
         last = {}
@@ -253,7 +298,8 @@ class Trainer:
             aug = make_train_augment_fn(src_hw, size, self.hyp,
                                         snowflake=self.snowflake,
                                         clahe=self.clahe,
-                                        from_pool=tier == "hbm")
+                                        from_pool=tier == "hbm",
+                                        shard=self._shard)
             # every size and tier shares the step's graphs and their pool
             self._fused_steps[key] = make_fused_multi_step(
                 self.ir, self.hyp, self.tx, aug,
@@ -330,7 +376,8 @@ class Trainer:
     def evaluate(self, batch_size: int | None = None, use_ema: bool = False):
         """In-train COCO eval of the BN-folded model; ``use_ema`` evaluates
         the EMA weights (reference ModelEMA's intended use,
-        torch_utils.py:77-126)."""
+        torch_utils.py:77-126). Under data parallelism the batches are
+        split over the ranks and every rank returns the same metrics."""
         params = (self.state.ema["params"]
                   if use_ema and self.state.ema is not None
                   else self.state.params)
@@ -342,9 +389,10 @@ class Trainer:
                                     batch_size=batch_size or self.batch_size,
                                     compute_dtype=self.compute_dtype,
                                     device_cache=self.device_cache,
-                                    device=self.device)
+                                    device=self.device, group=self.group)
 
     def fit(self, save_best: bool = True, notest: bool = False):
+        self._sync_state()
         for epoch in range(self.start_epoch, self.epochs):
             mloss, lr = self.train_one_epoch(epoch)
             if notest and epoch != self.epochs - 1:

@@ -17,9 +17,9 @@ import time
 
 
 def _is_main_process() -> bool:
-    import torch.distributed as dist
-    return not (dist.is_available() and dist.is_initialized()
-                and dist.get_rank() != 0)
+    # looked up at each call, so that a test can stand in for it
+    from ..parallel import multihost
+    return multihost.is_main_process()
 
 
 class SmoothedValue:

@@ -334,12 +334,36 @@ def test_bench_new_int8_modes(capsys, mode):
     assert "bf16_fps" not in out
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--cfg", MNV3_NAME, "--dp", "2"], "item 12")],
+@pytest.mark.parametrize("argv, replicas", [
+    (["--cfg", MNV3_NAME, "--dp", "2"], 2)],
     ids=["argv2-item 12"])     # the id it always had
-def test_serve_refuses_what_is_not_ported(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TSV.main(argv + ["--device", "cpu"])
+def test_serve_refuses_what_is_not_ported(monkeypatch, argv, replicas):
+    """``serve --dp 2 --device cpu`` (it raised before data parallelism was
+    ported) builds a Predictor on a mesh of two CPU replicas, its bucket
+    rounded up to 2, that answers a frame as the one-replica server does;
+    ``--dp -1`` on the CPU is one replica."""
+    kw = ["--img-size", "96", "--no-warmup"]
+    pred = _serve_built(monkeypatch, argv + kw)
+    one = _serve_built(monkeypatch, argv[:2] + kw)
+    assert pred.mesh.size == replicas and one.mesh is None
+    assert pred.batch_buckets == [2] and one.batch_buckets == [1]
+    frames = np.random.default_rng(8).integers(0, 256, (1, 64, 96, 3),
+                                               dtype=np.uint8)
+    for (b, s, c), (rb, rs, rc) in zip(pred(frames), one(frames)):
+        np.testing.assert_array_equal(b, rb)
+        np.testing.assert_array_equal(s, rs)
+        np.testing.assert_array_equal(c, rc)
+    assert _serve_built(monkeypatch, argv[:2] + ["--dp", "-1"]
+                        + kw).mesh.size == 1
+
+
+def test_serve_exported_refuses_dp():
+    """``--exported`` bakes the replica layout in: ``--dp`` is refused
+    with the JAX package's message, before the artifact is read."""
+    with pytest.raises(SystemExit, match="one server per card instead of "
+                                         "--dp"):
+        TSV.main(["--exported", "absent.zip", "--dp", "2", "--device",
+                  "cpu"])
 
 
 def _serve_built(monkeypatch, argv):

@@ -374,13 +374,15 @@ def test_entry_point_cpu(model, tmp_path, capsys):
 
 
 def test_not_ported_raise(model, tmp_path):
-    """What is not ported raises NotImplementedError naming its ROADMAP
-    item: mesh (12). Lifted since: folded=False runs the unfolded forward,
-    build_model without weights starts from graph.init, CLAHE and the
-    quantized artifacts are ported (the tests below)."""
+    """Nothing of the evaluator is left unported: ``mesh`` runs data-
+    parallel (``tests/test_torch_dp_inference.py``), and a mesh that is
+    not a ``parallel.mesh.Mesh`` is refused with a TypeError. Lifted
+    before it: folded=False runs the unfolded forward, build_model without
+    weights starts from graph.init, CLAHE and the quantized artifacts are
+    ported (the tests below)."""
     name, _, _, tir, tv, path = model
     ds = KaistDataset(path, IMG, 4, rect=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="Mesh"):
         TE.evaluate_dataset(tir, tv, ds, device="cpu", mesh=object())
     ir, variables = TEV.build_model(MNV3, "")
     assert sorted(TCK._flatten(variables)) == sorted(

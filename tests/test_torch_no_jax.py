@@ -36,7 +36,8 @@ def test_port_imports_no_jax():
                  "data.clahe", "calibrate", "ops.library", "ops.act",
                  "export", "export_model", "cuda_graphs", "microbatch",
                  "overfit_check", "models.builder", "utils.general",
-                 "utils.npz"):
+                 "utils.npz", "parallel", "parallel.mesh",
+                 "parallel.multihost"):
         assert f"double_yolo_kaist_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -3,9 +3,8 @@ double_yolo_kaist_torch.train``, on the CPU (``--device cpu``): a 4-pair
 split of the tiny cfg for 2 epochs writes ``last``, ``best`` and
 ``results.txt``; ``--resume`` trains on from ``last``; ``--snow`` and
 ``--clahe`` train with the cutout and CLAHE; ``--steps-per-dispatch 2``
-trains, fused and grouped; what is not ported raises
-``NotImplementedError`` naming its ROADMAP item; without CUDA an
-unset ``--device`` refuses. Also the numpy copies the anchor rewrite needs
+trains, fused and grouped; ``--no-dp`` trains; without CUDA an unset
+``--device`` refuses. Also the numpy copies the anchor rewrite needs
 (``train/anchors.py``, ``config/writer.py``), equal to JAX's on a seed,
 and ``multi_scale_buckets``.
 """
@@ -163,11 +162,16 @@ def test_train_snow_clahe(split, flag, monkeypatch):
     assert calls["cutout"] == (2 if flag == "--snow" else 0)
 
 
-@pytest.mark.parametrize("extra,item", [(["--no-dp"], "item 12")],
+@pytest.mark.parametrize("extra,name", [(["--no-dp"], "nodp")],
                          ids=["extra3-item 12"])  # the id it always had
-def test_not_ported_raise(split, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        main(argv(split, "--epochs", "1", *extra))
+def test_not_ported_raise(split, extra, name):
+    """``--no-dp``, which raised before data parallelism was ported, trains
+    one epoch (F4): as in the JAX package it only turns data parallelism
+    off."""
+    root, _, _ = split
+    main(argv(split, "--epochs", "1", "--name", name, *extra))
+    assert (root / "runs" / name / "last" / "manifest.json").exists()
+    assert [x.split()[0] for x in results(root, name)] == ["epoch:0"]
 
 
 @pytest.mark.parametrize("cache", ["on", "off"])
