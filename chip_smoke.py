@@ -76,7 +76,8 @@ result line):
      checkpoint directory) answering 32 concurrent raw-frame ``/detect``
      requests with the in-process Predictor's detections, its ``/healthz``
      showing a mean micro-batch above 1; ``detect --no-figure`` on 8 pairs
-     of phase 9's split, its count per image the in-process Predictor's;
+     of phase 9's split (run beside ``serve``), its count per image the
+     in-process Predictor's;
      ``bench --bf16`` and ``bench --int8``, each printing its JSON line; and
      in process a MicroBatcher over the flagship bf16 graph Predictor with
      16 submitter threads, giving what unbatched requests give;
@@ -93,14 +94,15 @@ result line):
      and the peak memory; MNv3's step at the same shape;
  13. training end to end: the Trainer in process (flagship bf16, bs 8, one
      epoch on phase 9's split and its evaluation), whose launch counts
-     must show K1 and K2 once and K3 twice per evaluation batch; then
-     ``python -m double_yolo_kaist_torch.train`` as subprocesses: 2 epochs
-     (``last``, ``best``, ``results.txt``), ``--resume <out>/last --epochs
-     3`` (one more epoch), and MNv3 fine-tuned with ``--ema`` for 1 epoch
-     from phase 9's checkpoint (SGD); their checkpoints hold the JAX package's
-     layout (every key of params, BN state, the Adam or SGD optimizer
-     state and the EMA; ``load_checkpoint`` takes them all); ``python -m
-     double_yolo_kaist_torch.evaluate`` on the flagship's and MNv3's
+     must show K1 and K2 once and K3 twice per evaluation batch; beside
+     it ``python -m double_yolo_kaist_torch.train`` as subprocesses: 2
+     epochs (``last``, ``best``, ``results.txt``), ``--resume <out>/last
+     --epochs 3`` (one more epoch), and MNv3 fine-tuned with ``--ema`` for
+     1 epoch from phase 9's checkpoint (SGD); their checkpoints hold the
+     JAX package's layout (every key of params, BN state, the Adam or SGD
+     optimizer state and the EMA; ``load_checkpoint`` takes them all);
+     ``python -m double_yolo_kaist_torch.evaluate`` on the flagship's and
+     MNv3's
      ``last`` at the trainer's batch size must print the last mAP of its
      results.txt and give the detections of the checkpoint scored in
      process;
@@ -176,10 +178,30 @@ result line):
      in-process Predictor; the two gloo ranks run ``Trainer.fit`` for an
      epoch of 8 pairs: rank 0 alone writes, equal params, the same
      in-train mAP, K1 and K2 launched by each rank's evaluation.
+ 17. slice 11 (``--only spatial`` runs it alone): the 2-D data x space
+     path on the one card. (a) Four gloo ranks on cuda:0 at mesh (2, 2),
+     spawned, against one process on the card at the whole global batch
+     of 4: the tiny cfg's and the mini-flagship's fp32 eval forwards at
+     64x64 (TF32 off) within rtol and atol 2e-4, K1 launched once by each
+     rank's gathering forward; the tiny cfg's first fp32 SGD step, loss
+     terms within 1e-4; the mini-flagship's first float64 step (params, BN
+     state, momentum traces) within 1e-9 of each array's largest
+     magnitude. (b) The flagship at full width: its fp32 2-D loss at
+     global bs 4 of 256x320 within 1e-3 relative of one process; its bf16
+     Adam step at global bs 4 of 512x640, one step after a warm-up: step
+     ms, halo exchanges a step, their bytes and their ms (CUDA events
+     around each), the gradient all-reduce's ms, peak GiB a rank (one
+     card: not a scaling number). (c) ``python -m
+     double_yolo_kaist_torch.dryrun 4`` exits 0 with its three lines (the
+     whole script starts it beside phase 13's untimed subprocesses and
+     holds it here; ``--only spatial`` runs it in this phase). (d)
+     A Predictor on the mesh ["cuda:0"] * 4 of shape (2, 2): buckets
+     (1, 8) become [2, 8], requests of 3 and 8 frames bit-equal to a 1-D
+     mesh of 2, K1 and K2 once a replica.
 ``python3 chip_smoke.py --only train`` runs phases 12 and 13 alone,
 ``--only int8aug`` phases 8 and 14, ``--only slice9`` phase 15, ``--only
-dp`` phase 16 (no result line). After each phase the
-script prints its elapsed time. Then a JSON line of
+dp`` phase 16, ``--only spatial`` phase 17 (no result line). After each
+phase the script prints its elapsed time. Then a JSON line of
 kernel numbers, the nvidia-smi line, and last {"ok": true, "device":
 {...}}.
 
@@ -198,10 +220,12 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -2100,24 +2124,40 @@ def _serve_subprocess(torch, dev, mnv3_ir, mnv3_vars, ckpt):
     return stats
 
 
-def _detect_subprocess(dev, mnv3_ir, mnv3_vars, ckpt, root):
-    """``detect --no-figure`` on 8 pairs of phase 9's split."""
+def _detect_start(ckpt, root):
+    """Start ``detect --no-figure`` on 8 pairs of phase 9's split; returns
+    (the process, its start time) for :func:`_detect_subprocess`."""
+    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.detect", "--cfg",
+           MNV3_NAME, "--weights", ckpt, "--source",
+           os.path.join(root, "images", "eval"), "--max-images", "8",
+           "--no-figure"]
+    return (subprocess.Popen(cmd, cwd=ROOT,
+                             env=dict(os.environ, PYTHONPATH=ROOT),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True), time.perf_counter())
+
+
+def _detect_subprocess(dev, mnv3_ir, mnv3_vars, root, started):
+    """``detect``'s counts per image (``started``: :func:`_detect_start`)
+    against an in-process Predictor's."""
     import cv2
 
     from double_yolo_kaist_torch.detect import get_pair_paths
     from double_yolo_kaist_torch.serving import Predictor
     src = os.path.join(root, "images", "eval")
-    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.detect", "--cfg",
-           MNV3_NAME, "--weights", ckpt, "--source", src, "--max-images",
-           "8", "--no-figure"]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-                       capture_output=True, text=True, timeout=600)
-    lines = r.stdout.splitlines()
-    print(f"detect: exit {r.returncode} in {time.perf_counter() - t0:.1f} "
-          f"s; stdout:\n  " + "\n  ".join(lines), flush=True)
-    if r.returncode != 0:
-        raise AssertionError(f"detect failed:\n{r.stderr[-3000:]}")
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = out.splitlines()
+    print(f"detect: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; stdout:\n  "
+          + "\n  ".join(lines), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"detect failed:\n{err[-3000:]}")
     counts = {}
     for x in lines[:-2]:
         name, n = x.rsplit(": ", 1)
@@ -2223,9 +2263,16 @@ def phase_entry_points(torch, dev, launches, mnv3_ir, mnv3_vars,
     """The entry points as subprocesses, and the MicroBatcher in process.
     Returns (launch counts of the in-process run, numbers)."""
     counts, numbers = {}, {}
-    numbers["serve"] = _serve_subprocess(torch, dev, mnv3_ir, mnv3_vars,
-                                         ckpt)
-    _detect_subprocess(dev, mnv3_ir, mnv3_vars, ckpt, root)
+    # detect runs beside serve: both check answers, neither is a timing
+    started = _detect_start(ckpt, root)
+    try:
+        numbers["serve"] = _serve_subprocess(torch, dev, mnv3_ir, mnv3_vars,
+                                             ckpt)
+    except BaseException:
+        started[0].kill()
+        started[0].wait()
+        raise
+    _detect_subprocess(dev, mnv3_ir, mnv3_vars, root, started)
     numbers["bench"] = {leg: _bench_subprocess(leg)
                         for leg in ("--bf16", "--int8")}
     _microbatch(torch, launches, flagship_pred, counts)
@@ -2509,15 +2556,19 @@ def _leaves_np(tree):
     return [np.asarray(tree)]
 
 
-def phase_train_entry(torch, dev, launches, flagship_ir, root):
+def phase_train_entry(torch, dev, launches, flagship_ir, root,
+                      beside=None):
     """The trainer in process (flagship bf16, bs 8, one epoch with its
-    evaluation, launch counts), then ``python -m
+    evaluation, launch counts), beside ``python -m
     double_yolo_kaist_torch.train`` as subprocesses on phase 9's split:
     2 epochs, a resume to 3, and beside them MNv3 fine-tuned with
     ``--ema``; ``evaluate``
     on each ``last`` at the trainer's batch size must print results.txt's
-    last mAP; the checkpoints hold the JAX layout. Returns the launch
-    counts of the in-process run."""
+    last mAP; the checkpoints hold the JAX layout. ``beside``, where
+    given, is called once the in-process run is counted; its work runs
+    while the subprocesses end (nothing here is timed), and the callable
+    it returns, which waits for that work, is called before this phase
+    ends. Returns the launch counts of the in-process run."""
     from double_yolo_kaist_torch.config.parser import load_hyp
     from double_yolo_kaist_torch.data.dataset import KaistDataset
     from double_yolo_kaist_torch.train.trainer import Trainer
@@ -2530,41 +2581,18 @@ def phase_train_entry(torch, dev, launches, flagship_ir, root):
     hyp["obj"] *= TRAIN_HW / 320.0
     runs = os.path.join(root, "runs")
 
-    # the main path in process: one epoch and its evaluation
-    train_ds = KaistDataset(split, TRAIN_HW, TRAIN_BS, augment=True, hyp=hyp,
-                            single_cls=True)
-    val_ds = KaistDataset(split, TRAIN_HW, TRAIN_BS, hyp=hyp, rect=True,
-                          single_cls=True)
-    n_batches = len(train_ds) // TRAIN_BS
-    n_eval = -(-len(val_ds) // TRAIN_BS)
-    trainer = Trainer(flagship_ir, hyp, epochs=1, batch_size=TRAIN_BS,
-                      img_size=TRAIN_HW, train_dataset=train_ds,
-                      val_dataset=val_ds, out_dir=runs, name="inproc",
-                      device=dev)
-    launches.clear()
-    t0 = time.perf_counter()
-    best = trainer.fit()
-    torch.cuda.synchronize()
-    counts = dict(launches)
-    want = {"decode_head": n_eval, "nms_indices": n_eval,
-            "stem_conv_s2": 2 * n_eval, "qgemm": 0}
-    got = {k: counts.get(k, 0) for k in want}
-    print(f"train in process: flagship bf16, {n_batches} steps + eval of "
-          f"{len(val_ds)} frames in {time.perf_counter() - t0:.1f} s, best "
-          f"mAP {best:.4f}; launches {got} (want {want})", flush=True)
-    if got != want:
-        raise AssertionError("train in process: launch counts")
-    del trainer
-
-    # the entry point as subprocesses (nothing timed): the flagship's runs
-    # and, beside them, the shorter --ema run: MNv3 from its trained
-    # weights (phase 9's checkpoint), one epoch of SGD (Adam's first steps
-    # at lr 1e-3 undo trained weights); its mAP is not 0, so that
-    # evaluate's reproduction of it means something
+    # the entry point as subprocesses (nothing timed), started first: the
+    # flagship's runs and, beside them, the shorter --ema run: MNv3 from
+    # its trained weights (phase 9's checkpoint), one epoch of SGD (Adam's
+    # first steps at lr 1e-3 undo trained weights); its mAP is not 0, so
+    # that evaluate's reproduction of it means something. Their in-process
+    # halves (evaluate_last) wait for the counted run below to end: they
+    # launch kernels in this process
     base = [sys.executable, "-m", "double_yolo_kaist_torch.train", "--cfg",
             "Double-YOLOv4-Fshare-Global-CSE3", "--data", data,
             "--img-size", str(TRAIN_HW), "--batch-size", str(TRAIN_BS),
             "--out-dir", runs]
+    counted = threading.Event()
 
     def mnv3_ema():
         ckpt = os.path.join(root, "mnv3_ckpt")
@@ -2573,11 +2601,11 @@ def phase_train_entry(torch, dev, launches, flagship_ir, root):
              "train MNv3 --ema --sgd, 1 epoch from its trained weights")
         _check_checkpoint(os.path.join(runs, "mnv3", "last"), ema=True,
                           sgd=True)
+        counted.wait()
         if _evaluate_last(os.path.join(runs, "mnv3"), MNV3_NAME, data) <= 0:
             raise AssertionError("train MNv3: mAP 0 after fine-tuning")
 
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        ema = pool.submit(mnv3_ema)
+    def resumed():
         out = os.path.join(runs, "t2")
         _run(base + ["--epochs", "2", "--name", "t2"], "train 2 epochs")
         for name in ("last", "best", "results.txt"):
@@ -2595,8 +2623,48 @@ def phase_train_entry(torch, dev, launches, flagship_ir, root):
         if len(res) != 3 or not res[-1].startswith("epoch:2 ") or epoch != 2:
             raise AssertionError("train: the resume did not train epoch 2")
         _check_checkpoint(os.path.join(out, "last"), ema=False)
+        counted.wait()
         _evaluate_last(out, "Double-YOLOv4-Fshare-Global-CSE3", data)
-        ema.result()
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        chains = [pool.submit(mnv3_ema), pool.submit(resumed)]
+        try:
+            # the main path in process: one epoch and its evaluation
+            train_ds = KaistDataset(split, TRAIN_HW, TRAIN_BS, augment=True,
+                                    hyp=hyp, single_cls=True)
+            val_ds = KaistDataset(split, TRAIN_HW, TRAIN_BS, hyp=hyp,
+                                  rect=True, single_cls=True)
+            n_batches = len(train_ds) // TRAIN_BS
+            n_eval = -(-len(val_ds) // TRAIN_BS)
+            trainer = Trainer(flagship_ir, hyp, epochs=1,
+                              batch_size=TRAIN_BS, img_size=TRAIN_HW,
+                              train_dataset=train_ds, val_dataset=val_ds,
+                              out_dir=runs, name="inproc", device=dev)
+            launches.clear()
+            t0 = time.perf_counter()
+            best = trainer.fit()
+            torch.cuda.synchronize()
+            counts = dict(launches)
+        finally:
+            counted.set()
+        want = {"decode_head": n_eval, "nms_indices": n_eval,
+                "stem_conv_s2": 2 * n_eval, "qgemm": 0}
+        got = {k: counts.get(k, 0) for k in want}
+        print(f"train in process: flagship bf16, {n_batches} steps + eval "
+              f"of {len(val_ds)} frames in {time.perf_counter() - t0:.1f} "
+              f"s (beside the entry points' runs), best mAP {best:.4f}; "
+              f"launches {got} (want {want})", flush=True)
+        if got != want:
+            raise AssertionError("train in process: launch counts")
+        del trainer
+        torch.cuda.empty_cache()
+        wait = beside() if beside is not None else None
+        try:
+            for c in chains:
+                c.result()
+        finally:
+            if wait is not None:
+                wait()
     return counts
 
 
@@ -4281,6 +4349,516 @@ def _only_dp(torch, dev, mnv3_ir, flagship_ir) -> int:
     return 0
 
 
+# ------------------------------------------------ phase 17: data x space
+
+SP_MESH = (2, 2)              # (data, space): four gloo ranks on cuda:0
+SP_TINY_HW = 64
+SP_FLAGSHIP_F32_HW = (256, 320)
+SP_FLAGSHIP_HW = (512, 640)
+SP_BS = 4                     # global batch of every 2-D step and forward
+SP_F64_BOUND = 1e-9           # relative to each array's largest magnitude
+SP_FWD_TOL = 2e-4             # rtol and atol, tests/test_spatial_sharding.py
+SP_LOSS_TOL = 1e-4            # absolute, the tiny step's loss terms
+SP_FLAGSHIP_LOSS_REL = 1e-3
+SP_HYP = {"box": 3.54, "obj": 64.3, "cls": 37.4, "cls_pw": 1.0,
+          "obj_pw": 1.0, "iou_t": 0.2, "fl_gamma": 0.0, "ciou": 1.0,
+          "momentum": 0.937, "weight_decay": 0.05, "lr0": 0.01, "lrf": 0.1}
+# the tiny step's boxes (cx, cy) an image: the bands split at cy 0.5,
+# where one box sits, and the bands hold different match counts
+SP_BOXES = ([(0.3, 0.2), (0.6, 0.5)], [(0.5, 0.7)],
+            [(0.4, 0.1), (0.2, 0.3), (0.7, 0.8)], [(0.55, 0.45)])
+SP_TIMEOUT = 600
+
+
+def _sp_tiny_ir():
+    from double_yolo_kaist_torch.config.ir import compile_cfg
+    return compile_cfg(os.path.join(ROOT, "tests", "fixtures",
+                                    "tiny_dyolov3.cfg"), yolo_strides=[8, 4])
+
+
+def _sp_images(torch, seed, hw, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.random((SP_BS,) + hw + (3,), np.float32))
+            .to(dev) for _ in range(2)]
+
+
+def _sp_forward(torch, ir, xv, xl, dev, space=None):
+    """fp32 eval forward of graph.init(ir, SEED) (TF32 off): the decoded
+    rows of this rank's data shard, or of the whole batch."""
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.parallel import spatial as SP
+    if space is not None:
+        b = SP.local_batch({"v": xv, "l": xl}, space)
+        xv, xl = b["v"], b["l"]
+    v = graph.place_variables(graph.init(ir, SEED), dev)
+    with _NoTF32(torch), torch.inference_mode():
+        (io, _), _ = graph.apply(ir, v, xv, xl, train=False, space=space)
+    return io.cpu().numpy()
+
+
+def _sp_batch(torch, dev, hw, boxes=SP_BOXES, seed=SEED + 170):
+    rng = np.random.default_rng(seed)
+    t = np.zeros((SP_BS, 4, 5), np.float32)
+    m = np.zeros((SP_BS, 4), bool)
+    for b, bx in enumerate(boxes):
+        for k, (cx, cy) in enumerate(bx):
+            t[b, k] = [0, cx, cy, 0.25, 0.35]
+            m[b, k] = True
+    shape = (SP_BS,) + tuple(hw) + (3,)
+    return {"v": torch.from_numpy(rng.integers(0, 256, shape,
+                                               dtype=np.uint8)).to(dev),
+            "l": torch.from_numpy(rng.integers(0, 256, shape,
+                                               dtype=np.uint8)).to(dev),
+            "targets": torch.from_numpy(t).to(dev),
+            "tmask": torch.from_numpy(m).to(dev)}
+
+
+def _sp_first_step(torch, ir, dev, dtype, hw, space=None, leaves=True,
+                   variables=None):
+    """The first SGD step from ``variables`` (graph.init(ir, SEED) where
+    not given) on _sp_batch in ``dtype`` under deterministic algorithms
+    (TF32 off): its metrics and, with ``leaves``, every leaf of the new
+    state (params, BN state, momentum traces), as numpy."""
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.parallel import spatial as SP
+    from double_yolo_kaist_torch.train import optim as OPT
+    from double_yolo_kaist_torch.train import step as ST
+    from double_yolo_kaist_torch.utils import tree as TR
+    from double_yolo_kaist_torch.utils.general import deterministic
+    v = TR.map_leaves(lambda t: t.to(dev, dtype),
+                      variables or graph.init(ir, SEED))
+    params = TR.map_leaves(lambda p: p.clone().requires_grad_(True),
+                           v["params"])
+    tx = OPT.make_optimizer(SP_HYP, OPT.cosine_epoch_schedule(
+        SP_HYP["lr0"], SP_HYP["lrf"], 3, 2), sgd=True)
+    st = ST.TrainState(params, v["state"], tx.init(params), 0, None)
+    step = ST.make_train_step(ir, SP_HYP, tx, compute_dtype=dtype,
+                              space=space)
+    batch = _sp_batch(torch, dev, hw)
+    if space is not None:
+        batch = SP.local_batch(batch, space)
+    with deterministic():
+        st, m = step(st, batch)
+    out = {f"m/{k}": x.detach().double().cpu().numpy() for k, x in m.items()}
+    if leaves:
+        for j, t in enumerate(ST._state_leaves(st)):
+            out[f"leaf/{j:04d}"] = t.detach().double().cpu().numpy()
+    return out
+
+
+def _sp_counted_exchanges(torch):
+    """Wrap ``parallel.multihost.exchange`` (every halo and gather of the
+    2-D path goes through it) to count the exchanges, the bytes this rank
+    sends and, with CUDA events on the current stream around each (no
+    synchronisation added), their device-timeline ms. Returns the record,
+    a dict whose ``"events"`` the caller reads after a synchronise."""
+    from double_yolo_kaist_torch.parallel import multihost as MH
+    exchange = MH.exchange
+    rec = {"n": 0, "bytes": 0, "events": []}
+
+    def counted(table, outgoing, *a, **kw):
+        rec["n"] += 1
+        rec["bytes"] += sum(t.numel() * t.element_size()
+                            for t in outgoing.values())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = exchange(table, outgoing, *a, **kw)
+        end.record()
+        rec["events"].append((start, end))
+        return got
+
+    MH.exchange = counted
+    return rec
+
+
+def _sp_flagship_timing(torch, dev, flagship_ir, variables, space):
+    """The flagship at full width, bf16 Adam, a global batch of SP_BS at
+    SP_FLAGSHIP_HW over the mesh, from ``variables``: a warm-up step, then
+    one measured step: its ms (host clock, the metrics' fetch
+    synchronises), its halo exchanges, the bytes this rank sent in them
+    and their ms (CUDA events around each exchange:
+    :func:`_sp_counted_exchanges`); the ms of one all-reduce of the
+    gradients' flat buffer over the world; peak GiB."""
+    from double_yolo_kaist_torch.parallel import multihost as MH
+    from double_yolo_kaist_torch.parallel import spatial as SP
+    from double_yolo_kaist_torch.train import optim as OPT
+    from double_yolo_kaist_torch.train import step as ST
+    from double_yolo_kaist_torch.utils import tree as TR
+    torch.cuda.reset_peak_memory_stats(dev)
+    tx = OPT.make_optimizer(TRAIN_HYP, lambda c: torch.tensor(TRAIN_LR))
+    st = ST.create_train_state(flagship_ir, SEED, tx, device=dev,
+                               variables=variables)
+    step = ST.make_train_step(flagship_ir, TRAIN_HYP, tx,
+                              compute_dtype=torch.bfloat16, space=space)
+    rng = np.random.default_rng(SEED + 171)
+    mine = SP.local_batch(_train_batch(torch, rng, SP_BS, SP_FLAGSHIP_HW,
+                                       dev), space)
+    st, m = step(st, mine)                        # warm-up
+    losses = [ST.metrics_to_host(m)["loss"]]
+    exchange = MH.exchange
+    rec = _sp_counted_exchanges(torch)
+    try:
+        t0 = time.perf_counter()
+        st, m = step(st, mine)
+        losses.append(ST.metrics_to_host(m)["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        MH.exchange = exchange
+    torch.cuda.synchronize(dev)
+    halo_ms = sum(a.elapsed_time(b) for a, b in rec["events"])
+    flat = torch.zeros(sum(p.numel() for p in TR.leaves(st.params)),
+                       device=dev)
+    ar = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(flat, group=space.world)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms": step_ms, "halos_a_step": rec["n"],
+            "halo_ms_a_step": halo_ms,
+            "halo_bytes_sent_a_step": rec["bytes"],
+            "allreduce_ms_median": statistics.median(ar[1:]),
+            "grad_floats": flat.numel(),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "losses": losses}
+
+
+def _sp_rank_main(rank: int, root: str) -> None:
+    """One of the four gloo ranks of phase 17 (a) and (b), on cuda:0; its
+    results go to ``root/sp_rank<r>.npz`` and ``.json``."""
+    import torch
+
+    from double_yolo_kaist_torch.config.ir import compile_cfg
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.models.builder import build_mini_flagship
+    from double_yolo_kaist_torch.ops import _build
+    from double_yolo_kaist_torch.parallel import multihost as MH
+    from double_yolo_kaist_torch.parallel import spatial as SP
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    MH.maybe_initialize_distributed(
+        coordinator=f"file://{os.path.join(root, 'sp_rendezvous')}",
+        num_processes=SP_MESH[0] * SP_MESH[1], process_id=rank,
+        backend="gloo")
+    space = SP.make_space_shard(SP_MESH)
+    hw = (SP_TINY_HW, SP_TINY_HW)
+    tiny, mini = _sp_tiny_ir(), build_mini_flagship(img_size=SP_TINY_HW)
+    out = {}
+    _build.launches.clear()              # the 2-D path's two forwards
+    out["a tiny"] = _sp_forward(torch, tiny, *_sp_images(
+        torch, SEED + 172, hw, dev), dev, space)
+    out["c mini"] = _sp_forward(torch, mini, *_sp_images(
+        torch, SEED + 173, hw, dev), dev, space)
+    numbers = {"launches": dict(_build.launches)}    # read just after
+    for k, x in _sp_first_step(torch, tiny, dev, torch.float32, hw, space,
+                               leaves=False).items():
+        out[f"b {k}"] = x
+    for k, x in _sp_first_step(torch, mini, dev, torch.float64, hw,
+                               space).items():
+        out[f"d {k}"] = x
+    flagship = compile_cfg(FLAGSHIP_CFG)
+    fvars = graph.init(flagship, SEED)
+    numbers["flagship fp32 loss"] = float(_sp_first_step(
+        torch, flagship, dev, torch.float32, SP_FLAGSHIP_F32_HW, space,
+        leaves=False, variables=fvars)["m/loss"])
+    torch.cuda.empty_cache()
+    # the timing waits until the dryrun and the references have left the
+    # card (the main process writes sp_go)
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(root, "sp_go")):
+        if time.perf_counter() - t0 > SP_TIMEOUT:
+            raise AssertionError("no go for the 2-D timing")
+        time.sleep(0.2)
+    numbers["flagship bf16"] = _sp_flagship_timing(torch, dev, flagship,
+                                                   fvars, space)
+    np.savez(os.path.join(root, f"sp_rank{rank}.npz"), **out)
+    with open(os.path.join(root, f"sp_rank{rank}.json"), "w") as f:
+        json.dump(numbers, f)
+    torch.distributed.destroy_process_group()
+
+
+def _sp_spawn_ranks(root):
+    """Start the four gloo ranks of (a) and (b) (:func:`_sp_rank_main`),
+    their output to ``root/sp_rank<r>.log``."""
+    code = ("import sys; import chip_smoke; "
+            "chip_smoke._sp_rank_main(int(sys.argv[1]), sys.argv[2])")
+    procs = []
+    for r in range(SP_MESH[0] * SP_MESH[1]):
+        with open(os.path.join(root, f"sp_rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(r), root], cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=ROOT), stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs
+
+
+def _sp_references(torch, dev, flagship_ir):
+    """One process on the card, the whole global batch: what the ranks are
+    held against."""
+    from double_yolo_kaist_torch.models.builder import build_mini_flagship
+    hw = (SP_TINY_HW, SP_TINY_HW)
+    tiny, mini = _sp_tiny_ir(), build_mini_flagship(img_size=SP_TINY_HW)
+    return {
+        "a tiny": _sp_forward(torch, tiny, *_sp_images(
+            torch, SEED + 172, hw, dev), dev),
+        "c mini": _sp_forward(torch, mini, *_sp_images(
+            torch, SEED + 173, hw, dev), dev),
+        "b": _sp_first_step(torch, tiny, dev, torch.float32, hw,
+                            leaves=False),
+        "d": _sp_first_step(torch, mini, dev, torch.float64, hw),
+        "flagship fp32 loss": float(_sp_first_step(
+            torch, flagship_ir, dev, torch.float32, SP_FLAGSHIP_F32_HW,
+            leaves=False)["m/loss"])}
+
+
+def _sp_hold_ranks(ref, root, procs):
+    """(a) and (b): the four ranks (``procs``) against one process on the
+    card (``ref``: :func:`_sp_references`). Every rank has ended when this
+    returns. Returns (launch counts of the ranks' 2-D forwards, numbers)."""
+    try:
+        for p in procs:
+            p.wait(timeout=SP_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if not ref:
+        raise AssertionError("no one-process reference to hold the ranks to")
+    ranks = len(procs)
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(root, f"sp_rank{r}.log")) as f:
+                text = f.read()
+            raise AssertionError(f"space rank {r} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+    got = [dict(np.load(os.path.join(root, f"sp_rank{r}.npz")))
+           for r in range(ranks)]
+    nums = []
+    for r in range(ranks):
+        with open(os.path.join(root, f"sp_rank{r}.json")) as f:
+            nums.append(json.load(f))
+    b = SP_BS // SP_MESH[0]
+    errs = {"a tiny": 0.0, "c mini": 0.0, "b": 0.0, "d": 0.0}
+    failed = []
+    for r, g in enumerate(got):
+        d = r // SP_MESH[1]
+        for k in ("a tiny", "c mini"):
+            want = ref[k][d * b:(d + 1) * b]
+            err = float(np.max(np.abs(g[k] - want)
+                               / (SP_FWD_TOL + SP_FWD_TOL * np.abs(want))))
+            errs[k] = max(errs[k], err)     # <= 1: within rtol and atol
+        for k in ("loss", "box_loss", "obj_loss"):
+            errs["b"] = max(errs["b"], abs(float(g[f"b m/{k}"])
+                                           - float(ref["b"][f"m/{k}"])))
+        for k, want in ref["d"].items():
+            scale = max(float(np.abs(want).max(initial=0.0)), 1e-300)
+            errs["d"] = max(errs["d"], float(np.abs(
+                g[f"d {k}"] - want).max(initial=0.0)) / scale)
+    for k, bound in (("a tiny", 1.0), ("c mini", 1.0), ("b", SP_LOSS_TOL),
+                     ("d", SP_F64_BOUND)):
+        if not errs[k] <= bound:
+            failed.append(f"{k}: {errs[k]:.3e} over {bound}")
+    loss_rel = max(abs(n["flagship fp32 loss"] - ref["flagship fp32 loss"])
+                   / abs(ref["flagship fp32 loss"]) for n in nums)
+    if not loss_rel <= SP_FLAGSHIP_LOSS_REL:
+        failed.append(f"flagship fp32 loss {loss_rel:.3e} relative")
+    launched = [n["launches"] for n in nums]
+    if any(x.get("decode_head", 0) != 2 for x in launched):
+        failed.append(f"K1 launches of the two gathering forwards a rank: "
+                      f"{launched}")
+    print(f"space (a) four gloo ranks on cuda:0, mesh {SP_MESH} against one "
+          f"process on the card (TF32 off): tiny forward worst "
+          f"|err|/(atol + rtol |want|) {errs['a tiny']:.3e}, mini-flagship "
+          f"forward {errs['c mini']:.3e} (bound 1, tol {SP_FWD_TOL}); tiny "
+          f"fp32 step loss terms {errs['b']:.3e} (bound {SP_LOSS_TOL}); "
+          f"mini-flagship float64 step worst element over the array's "
+          f"largest {errs['d']:.3e} (bound {SP_F64_BOUND}); K1 launches "
+          f"a rank for its two forwards {launched}", flush=True)
+    fl = [n["flagship bf16"] for n in nums]
+    print(f"space (b) flagship fp32 at global bs {SP_BS} of "
+          f"{SP_FLAGSHIP_F32_HW[0]}x{SP_FLAGSHIP_F32_HW[1]}: loss "
+          f"{[n['flagship fp32 loss'] for n in nums]} against "
+          f"{ref['flagship fp32 loss']} (worst relative {loss_rel:.3e}, "
+          f"bound {SP_FLAGSHIP_LOSS_REL}); bf16 at global bs {SP_BS} of "
+          f"{SP_FLAGSHIP_HW[0]}x{SP_FLAGSHIP_HW[1]} over four gloo ranks "
+          f"of ONE card (a correctness run, not a scaling number): "
+          + json.dumps(fl), flush=True)
+    if not all(np.isfinite(x["losses"]).all() for x in fl):
+        failed.append("the flagship's bf16 2-D losses are not finite")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    counts = {f"space rank {r}": x for r, x in enumerate(launched)}
+    return counts, {"errors": errs, "flagship_fp32_loss_rel": loss_rel,
+                    "flagship_bf16": fl}
+
+
+def _sp_dryrun_start(root):
+    """Start ``python -m double_yolo_kaist_torch.dryrun 4`` (four gloo
+    ranks on cuda:0) in a session of its own, its output to files under
+    ``root``; returns the record that :func:`_sp_dryrun_wait` and
+    :func:`_sp_dryrun` take (a thread notes when it ended)."""
+    files = [open(os.path.join(root, f"dryrun.{k}"), "w")
+             for k in ("out", "err")]
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "double_yolo_kaist_torch.dryrun", "4"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=files[0], stderr=files[1], start_new_session=True)
+    finally:
+        for f in files:
+            f.close()
+    dry = {"proc": proc, "root": root, "t0": time.perf_counter(), "s": None}
+
+    def watch():
+        proc.wait()
+        dry["s"] = time.perf_counter() - dry["t0"]
+
+    threading.Thread(target=watch, daemon=True).start()
+    return dry
+
+
+def _sp_dryrun_wait(dry):
+    """Wait for the dryrun to end, SP_TIMEOUT at most from its start; then
+    stop whatever of its session is left (nothing, when it ended as it
+    should), so that no rank outlives it."""
+    proc = dry["proc"]
+    try:
+        proc.wait(timeout=max(1.0, SP_TIMEOUT
+                              - (time.perf_counter() - dry["t0"])))
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def _sp_dryrun(dry):
+    """(c) the dryrun (``dry``: :func:`_sp_dryrun_start`): exit 0 and
+    JAX's three lines."""
+    _sp_dryrun_wait(dry)
+    proc = dry["proc"]
+    with open(os.path.join(dry["root"], "dryrun.out")) as f:
+        out = f.read()
+    with open(os.path.join(dry["root"], "dryrun.err")) as f:
+        err = f.read()
+    lines = [x for x in out.splitlines()
+             if x.startswith("dryrun_multichip(4): ok")]
+    took = dry["s"] if dry["s"] is not None else (
+        time.perf_counter() - dry["t0"])
+    print(f"space (c) dryrun 4: exit {proc.returncode} in {took:.1f} s:\n  "
+          + "\n  ".join(lines), flush=True)
+    legs = ("flagship train, 1-D data parallel", "flagship DP inference",
+            "mini-flagship train, 2-D data x space")
+    if proc.returncode != 0 or not all(any(leg in x for x in lines)
+                                       for leg in legs):
+        raise AssertionError(f"dryrun 4 failed:\n{out[-2000:]}\n"
+                             f"{err[-3000:]}")
+    return {}, {"dryrun_s": took}
+
+def _sp_mesh_predictor(torch, dev, launches, mnv3_ir):
+    """(d) F5 repaired: a Predictor on the mesh ["cuda:0"] * 4 of shape
+    (2, 2) serves one replica a data row: buckets (1, 8) become [2, 8],
+    and requests of 3 and 8 frames (512x640, MNv3 bf16) are bit-equal to a
+    1-D mesh of 2, K1 and K2 twice a request."""
+    from double_yolo_kaist_torch.models import weights
+    from double_yolo_kaist_torch.parallel import mesh as M
+    from double_yolo_kaist_torch.serving import Predictor
+    mv = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
+    two_d = M.make_mesh([dev] * 4, axis_names=("data", "space"),
+                        shape=(2, 2))
+    kw = dict(img_size=640, batch_buckets=(1, 8))
+    p2 = Predictor(mnv3_ir, mv, mesh=two_d, **kw)
+    p1 = Predictor(mnv3_ir, mv, mesh=M.make_mesh([dev, dev]), **kw)
+    if p2.batch_buckets != [2, 8] or len(two_d.replicas) != 2:
+        raise AssertionError(f"2-D mesh buckets {p2.batch_buckets}, "
+                             f"replicas {two_d.replicas}")
+    rng = np.random.default_rng(SEED + 174)
+    frames = {n: tuple(rng.integers(0, 256, (n, 512, 640, 3),
+                                    dtype=np.uint8) for _ in range(2))
+              for n in (3, 8)}
+    for n in frames:                   # the first request captures
+        p2(*frames[n])
+        p1(*frames[n])
+    torch.cuda.synchronize()
+    launches.clear()                   # the 2-D mesh's requests
+    got = {n: p2(*frames[n]) for n in frames}
+    counts = {"space mesh predictor": dict(launches)}    # read just after
+    for n, dets in got.items():
+        for (b, s, c), (rb, rs, rc) in zip(dets, p1(*frames[n])):
+            if not (np.array_equal(b, rb) and np.array_equal(s, rs)
+                    and np.array_equal(c, rc)):
+                raise AssertionError(f"2-D mesh request of {n} differs "
+                                     f"from the 1-D mesh of 2")
+    c = counts["space mesh predictor"]
+    if c.get("decode_head") != 4 or c.get("nms_indices") != 4:
+        raise AssertionError(f"2-D mesh launches {c}")
+    print(f"space (d) Predictor on mesh (2, 2) of cuda:0: buckets "
+          f"{p2.batch_buckets}, replicas {[str(d) for d in two_d.replicas]}"
+          f", requests of 3 and 8 bit-equal to the 1-D mesh of 2; "
+          f"launches {c}", flush=True)
+    return counts, {}
+
+
+def phase_spatial(torch, dev, launches, mnv3_ir, flagship_ir, root,
+                  dryrun=None):
+    """Phase 17: the 2-D data x space path on the one card. ``dryrun``:
+    the dryrun (c) as :func:`_sp_dryrun_start` started it (the whole
+    script starts it beside phase 13's entry-point runs, which nothing
+    times); without it, it starts here. The four gloo ranks of (a) and
+    (b) start first; (d) and the one-process references run beside them;
+    the ranks' bf16 timing (b) waits until the dryrun has ended and the
+    references are made, so that it has the card to itself. Each part
+    runs even when one before it failed; the phase fails if any did.
+    Returns (launch counts of its main-path runs, numbers)."""
+    t_phase = time.perf_counter()
+    smi = _smi_line()
+    numbers, counts, failed = {"card": smi}, {}, []
+
+    def part(name, fn):
+        try:
+            c, numbers[name] = fn()
+            counts.update(c)
+        except Exception:                  # noqa: BLE001 — report, go on
+            traceback.print_exc()
+            failed.append(name)
+        _stamp(t_phase, f"phase 17 {name}")
+
+    dry = dryrun or _sp_dryrun_start(root)
+    procs = _sp_spawn_ranks(root)
+    ref = {}
+    try:
+        part("(d)", lambda: _sp_mesh_predictor(torch, dev, launches,
+                                               mnv3_ir))
+        part("references", lambda: ({}, ref.update(
+            _sp_references(torch, dev, flagship_ir))))
+        torch.cuda.empty_cache()
+        part("(c)", lambda: _sp_dryrun(dry))
+    finally:
+        with open(os.path.join(root, "sp_go"), "w"):
+            pass
+    part("(a) and (b)", lambda: _sp_hold_ranks(ref, root, procs))
+    print(f"space numbers ({smi}; one card: no multi-card number): "
+          + json.dumps(numbers), flush=True)
+    print(f"phase 17 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"phase 17 parts failed: {failed}")
+    return counts, numbers
+
+
+def _only_spatial(torch, dev, mnv3_ir, flagship_ir) -> int:
+    """``--only spatial``: phase 17 alone (it prints no result line)."""
+    from double_yolo_kaist_torch.ops import _build
+    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
+        phase_spatial(torch, dev, _build.launches, mnv3_ir, flagship_ir,
+                      root)
+    print("chip_smoke --only spatial: phase 17 passed", flush=True)
+    return 0
+
+
 def _labelled_split(torch, dev, mnv3_ir, root):
     """Phase 9's split under ``root``, labelled with MNv3's fp32 detections,
     and MNv3's checkpoint beside it, as phase 9 makes them (for the runs
@@ -4307,9 +4885,11 @@ def _labelled_split(torch, dev, mnv3_ir, root):
                     bn_state=jx["state"])
 
 
-def _train_phases(torch, dev, mnv3_ir, flagship_ir, root, counts, failed):
-    """Phases 12 and 13 (after the others have passed); returns the names
-    of those that failed."""
+def _train_phases(torch, dev, mnv3_ir, flagship_ir, root, counts, failed,
+                  beside=None):
+    """Phases 12 and 13 (after the others have passed; ``beside`` as
+    :func:`phase_train_entry` takes it); returns the names of those that
+    failed."""
     from double_yolo_kaist_torch.ops import _build
     out = []
     if failed:
@@ -4322,7 +4902,7 @@ def _train_phases(torch, dev, mnv3_ir, flagship_ir, root, counts, failed):
     if not out:
         try:
             counts["train"] = phase_train_entry(torch, dev, _build.launches,
-                                                flagship_ir, root)
+                                                flagship_ir, root, beside)
         except Exception:                  # noqa: BLE001
             traceback.print_exc()
             out.append("train entry point")
@@ -4412,6 +4992,8 @@ def main() -> int:
         return _only_slice9(torch, dev, ir, flagship_ir)
     if sys.argv[1:] == ["--only", "dp"]:
         return _only_dp(torch, dev, ir, flagship_ir)
+    if sys.argv[1:] == ["--only", "spatial"]:
+        return _only_spatial(torch, dev, ir, flagship_ir)
     results = {}
     for name, fn in (("K1", lambda: phase_decode(torch, ir, dev,
                                                  _build.launches)),
@@ -4482,8 +5064,15 @@ def main() -> int:
                 traceback.print_exc()
                 failed.append("entry points")
             _stamp(t_start, "entry points")
+        # phase 17's dryrun runs beside phase 13's untimed subprocesses
+        dry = []
+
+        def start_dryrun():
+            dry.append(_sp_dryrun_start(root))
+            return lambda: _sp_dryrun_wait(dry[0])
+
         failed += _train_phases(torch, dev, ir, flagship_ir, root, counts,
-                                failed)
+                                failed, beside=start_dryrun)
         _stamp(t_start, "train step and entry point")
         served.clear()                 # phase 10 and 11 are done with them
         flagship_served = None
@@ -4515,6 +5104,16 @@ def main() -> int:
                 traceback.print_exc()
                 failed.append("slice 10")
             _stamp(t_start, "slice 10")
+        if not failed:
+            try:
+                c, _ = phase_spatial(torch, dev, _build.launches, ir,
+                                     flagship_ir, root,
+                                     dry[0] if dry else None)
+                counts.update(c)
+            except Exception:              # noqa: BLE001
+                traceback.print_exc()
+                failed.append("slice 11")
+            _stamp(t_start, "slice 11")
     if failed:
         return _fail(f"phases failed: {failed}")
 
@@ -4525,7 +5124,8 @@ def main() -> int:
         epoch of phase 13, the int8 runs of each mode and the edge eval of
         phase 14, the exported and Predictor replays and the K-step train
         runs' evaluations of phase 15, the mesh Predictors, the mesh
-        evaluation and the two ranks' Trainer fits of phase 16), each
+        evaluation and the two ranks' Trainer fits of phase 16, the 2-D
+        ranks' forwards and the 2-D mesh Predictor of phase 17), each
         counted from 0 just before its run and read just after it."""
         return sum(c.get(kernel, 0) for c in counts.values())
 

@@ -12,7 +12,9 @@ that ``make_train_augment_fn`` takes (reference kaist_dataset.py:213-506):
     :mod:`.clahe`);
   * HSV jitter with one set of gains for both modalities
     (:func:`hsv_jitter`);
-  * 50% horizontal flip (:func:`flip_lr`).
+  * 50% horizontal flip (:func:`flip_lr`);
+  * the batched letterbox and its labels (:func:`letterbox_batch`,
+    :func:`letterbox_labels`, :func:`letterbox_params`).
 The JAX package's ``matmul`` resample, its ``chunk`` route and its bf16
 pixels exist for the TPU's MXU and arena; the port runs the gathers
 (ROADMAP.md, queue 1 item 14).
@@ -29,8 +31,38 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
-from .letterbox import resize_bilinear  # noqa: F401  (the gather resize)
+from .letterbox import letterbox_params, pad_sides, resize_bilinear
+
+
+def letterbox_batch(imgs, dst_hw, scale_up: bool = True,
+                    pad_value: float = 0.0):
+    """(B, H, W, C) -> (B, dst_h, dst_w, C) fp32 in the images' range,
+    resized by the letterbox's ratio and padded with ``pad_value`` (JAX
+    data/augment.py:165-179). Returns (images, ratio, (dw, dh))."""
+    src_hw = tuple(imgs.shape[1:3])
+    r, (dw, dh), (new_w, new_h) = letterbox_params(src_hw, dst_hw, scale_up)
+    if (new_h, new_w) != src_hw:
+        x = resize_bilinear(imgs, new_h, new_w)
+    else:
+        x = imgs.float()
+    # F.pad pads from the last dim backwards: C, W, H
+    x = F.pad(x, (0, 0) + pad_sides(dst_hw, (new_h, new_w), dw, dh),
+              value=pad_value)
+    return x, r, (dw, dh)
+
+
+def letterbox_labels(labels, src_hw, ratio, pad):
+    """Normalized [cls, cx, cy, w, h] labels -> [cls, x1, y1, x2, y2] in
+    the letterboxed frame's pixels (JAX data/augment.py:182-190,
+    reference kaist_dataset.py:298-306)."""
+    h, w = src_hw
+    cx, cy = labels[..., 1] * w * ratio, labels[..., 2] * h * ratio
+    bw, bh = labels[..., 3] * w * ratio, labels[..., 4] * h * ratio
+    return torch.stack([labels[..., 0],
+                        cx - bw / 2 + pad[0], cy - bh / 2 + pad[1],
+                        cx + bw / 2 + pad[0], cy + bh / 2 + pad[1]], dim=-1)
 
 
 def _uniform(generator, shape, lo, hi):

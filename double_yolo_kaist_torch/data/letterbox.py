@@ -47,19 +47,34 @@ def clahe_u8(x):
     return clahe_batch(u8).float()
 
 
+def letterbox_params(src_hw, dst_hw, scale_up: bool = True):
+    """The letterbox's numbers, as Python floats and ints (JAX
+    data/augment.py:154-162, reference img_utils.py): (ratio, (dw, dh),
+    (new_w, new_h))."""
+    r = min(dst_hw[0] / src_hw[0], dst_hw[1] / src_hw[1])
+    if not scale_up:
+        r = min(r, 1.0)
+    new_w, new_h = int(round(src_hw[1] * r)), int(round(src_hw[0] * r))
+    dw, dh = (dst_hw[1] - new_w) / 2, (dst_hw[0] - new_h) / 2
+    return r, (dw, dh), (new_w, new_h)
+
+
+def pad_sides(dst_hw, new_hw, dw: float, dh: float) -> tuple:
+    """(left, right, top, bottom) rows and columns of the letterbox's
+    padding around a ``new_hw`` image in ``dst_hw``."""
+    top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
+    return (left, dst_hw[1] - new_hw[1] - left,
+            top, dst_hw[0] - new_hw[0] - top)
+
+
 def make_letterbox_fn(src_hw, dst_hw, scale_up: bool = True,
                       clahe: bool = False):
     """Letterbox from ``src_hw`` frames to ``dst_hw``: resize by the common
     ratio, CLAHE with ``clahe`` (JAX pipeline.py:271-291), zero-pad to
     ``dst_hw``, scale to [0, 1]. Returns (fn(v_u8, l_u8) -> (v, l) fp32
     NHWC, (r, r), (dw, dh))."""
-    r = min(dst_hw[0] / src_hw[0], dst_hw[1] / src_hw[1])
-    if not scale_up:
-        r = min(r, 1.0)
-    new_w, new_h = int(round(src_hw[1] * r)), int(round(src_hw[0] * r))
-    dw, dh = (dst_hw[1] - new_w) / 2, (dst_hw[0] - new_h) / 2
-    top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
-    bottom, right = dst_hw[0] - new_h - top, dst_hw[1] - new_w - left
+    r, (dw, dh), (new_w, new_h) = letterbox_params(src_hw, dst_hw, scale_up)
+    sides = pad_sides(dst_hw, (new_h, new_w), dw, dh)
 
     def fn(v_u8, l_u8):
         out = []
@@ -68,7 +83,7 @@ def make_letterbox_fn(src_hw, dst_hw, scale_up: bool = True,
             if clahe:
                 im = clahe_u8(im)
             # F.pad pads from the last dim backwards: C, W, H
-            out.append(F.pad(im, (0, 0, left, right, top, bottom)) / 255.0)
+            out.append(F.pad(im, (0, 0) + sides) / 255.0)
         return tuple(out)
 
     return fn, (r, r), (dw, dh)

@@ -24,6 +24,7 @@ from .. import resolve_device
 from ..data.pipeline import eval_batches, prefetch
 from ..models import graph
 from ..models import quantize as Q
+from ..ops.boxes import scale_coords
 from ..ops.nms import non_max_suppression
 from ..parallel import mesh as M
 from ..parallel import multihost as MH
@@ -36,15 +37,10 @@ LOOP_SPAN = "evaluate_dataset/batch_loop"
 
 
 def _undo_letterbox(boxes: np.ndarray, ratio, pad, orig_hw):
-    """scale_coords on host numpy (reference utils.py:60-84)."""
-    gain = ratio[0]
-    out = boxes.copy()
-    out[:, [0, 2]] -= pad[0]
-    out[:, [1, 3]] -= pad[1]
-    out /= gain
-    out[:, [0, 2]] = out[:, [0, 2]].clip(0, orig_hw[1])
-    out[:, [1, 3]] = out[:, [1, 3]].clip(0, orig_hw[0])
-    return out
+    """:func:`..ops.boxes.scale_coords` of host numpy boxes, with the
+    batch's letterbox (reference utils.py:60-84)."""
+    return scale_coords(None, torch.from_numpy(boxes), orig_hw,
+                        ratio_pad=(ratio, pad)).numpy()
 
 
 def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,

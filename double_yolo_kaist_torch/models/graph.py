@@ -36,6 +36,7 @@ from ..ops import stem as K3
 from ..ops.act import activate
 from ..ops.decode import decode_head_plain as decode_head  # noqa: F401
 from ..ops.decode import reshape_head  # noqa: F401
+from ..parallel import spatial as SP
 from ..utils import tree as TR
 from . import layers as L
 
@@ -97,42 +98,68 @@ class _DropoutDraws:
         self.generator = generator
         self.drawn: dict = {}
 
-    def uniforms(self, node, x):
+    def uniforms(self, node, x, shape=None):
+        """``node``'s uniforms, of ``x``'s shape or ``shape``."""
         u = self.drawn.get(node.index)
         if u is None:
             u = self.drawn[node.index] = torch.rand(
-                x.shape, generator=self.generator, device=x.device)
+                x.shape if shape is None else shape,
+                generator=self.generator, device=x.device)
         return u
 
 
-def _exec_node(node, p, s, x, x2, cache, *, train, seed, group=None):
+def _dropout_uniforms(node, x, seed, space):
+    """Dropout's uniforms for ``x``. On a band they are drawn for the
+    global tensor (every data shard, every band) and the rank keeps its
+    own, so that a mesh draws the mask one process draws."""
+    shape = tuple(x.shape)
+    if space is not None:
+        shape = (shape[0] * space.D, shape[1], shape[2] * space.S, shape[3])
+    if isinstance(seed, _DropoutDraws):
+        u = seed.uniforms(node, x, shape)
+    else:
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(seed + node.index)
+        u = torch.rand(shape, generator=gen, device=x.device)
+    if space is not None:
+        b, h = x.shape[0], x.shape[2]
+        u = u[space.d * b:(space.d + 1) * b, :,
+              space.s * h:(space.s + 1) * h]
+    return u
+
+
+def _exec_node(node, p, s, x, x2, cache, *, train, seed, group=None,
+               space=None):
     """One IR node of the unfolded forward. Returns (x, new BN state entry
     or None, head conv output or None). ``group``: BN's statistics group
-    (:func:`.layers.batch_norm`)."""
+    (:func:`.layers.batch_norm`); ``space``: the band's
+    :class:`..parallel.spatial.SpaceShard`."""
     kind = node.kind
     ns = head = None
     if kind == "conv":
         inp = x2 if node.takes_second_input else x
         x, bn_s = L.conv_bn_act(inp, p, s, stride=node.stride, pad=node.pad,
                                 groups=node.groups, act=node.act, bn=node.bn,
-                                train=train, group=group)
+                                train=train, group=group, space=space)
         if node.bn and train:
             ns = bn_s
     elif kind == "dwconv":
         x, bn_s = L.depthwise_separable(x, p, s, stride=node.stride,
-                                        train=train, group=group)
+                                        train=train, group=group,
+                                        space=space)
         if train:
             ns = bn_s
     elif kind == "se":
-        x = L.squeeze_excitation(x, p)
+        x = L.squeeze_excitation(x, p, space)
     elif kind == "inception":
-        x, bn_s = L.inception(x, p, s, train=train, group=group)
+        x, bn_s = L.inception(x, p, s, train=train, group=group,
+                              space=space)
         if train:
             ns = bn_s
     elif kind == "maxpool":
-        x = L.max_pool(x, node.kernel, node.stride, node.pad)
+        x = L.max_pool(x, node.kernel, node.stride, node.pad, space)
     elif kind == "avgpool":
-        x = L.adaptive_avg_pool(x, node.out_size)
+        x = L.adaptive_avg_pool(x, node.out_size, space)
     elif kind == "upsample":
         x = L.upsample_nearest(x, node.scale)
     elif kind == "route":
@@ -145,12 +172,8 @@ def _exec_node(node, p, s, x, x2, cache, *, train, seed, group=None):
         if train and seed is not None and node.p > 0:
             # one generator per node from (seed, index): a checkpointed
             # segment recomputes the same mask
-            if isinstance(seed, _DropoutDraws):
-                x = L.dropout(x, node.p, None, u=seed.uniforms(node, x))
-            else:
-                gen = torch.Generator(device=x.device)
-                gen.manual_seed(seed + node.index)
-                x = L.dropout(x, node.p, gen)
+            x = L.dropout(x, node.p, None,
+                          u=_dropout_uniforms(node, x, seed, space))
     elif kind == "yolo":
         head = x
     else:
@@ -160,7 +183,7 @@ def _exec_node(node, p, s, x, x2, cache, *, train, seed, group=None):
 
 def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
           rng: torch.Generator | None = None, compute_dtype=None,
-          remat_segments: int = 0, group=None):
+          remat_segments: int = 0, group=None, space=None):
     """Run the unfolded graph (JAX graph.py:148-233).
 
     Args:
@@ -188,8 +211,19 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
       group: a ``torch.distributed`` group over which each train-mode BN
         takes the whole batch's statistics, each rank holding an equal
         share of it (JAX's ``axis_name``; :func:`.layers.batch_norm`).
+      space: a :class:`..parallel.spatial.SpaceShard`: ``xv`` / ``xl`` are
+        this rank's band of rows of its data shard's images, and the
+        graph runs on the band (:mod:`..parallel.spatial`), BN over the
+        whole world (``group`` is then ``space.world``). Train mode returns
+        the heads' bands; eval mode gathers each data row's heads whole
+        and decodes them, so that every rank of the row returns what one
+        device returns for its images. A graph whose strides do not split
+        the band raises before any collective runs, naming the node.
     """
     params, state = variables["params"], variables["state"]
+    if space is not None:
+        SP.check_bands(ir, xv.shape[1], space.S)
+        group = space.world
     dtype = compute_dtype or xv.dtype
     # NHWC -> NCHW shape over channels-last memory: a view, no copy
     x = xv.to(dtype).permute(0, 3, 1, 2)
@@ -219,7 +253,8 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
             key = f"l{node.index}"
             x, ns, head = _exec_node(node, params.get(key), state.get(key),
                                      x, x2, {**cache, **new_cache},
-                                     train=train, seed=seed, group=group)
+                                     train=train, seed=seed, group=group,
+                                     space=space)
             if ns is not None:
                 seg_state[key] = ns
             if head is not None:
@@ -252,6 +287,8 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
         merged.update(new_state)
         return [reshape_head(h, len(nd.anchors), nd.nc + 5)
                 for h, nd in heads], merged
+    if space is not None:
+        heads = [(SP.gather_rows(h, space), nd) for h, nd in heads]
     return decode_heads(heads, xv.shape[0], xv.device), state
 
 

@@ -13,6 +13,20 @@ it is used (autograd returns fp32 gradients through the cast), and BN
 statistics are taken in fp32. BatchNorm returns its new running state as a
 value and never updates it in place, so a segment that
 ``torch.utils.checkpoint`` runs twice updates nothing twice.
+
+``space``: a :class:`..parallel.spatial.SpaceShard`; the unfolded ops then
+run on a band of rows: every k x k window takes its halo rows first
+(``spatial.conv_rows``) and pads only the columns, and SE's global pool
+sums over the bands (``spatial.band_mean``).
+
+The JAX module's ``set_precision`` and ``set_conv_out_dtype`` are not
+ported. They set XLA-global switches: the MXU's precision for fp32 convs
+and matmuls, and the dtype of every conv's output. The port takes the
+dtype per call (``compute_dtype``, a conv's output in its input's
+dtype), and fp32 convs and matmuls on the card follow torch's TF32 flags
+(``torch.backends.cudnn.allow_tf32``, ``torch.backends.cuda.matmul.
+allow_tf32``; ``utils.general.deterministic`` turns both off), which are
+their analogue.
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.act import _hard_sigmoid, activate
+from ..parallel.spatial import band_mean, conv_rows
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1   # torch convention: new = (1 - m) * old + m * batch
@@ -30,9 +45,11 @@ BN_MOMENTUM = 0.1   # torch convention: new = (1 - m) * old + m * batch
 
 # ------------------------------------------------------------------- conv ops
 
-def conv2d(x, w, b=None, stride=(1, 1), pad: int = 0, groups: int = 1):
+def conv2d(x, w, b=None, stride=(1, 1), pad=0, groups: int = 1,
+           space=None):
     """NCHW x OIHW grouped conv (+ bias), in the input's dtype. Depthwise is
-    ``groups == in_ch``."""
+    ``groups == in_ch``. ``pad``: an int, or (rows, columns)."""
+    x, pad = conv_rows(x, w.shape[2], stride, pad, space)
     return F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
                     stride=tuple(stride), padding=pad, groups=groups)
 
@@ -42,10 +59,12 @@ def _at_least_f32(x):
     return x if x.dtype == torch.float64 else x.float()
 
 
-def squeeze_excitation(x, params):
+def squeeze_excitation(x, params, space=None):
     """GAP -> 1x1 -> relu -> 1x1 -> hard-sigmoid -> scale, with the pooled
     path in fp32, or wider for float64 inputs (JAX layers.py:391-400). fc kernels are OIHW (S, C, 1, 1)."""
-    pooled = _at_least_f32(x).mean(dim=(2, 3))                   # (B, C)
+    xf = _at_least_f32(x)
+    pooled = (xf.mean(dim=(2, 3)) if space is None
+              else band_mean(xf, space))                         # (B, C)
     dt = pooled.dtype
     w1, w2 = params["fc1"]["w"], params["fc2"]["w"]
     s = F.linear(pooled, w1.reshape(w1.shape[0], -1).to(dt),
@@ -57,14 +76,19 @@ def squeeze_excitation(x, params):
     return x * s[:, :, None, None].to(x.dtype)
 
 
-def max_pool(x, kernel: int, stride=(1, 1), pad: int = 0):
+def max_pool(x, kernel: int, stride=(1, 1), pad: int = 0, space=None):
     """torch MaxPool2d: symmetric padding that never wins (-inf)."""
+    x, pad = conv_rows(x, kernel, stride, pad, space, float("-inf"))
     return F.max_pool2d(x, kernel, tuple(stride), pad)
 
 
-def adaptive_avg_pool(x, out_size: int):
+def adaptive_avg_pool(x, out_size: int, space=None):
     """AdaptiveAvgPool2d(out_size): bin i covers
-    [floor(i*n/k), ceil((i+1)*n/k)) on each axis."""
+    [floor(i*n/k), ceil((i+1)*n/k)) on each axis. On a band only the
+    global pool runs (``spatial.check_bands`` refuses the others)."""
+    if space is not None:
+        return band_mean(_at_least_f32(x), space)[:, :, None, None].to(
+            x.dtype)
     return F.adaptive_avg_pool2d(x, out_size)
 
 
@@ -101,13 +125,15 @@ def weighted_fusion(x, extras: list, w=None):
     return x
 
 
-def inception(x, params, state=None, *, train: bool = False, group=None):
+def inception(x, params, state=None, *, train: bool = False, group=None,
+              space=None):
     """4-branch GoogLeNet block, every branch conv + BN + leaky (JAX
     layers.py:452-478). With ``state`` None the params are BN-folded (each
     branch conv carries ``w``/``b``, JAX graph.py:606-613) and the block
     returns its output; otherwise it runs BN from ``state`` (batch
     statistics when ``train``, over ``group`` when one is given) and
-    returns (output, new state)."""
+    returns (output, new state); ``space``: on a band, the 3x3 convs and
+    the 3x3 pool take their halos."""
     if state is None:
         def branch(inp, name, pad=0):
             return activate("leaky", conv2d(inp, params[name]["w"],
@@ -124,13 +150,13 @@ def inception(x, params, state=None, *, train: bool = False, group=None):
     def cba(inp, name, pad=0):
         y, new_state[name] = conv_bn_act(inp, params[name], state[name],
                                          pad=pad, act="leaky", train=train,
-                                         group=group)
+                                         group=group, space=space)
         return y
 
     b1 = cba(x, "b1_1")
     b2 = cba(cba(x, "b2_1"), "b2_2", 1)
     b3 = cba(cba(cba(x, "b3_1"), "b3_2", 1), "b3_3", 1)
-    b4 = cba(max_pool(x, 3, (1, 1), 1), "b4_1")
+    b4 = cba(max_pool(x, 3, (1, 1), 1, space), "b4_1")
     return torch.cat([b1, b2, b3, b4], dim=1), new_state
 
 
@@ -180,10 +206,11 @@ def batch_norm(x, params, state, train: bool, group=None):
 
 
 def conv_bn_act(x, params, state, *, stride=(1, 1), pad=0, groups=1,
-                act="linear", bn=True, train=False, group=None):
+                act="linear", bn=True, train=False, group=None, space=None):
     """Conv (output in ``x``'s dtype) + BN or bias + activation (JAX
     layers.py:344-374). Returns (y, new BN state or ``state``)."""
-    y = conv2d(x, params["w"], stride=stride, pad=pad, groups=groups)
+    y = conv2d(x, params["w"], stride=stride, pad=pad, groups=groups,
+               space=space)
     if bn:
         y, state = batch_norm(y, params["bn"], state, train, group)
     else:
@@ -192,10 +219,11 @@ def conv_bn_act(x, params, state, *, stride=(1, 1), pad=0, groups=1,
 
 
 def depthwise_separable(x, params, state, *, stride=(1, 1), train=False,
-                        group=None):
+                        group=None, space=None):
     """3x3 depthwise + BN + ReLU6, then 1x1 pointwise + BN + ReLU6 (JAX
     layers.py:377-388, reference layers.py:218-234)."""
-    y = conv2d(x, params["dw"]["w"], stride=stride, pad=1, groups=x.shape[1])
+    y = conv2d(x, params["dw"]["w"], stride=stride, pad=1, groups=x.shape[1],
+               space=space)
     y, s_dw = batch_norm(y, params["dw"]["bn"], state["dw"], train, group)
     y = activate("relu6", y)
     y = conv2d(y, params["pw"]["w"])

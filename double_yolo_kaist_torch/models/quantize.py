@@ -352,57 +352,73 @@ def _abs_stat_rows(a, pct: float):
     return v_lo * torch.tensor(w_lo) + v_hi * torch.tensor(w_hi)
 
 
-def calibrate(ir: GraphIR, folded: dict, batches,
-              compute_dtype=torch.bfloat16, pct: float = 100.0) -> dict:
-    """Activation statistics over ``batches`` of (xv, xl-or-None) NHWC
-    images, a superset that every mode reads (JAX quantize.py:386-507):
-      * ``l<i>``: the per-tensor input amax of every standard conv (head
-        predictors excluded, stem pairs included), a float;
-      * ``l<i>.out``: the per-channel output amax of every conv, shortcut
-        and SE node but the head predictors (the edge scales), a float64
-        vector.
-    Each is the max over batches of each batch's ``pct``-percentile
-    max-abs. ``folded``: BN-folded params placed for the executor
-    (:func:`.graph.place_folded`). The forward is :func:`.graph.run_graph`
-    with the fp convs, K3 included, and no head decode."""
+def make_calibration_fn(ir: GraphIR, compute_dtype=torch.bfloat16,
+                        pct: float = 100.0):
+    """fn(folded, xv, xl) -> {key: statistic} of one batch (JAX
+    quantize.py:386-470): the BN-folded forward (:func:`.graph.run_graph`
+    with the fp convs, K3 included, and no head decode) records
+      * ``l<i>``: the per-tensor input ``pct``-percentile max-abs of every
+        standard conv (head predictors excluded, stem pairs included), a
+        0-dim fp32 tensor;
+      * ``l<i>.out``: the per-channel output statistic of every conv,
+        shortcut and SE node but the head predictors (the edge scales),
+        an fp32 vector.
+    ``folded``: BN-folded params placed for the executor
+    (:func:`.graph.place_folded`); the tensors stay on their device."""
     skip = {ir.nodes[yi - 1].index for yi in ir.yolo_indices}
     targets = {n.index for n in ir.nodes
                if n.kind == "conv" and n.groups == 1 and n.index not in skip}
     out_track = {n.index for n in ir.nodes
                  if n.kind in ("conv", "shortcut", "se")
                  and n.index not in skip}
+
+    @torch.inference_mode()
+    def fn(folded, xv, xl=None):
+        stats = {}
+
+        def conv(node, inp, p):
+            if node.index in targets:
+                stats[f"l{node.index}"] = _abs_stat(inp, pct)
+            return G.conv_folded(node, inp, p)
+
+        def after(node, x):
+            if node.index in out_track:
+                stats[f"l{node.index}.out"] = _abs_stat_rows(
+                    x.transpose(0, 1).reshape(x.shape[1], -1), pct)
+            return x
+
+        G.run_graph(ir, folded["params"], xv, xl, dtype=compute_dtype,
+                    conv=conv, after=after)
+        return stats
+
+    return fn
+
+
+def calibrate(ir: GraphIR, folded: dict, batches,
+              compute_dtype=torch.bfloat16, pct: float = 100.0) -> dict:
+    """Activation statistics over ``batches`` of (xv, xl-or-None) NHWC
+    images, a superset that every mode reads (JAX quantize.py:473-489):
+    each key of :func:`make_calibration_fn`, the max over batches of each
+    batch's statistic, a float for ``l<i>``, a float64 vector for
+    ``l<i>.out``."""
+    fn = make_calibration_fn(ir, compute_dtype, pct)
     acc: dict = {}
-    with torch.inference_mode():
-        for xv, xl in batches:
-            stats = {}
-
-            def conv(node, inp, p):
-                if node.index in targets:
-                    stats[f"l{node.index}"] = _abs_stat(inp, pct)
-                return G.conv_folded(node, inp, p)
-
-            def after(node, x):
-                if node.index in out_track:
-                    stats[f"l{node.index}.out"] = _abs_stat_rows(
-                        x.transpose(0, 1).reshape(x.shape[1], -1), pct)
-                return x
-
-            G.run_graph(ir, folded["params"], xv, xl, dtype=compute_dtype,
-                        conv=conv, after=after)
-            keys = sorted(stats)
-            # one device -> host copy for the batch
-            flat = torch.cat([stats[k].reshape(-1) for k in keys]).double()
-            flat = flat.cpu().numpy()
-            at = 0
-            for k in keys:
-                n = stats[k].numel()
-                if k.endswith(".out"):
-                    v = flat[at:at + n].copy()
-                    prev = acc.get(k)
-                    acc[k] = v if prev is None else np.maximum(prev, v)
-                else:
-                    acc[k] = max(acc.get(k, 0.0), float(flat[at]))
-                at += n
+    for xv, xl in batches:
+        stats = fn(folded, xv, xl)
+        keys = sorted(stats)
+        # one device -> host copy for the batch
+        flat = torch.cat([stats[k].reshape(-1) for k in keys]).double()
+        flat = flat.cpu().numpy()
+        at = 0
+        for k in keys:
+            n = stats[k].numel()
+            if k.endswith(".out"):
+                v = flat[at:at + n].copy()
+                prev = acc.get(k)
+                acc[k] = v if prev is None else np.maximum(prev, v)
+            else:
+                acc[k] = max(acc.get(k, 0.0), float(flat[at]))
+            at += n
     return acc
 
 

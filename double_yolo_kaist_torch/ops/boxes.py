@@ -1,6 +1,7 @@
-"""Box geometry for NMS and the loss (counterpart of the JAX package's
-``ops/boxes.py``: ``xywh2xyxy``, ``box_iou`` and ``bbox_iou``). Leading
-batch dims are allowed."""
+"""Box geometry for NMS, the loss and the letterbox undo (counterpart of
+the JAX package's ``ops/boxes.py``: ``xyxy2xywh``, ``xywh2xyxy``,
+``clip_coords``, ``scale_coords``, ``box_iou``, ``bbox_iou`` and
+``wh_iou``). Leading batch dims are allowed."""
 
 from __future__ import annotations
 
@@ -9,12 +10,49 @@ import math
 import torch
 
 
+def xyxy2xywh(x):
+    """[..., 4] corners -> center/size."""
+    cx = (x[..., 0] + x[..., 2]) * 0.5
+    cy = (x[..., 1] + x[..., 3]) * 0.5
+    w = x[..., 2] - x[..., 0]
+    h = x[..., 3] - x[..., 1]
+    return torch.stack([cx, cy, w, h], dim=-1)
+
+
 def xywh2xyxy(x):
     """[..., 4] center/size -> corners."""
     hw = x[..., 2] * 0.5
     hh = x[..., 3] * 0.5
     return torch.stack([x[..., 0] - hw, x[..., 1] - hh,
                         x[..., 0] + hw, x[..., 1] + hh], dim=-1)
+
+
+def clip_coords(boxes, shape_hw):
+    """xyxy boxes clipped to an image of ``shape_hw`` = (h, w)."""
+    h, w = shape_hw
+    return torch.stack([boxes[..., 0].clamp(0, w), boxes[..., 1].clamp(0, h),
+                        boxes[..., 2].clamp(0, w), boxes[..., 3].clamp(0, h)],
+                       dim=-1)
+
+
+def scale_coords(img1_hw, coords, img0_hw, ratio_pad=None):
+    """Undo the letterbox: xyxy boxes from the network frame ``img1_hw``
+    back to the original frame ``img0_hw``, clipped to it (JAX
+    ops/boxes.py:44-61, reference utils.py:60-84). ``ratio_pad`` =
+    ((gain_w, gain_h) or a scalar gain, (pad_w, pad_h)) when the letterbox
+    is known; otherwise it is derived from the two shapes."""
+    if ratio_pad is None:
+        gain = max(img1_hw) / max(img0_hw)
+        pad = ((img1_hw[1] - img0_hw[1] * gain) / 2,
+               (img1_hw[0] - img0_hw[0] * gain) / 2)
+    else:
+        gain = (ratio_pad[0][0] if hasattr(ratio_pad[0], "__len__")
+                else ratio_pad[0])
+        pad = ratio_pad[1]
+    out = torch.stack([coords[..., 0] - pad[0], coords[..., 1] - pad[1],
+                       coords[..., 2] - pad[0], coords[..., 3] - pad[1]],
+                      dim=-1) / gain
+    return clip_coords(out, img0_hw)
 
 
 def box_iou(box1, box2, eps: float = 1e-16):
@@ -69,3 +107,13 @@ def bbox_iou(box1, box2, xywh: bool = False, giou: bool = False,
     with torch.no_grad():
         alpha = v / (1.0 - iou + v + eps)
     return iou - (rho2 / c2 + v * alpha)
+
+
+def wh_iou(wh1, wh2, eps: float = 0.0):
+    """Template IoU of width / height pairs, as if co-centred: (..., N, 2)
+    x (M, 2) -> (..., N, M) (JAX ops/boxes.py:111-115, reference
+    utils.py:166-171). ``eps`` is added to the union (the loss's anchor
+    matching adds 1e-16; JAX's ``wh_iou`` adds none)."""
+    inter = torch.minimum(wh1[..., None, :], wh2).prod(-1)
+    union = wh1.prod(-1)[..., None] + wh2.prod(-1) - inter
+    return inter / (union + eps if eps else union)

@@ -15,6 +15,13 @@ on the CPU), the counterpart of JAX's
 ``--xla_force_host_platform_device_count``. Training over several cards
 is :mod:`.multihost`'s: one process a card under ``torch.distributed``.
 
+A mesh of more than one axis, e.g. ``("data", "space")``, serves one
+replica a row of its first axis, as JAX shards a request over
+``mesh.axis_names[0]`` alone and replicates it over the others: the
+replica runs on the first device of its row (:attr:`Mesh.replicas`).
+Splitting the images' rows over the other axis is training's, one
+process a device (:mod:`.spatial`).
+
 JAX's ``batch_sharding`` / ``replicated`` name shardings for
 ``jax.device_put``; the port has no sharding objects, and
 :func:`shard_batch` and :func:`replicate` do their work directly.
@@ -56,17 +63,18 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        """Replicas on the batch axis."""
+        """Replicas: the length of the batch axis."""
         return self.shape[self.axis_names[0]]
 
     @property
     def replicas(self) -> list:
-        """The device of each replica, in batch order."""
-        return list(self.devices.flat)
+        """The device of each replica, in batch order: the first device of
+        each row of the batch axis, ``size`` of them."""
+        return list(self.devices.reshape(self.size, -1)[:, 0])
 
     def __repr__(self) -> str:
-        return (f"Mesh({[str(d) for d in self.replicas]}, "
-                f"axis_names={self.axis_names})")
+        return (f"Mesh({[str(d) for d in self.devices.flat]}, "
+                f"axis_names={self.axis_names}, shape={self.devices.shape})")
 
 
 def _indexed(dev: torch.device) -> torch.device:

@@ -22,6 +22,10 @@ all-reduces the gradient, which is what the global BN statistics of
 from __future__ import annotations
 
 import os
+import socket
+import subprocess
+import sys
+import time
 
 import numpy as np
 import torch
@@ -68,6 +72,41 @@ def maybe_initialize_distributed(coordinator: str | None = None,
         kwargs["rank"] = int(process_id)
     dist.init_process_group(backend=backend, **kwargs)
     return True
+
+
+def run_ranks(k: int, args: list, env: dict | None = None) -> int:
+    """Run ``python *args`` in ``k`` processes that join one group through
+    ``env://`` on a free local port (``DYK_DISTRIBUTED=1``, ``RANK`` =
+    ``LOCAL_RANK`` = r, ``WORLD_SIZE`` = k, the port's package on
+    ``PYTHONPATH``; ``env`` on top of this process's environment); each
+    joins with :func:`maybe_initialize_distributed`. Returns 0 once every
+    rank has exited 0, or the first failing rank's exit code, the others
+    stopped then: no process outlives the call."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = dict(os.environ, **(env or {}), DYK_DISTRIBUTED="1",
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                WORLD_SIZE=str(k), PYTHONPATH=os.pathsep.join(
+                    [root] + [p for p in [os.environ.get("PYTHONPATH")]
+                              if p]))
+    procs = [subprocess.Popen([sys.executable, *args],
+                              env=dict(base, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(k)]
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [c for c in codes if c]
+            if failed or all(c == 0 for c in codes):
+                return failed[0] if failed else 0
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
 
 
 def process_index() -> int:
@@ -152,6 +191,58 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     backward all-reduces the gradient, so that the sum of the ranks'
     losses gets the gradient of a statistic taken over all of them."""
     return _AllReduceSum.apply(x, group)
+
+
+def exchange(table, outgoing: dict, group, ranks, me: int, device, *,
+             p2p: bool) -> dict:
+    """Point-to-point messages inside ``group``, whose members are the
+    global ranks ``ranks`` (by their position in the group; ``me`` is this
+    rank's position). ``table`` lists every message of the group as
+    ``(src, dst, shape, dtype)`` by position, in one order that every
+    member computes alike; ``outgoing`` holds ``{i: tensor}`` for the
+    entries this rank sends. Returns ``{i: tensor}`` for the entries sent
+    to it, on ``device`` (where this rank's tensors live).
+
+    With ``p2p`` (the caller's choice for NCCL groups) the messages are
+    ``dist.batch_isend_irecv`` pairs, queued on the card's stream with no
+    host round trip; gloo runs them too for CPU tensors,
+    which is how the CPU tests hold this path. gloo has no ``send`` /
+    ``recv`` for CUDA tensors, so there the messages travel as one
+    ``all_reduce`` of a zeroed byte buffer that holds every message of the
+    group at its own offset, each written by its sender alone: a sum of
+    one value and zeros is that value, bit for bit, in any dtype. That
+    costs the group's size in bytes, but it is one collective an exchange
+    and works for CPU and CUDA tensors alike (``allgather_predictions``
+    gathers in the same way)."""
+    if not table:
+        return {}
+    if p2p:
+        ops, got = [], {}
+        for i, (src, dst, shape, dtype) in enumerate(table):
+            if src == me:
+                ops.append(dist.P2POp(dist.isend,
+                                      outgoing[i].contiguous(),
+                                      ranks[dst], group=group))
+            elif dst == me:
+                got[i] = torch.empty(shape, dtype=dtype, device=device)
+                ops.append(dist.P2POp(dist.irecv, got[i], ranks[src],
+                                      group=group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return got
+    sizes = [int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+             for _, _, shape, dtype in table]
+    # each message at an offset aligned for any dtype's view
+    starts = np.cumsum([0] + [-(-n // 8) * 8 for n in sizes]).tolist()
+    buf = torch.zeros(starts[-1], dtype=torch.uint8, device=device)
+    for i, t in outgoing.items():
+        buf[starts[i]:starts[i] + sizes[i]].copy_(
+            t.contiguous().reshape(-1).view(torch.uint8))
+    dist.all_reduce(buf, group=group)
+    return {i: buf[starts[i]:starts[i] + sizes[i]].view(dtype).reshape(shape)
+            for i, (src, dst, shape, dtype) in enumerate(table)
+            if dst == me}
 
 
 def broadcast_tensors(tensors, group=None, src: int = 0) -> None:

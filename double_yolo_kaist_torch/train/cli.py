@@ -14,19 +14,27 @@ change the data as the JAX package's flags do. ``--steps-per-dispatch K``
 runs K optimizer steps a call (on CUDA one captured graph of the step
 replayed K times).
 
-Data-parallel training runs one process a card:
+Data-parallel training runs one process a card. With several cards
+visible and no process group, the plain command spawns k ranks itself,
+k the largest count of visible cards that divides ``--batch-size``, as
+the JAX package's trainer builds its mesh (JAX trainer.py:95-106): each
+rank joins an NCCL group on the card ``LOCAL_RANK`` names through
+:func:`..parallel.multihost.maybe_initialize_distributed`, trains on its
+``B / k`` rows of each global batch, and rank 0 alone writes. A launcher
+does the same:
 
     DYK_DISTRIBUTED=1 python -m torch.distributed.run --nproc_per_node N \
         -m double_yolo_kaist_torch.train --batch-size <global batch> ...
 
-Each rank then trains on ``cuda:$LOCAL_RANK`` (NCCL; gloo with
-``--device cpu``), and rank 0 alone writes. ``--no-dp`` trains each
-process alone, as the JAX package's flag turns its mesh off.
+(gloo with ``--device cpu``). ``--no-dp`` trains each process alone, as
+the JAX package's flag turns its mesh off.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 
 import torch
 
@@ -34,8 +42,8 @@ from .. import resolve_device
 from ..common import DEFAULT_HYP, build_model, resolve_cfg
 from ..config.parser import load_hyp, parse_data_cfg
 from ..data.dataset import KaistDataset
-from ..parallel.multihost import maybe_initialize_distributed
-from .trainer import Trainer
+from ..parallel.multihost import maybe_initialize_distributed, run_ranks
+from .trainer import Trainer, data_parallel_count
 
 
 def str2bool(v: str) -> bool:
@@ -109,8 +117,17 @@ def main(argv=None):
     opt = make_parser().parse_args(argv)
     # a missing card refuses before any work
     dev = resolve_device(opt.device)
-    # opt-in (DYK_DISTRIBUTED=1, as torch.distributed.run's ranks are
-    # launched); one process trains as it always did
+    k = _ranks_to_spawn(opt, dev)
+    if k > 1:
+        print(f"data parallel: {k}-device mesh "
+              f"({opt.batch_size // k} images/device)", flush=True)
+        rc = run_ranks(k, ["-m", "double_yolo_kaist_torch.train",
+                           *(sys.argv[1:] if argv is None else argv)])
+        if rc:
+            raise SystemExit(rc)
+        return
+    # opt-in (DYK_DISTRIBUTED=1, as torch.distributed.run's ranks and
+    # run_ranks's are launched); one process trains as it always did
     owned = not torch.distributed.is_initialized()
     joined = maybe_initialize_distributed(
         backend="nccl" if dev.type == "cuda" else "gloo")
@@ -121,6 +138,18 @@ def main(argv=None):
     finally:
         if joined and owned:
             torch.distributed.destroy_process_group()
+
+
+def _ranks_to_spawn(opt, dev) -> int:
+    """How many data-parallel ranks this command spawns: on ``cuda`` (no
+    card named), with no process group, no launcher (``DYK_DISTRIBUTED``)
+    and no ``--no-dp``, the largest count of visible cards that divides
+    the batch; else 1 (this process trains)."""
+    if (dev.type != "cuda" or dev.index is not None or opt.no_dp
+            or torch.distributed.is_initialized()
+            or os.environ.get("DYK_DISTRIBUTED", "0") == "1"):
+        return 1
+    return data_parallel_count(opt.batch_size, torch.cuda.device_count())
 
 
 def _train(opt):

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.boxes import bbox_iou
+from ..ops.boxes import bbox_iou, wh_iou
 
 
 class HeadSpec(NamedTuple):
@@ -97,7 +97,7 @@ def _last_wins_scatter(shape, lin, valid, values):
 
 
 def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0,
-                 group=None):
+                 group=None, space=None):
     """The 3-component YOLO loss (JAX train/loss.py:60-160).
 
     Args:
@@ -115,9 +115,19 @@ def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0,
         154): the match count all-reduced, the cell count the ranks' sum.
         Each rank's result is its share of the global loss: the shares
         sum to it, and so do their gradients.
+      space: a :class:`..parallel.spatial.SpaceShard`: each head is this
+        rank's band of rows (``graph.apply(space=)``), the labels those of
+        its data shard, whole. A match's box and class terms count on the
+        rank whose band holds the match's cell row ``gj``; the match count
+        is the world's sum of in-band matches, so each match counts once;
+        objectness sums the band's cells over the global cell count. The
+        shares of all ranks sum to the one-device loss (``group`` is then
+        ``space.world``).
 
     Returns {box_loss, obj_loss, class_loss}, scalars, hyp-weighted.
     """
+    if space is not None:
+        group = space.world
     ranks = 1 if group is None else torch.distributed.get_world_size(group)
     B, T = targets.shape[:2]
     dev = raw_heads[0].device
@@ -135,7 +145,8 @@ def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0,
 
     for pi, spec in zip(raw_heads, specs):
         pi = pi.to(fdt)
-        _, na, ny, nx, no = pi.shape
+        _, na, nyb, nx, no = pi.shape          # nyb: the band's rows
+        ny = nyb if space is None else nyb * space.S
         nc = spec.nc
         anchors = _const(spec.anchors_vec, fdt, dev)
 
@@ -146,20 +157,10 @@ def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0,
         tcls = targets[..., 0].to(torch.int64)
 
         # anchor-template matching: wh-IoU(anchor, gt) > iou_t
-        inter = torch.minimum(gwh[..., None, :], anchors).prod(-1)
-        wh_iou = inter / (gwh.prod(-1)[..., None]
-                          + anchors.prod(-1) - inter + 1e-16)
-        match = tmask[..., None] & (wh_iou > iou_t)            # (B, T, na)
+        match = tmask[..., None] & (wh_iou(gwh, anchors, eps=1e-16) > iou_t)
 
         # every (image, target, anchor) candidate, in (b, t, a) order
         m = match.reshape(-1)
-        n_match = m.sum()
-        if group is not None:
-            # in the loss's float type: gloo reduces CUDA floats; counts
-            # are exact there
-            n_match = n_match.to(fdt)
-            torch.distributed.all_reduce(n_match, group=group)
-        w_cnt = torch.clamp_min(n_match, 1)
         bi = torch.arange(B, device=dev)[:, None, None].expand(B, T, na) \
             .reshape(-1)
         ai = torch.arange(na, device=dev).expand(B, T, na).reshape(-1)
@@ -170,6 +171,18 @@ def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0,
         gij = torch.floor(gxy_f).to(torch.int64)
         gi = gij[:, 0].clamp(0, nx - 1)
         gj = gij[:, 1].clamp(0, ny - 1)
+        if space is not None:
+            # the band's own matches, at rows local to the band
+            gj = gj - space.row_offset(nyb)
+            m = m & (gj >= 0) & (gj < nyb)
+            gj = gj.clamp(0, nyb - 1)
+        n_match = m.sum()
+        if group is not None:
+            # in the loss's float type: gloo reduces CUDA floats; counts
+            # are exact there
+            n_match = n_match.to(fdt)
+            torch.distributed.all_reduce(n_match, group=group)
+        w_cnt = torch.clamp_min(n_match, 1)
 
         ps = pi[bi, ai, gj, gi]                                 # (M, no)
 
@@ -190,8 +203,8 @@ def compute_loss(raw_heads, targets, tmask, specs, hyp, gr: float = 1.0,
 
         # objectness soft target at the matched cells (reference utils.py:271)
         t_iou = (1.0 - gr) + gr * torch.clamp_min(iou.detach(), 0.0)
-        lin = ((bi * na + ai) * ny + gj) * nx + gi
-        tobj = _last_wins_scatter((B, na, ny, nx), lin, m, t_iou)
+        lin = ((bi * na + ai) * nyb + gj) * nx + gi
+        tobj = _last_wins_scatter((B, na, nyb, nx), lin, m, t_iou)
 
         obj_l = bce_with_logits(pi[..., 4], tobj, hyp["obj_pw"])
         if fl_gamma > 0:

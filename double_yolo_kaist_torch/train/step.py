@@ -64,7 +64,7 @@ def global_norm(tensors) -> torch.Tensor:
 
 def make_train_step(ir, hyp: dict, tx, *, gr: float = 1.0,
                     compute_dtype=torch.bfloat16, ema_decay: float = 0.9999,
-                    remat_segments: int = 0, group=None):
+                    remat_segments: int = 0, group=None, space=None):
     """(state, batch, rng) -> (new state, metrics): one optimizer step.
 
     batch: {"v": (B, H, W, 3), "l": (B, H, W, 3) [dual-stream only],
@@ -80,8 +80,18 @@ def make_train_step(ir, hyp: dict, tx, *, gr: float = 1.0,
     loss is its share of the global loss, and the gradients and loss
     terms are summed over the ranks in one all-reduce of one flat buffer
     before the update, so every rank applies the global batch's step and
-    reports its metrics (JAX's jitted step over a sharded batch)."""
+    reports its metrics (JAX's jitted step over a sharded batch).
+
+    ``space``: a :class:`..parallel.spatial.SpaceShard` (a (data, space)
+    mesh): the batch is this rank's part of the global batch
+    (``spatial.local_batch``: its data shard's images cut to its band of
+    rows, their labels whole); the forward runs on the band, each rank's
+    loss is its share of the global loss (``loss.compute_loss(space=)``)
+    and the sums run over every rank of the mesh (``group`` is then
+    ``space.world``). Such steps run eagerly."""
     specs = LS.head_specs(ir)
+    if space is not None:
+        group = space.world
 
     def step_fn(state: TrainState, batch: dict, rng=None):
         tx.ensure_lr_table(state.step + 1)
@@ -91,9 +101,9 @@ def make_train_step(ir, hyp: dict, tx, *, gr: float = 1.0,
         raws, new_bn = graph.apply(
             ir, {"params": state.params, "state": state.bn_state}, xv, xl,
             train=True, rng=rng, compute_dtype=compute_dtype,
-            remat_segments=remat_segments, group=group)
+            remat_segments=remat_segments, group=group, space=space)
         ld = LS.compute_loss(raws, batch["targets"], batch["tmask"], specs,
-                             hyp, gr, group=group)
+                             hyp, gr, group=group, space=space)
         total = LS.total_loss(ld)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -304,7 +314,7 @@ def _on_cuda(state: TrainState) -> bool:
 
 def make_multi_step(ir, hyp: dict, tx, *, gr: float = 1.0,
                     compute_dtype=torch.bfloat16, ema_decay: float = 0.9999,
-                    remat_segments: int = 0, group=None):
+                    remat_segments: int = 0, group=None, space=None):
     """K optimizer steps a call (JAX step.py:103-133):
     (state, batches, rng) -> (state, stacked metrics), where every leaf of
     ``batches`` has a leading K axis and each metric comes back as (K,).
@@ -319,15 +329,24 @@ def make_multi_step(ir, hyp: dict, tx, *, gr: float = 1.0,
     ``group``: as for :func:`make_train_step`. Under NCCL the collectives
     are captured in the step's graph (the warm-up steps before capture run
     them too); gloo's cannot be captured, so on CUDA a gloo group
-    raises."""
+    raises.
+
+    ``space``: as for :func:`make_train_step`; K = 1 a call only (K > 1
+    raises: a captured 2-D step is an open item of ROADMAP.md)."""
     step_fn = make_train_step(ir, hyp, tx, gr=gr,
                               compute_dtype=compute_dtype,
                               ema_decay=ema_decay,
-                              remat_segments=remat_segments, group=group)
+                              remat_segments=remat_segments, group=group,
+                              space=space)
     captured = CapturedSteps(step_fn, tx, group)
 
     def multi(state: TrainState, batches: dict, rng=None):
         k = next(iter(batches.values())).shape[0]
+        if space is not None and k > 1:
+            raise ValueError(
+                f"{k} steps a dispatch on a (data, space) mesh: the 2-D "
+                f"path runs its steps eagerly, one a call; capturing its "
+                f"halo exchanges is an open item of ROADMAP.md")
 
         def batch_at(i):
             return {name: v[i] for name, v in batches.items()}

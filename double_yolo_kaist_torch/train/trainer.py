@@ -55,7 +55,8 @@ from .step import (TrainState, create_train_state, make_fused_multi_step,
 
 ONE_PROCESS_A_CARD = (
     "the port trains data-parallel with one process a card, not over "
-    "several devices of one process; launch DYK_DISTRIBUTED=1 python -m "
+    "several devices of one process; python -m double_yolo_kaist_torch."
+    "train spawns them, or launch DYK_DISTRIBUTED=1 python -m "
     "torch.distributed.run --nproc_per_node <cards> -m "
     "double_yolo_kaist_torch.train ...")
 EPOCH_SEED = 123      # the JAX trainer's PRNGKey(123), folded by epoch
@@ -73,6 +74,14 @@ def _group_batches(batches, k: int):
             yield ({key: torch.stack([g[key] for g in group])
                     for key in group[0]}, idxs)
             group, idxs = [], []
+
+
+def data_parallel_count(batch_size: int, n_devices: int) -> int:
+    """The data-parallel width JAX's trainer picks: the largest count of
+    the ``n_devices`` devices that divides the batch (JAX
+    trainer.py:100-106)."""
+    return max(d for d in range(1, max(n_devices, 1) + 1)
+               if batch_size % d == 0)
 
 
 def multi_scale_buckets(img_size: int, gs: int = 32):

@@ -202,3 +202,69 @@ def test_predictor_sharded_int8_runs(tiny):
     assert p1.qvars is not None and p8.qvars is not None
     assert all(q is p8.qvars for q in p8._qvars_r)       # one CPU copy
     _same_detections(p8(imgs, imgs), p1(imgs, imgs))
+
+
+def test_two_d_mesh_serves_one_replica_a_data_row(mini_split, tiny,
+                                                   monkeypatch):
+    """F5: a (data, space) mesh of shape (2, 2) serves one replica a row of
+    its data axis, as JAX shards over ``mesh.axis_names[0]`` alone: the
+    Predictor's buckets are JAX's, each half runs on the first device of
+    its data row (the device that holds that half under JAX's
+    ``P("data")``), the evaluator pads to, places on and shards over the
+    same rows, and the detections equal a 1-D mesh of 2 bit for bit."""
+    from double_yolo_kaist_tpu.serving import Predictor as JaxPredictor
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    jir, jv, tir, tv = tiny
+    two_d = M.make_mesh(["cpu"] * 4, axis_names=("data", "space"),
+                        shape=(2, 2))
+    one_d = M.make_mesh(["cpu"] * 2)
+    jmesh = JM.make_mesh(jax.devices()[:4], axis_names=("data", "space"),
+                         shape=(2, 2))
+    assert two_d.size == len(two_d.replicas) == jmesh.shape["data"] == 2
+    # replica r is the device at mesh position (r, 0); JAX puts batch
+    # shard r there
+    where = NamedSharding(jmesh, P("data")).devices_indices_map((4,))
+    for r in range(2):
+        assert two_d.replicas[r] is two_d.devices[r, 0]
+        assert where[jmesh.devices[r, 0]][0] == slice(2 * r, 2 * r + 2)
+
+    kw = dict(img_size=64, conf_thres=0.005, compute_dtype=torch.float32,
+              batch_buckets=(1, 2, 4))
+    p2 = Predictor(tir, tv, mesh=two_d, **kw)
+    jp = JaxPredictor(jir, jv, mesh=jmesh, img_size=64, conf_thres=0.005,
+                      compute_dtype=jnp.float32, batch_buckets=(1, 2, 4))
+    assert p2.batch_buckets == list(jp.batch_buckets) == [2, 4]
+    p1 = Predictor(tir, tv, mesh=one_d, **kw)
+    rng = np.random.default_rng(5)
+    v = rng.integers(0, 256, (3, 96, 128, 3), dtype=np.uint8)
+    l = rng.integers(0, 256, (3, 96, 128, 3), dtype=np.uint8)
+    got, want = p2(v, l), p1(v, l)
+    assert list(p2._stages) == [(4, (96, 128))]
+    assert p2._stages[(4, (96, 128))].dev[0].shape[0] == 2
+    for (b1, s1, c1), (b2, s2, c2) in zip(want, got):
+        assert np.array_equal(b1, b2) and np.array_equal(s1, s2)
+        assert np.array_equal(c1, c2)
+
+    shards = []
+    shard_batch = M.shard_batch
+
+    def recording(batch, mesh, batch_dim=0):
+        out = shard_batch(batch, mesh, batch_dim)
+        shards.append((len(out), mesh.replicas, out[0]["v"].shape[0]))
+        return out
+
+    monkeypatch.setattr(M, "shard_batch", recording)
+    ds = KaistDataset(mini_split, img_size=64, rect=True)
+    ekw = dict(batch_size=5, conf_thres=0.005, compute_dtype=torch.float32)
+    r2 = evaluate_dataset(tir, tv, ds, mesh=two_d, **ekw)
+    # batches of 5 and 3, padded to 6 and 4 over JAX's 2 data rows
+    rows = jmesh.shape["data"]
+    assert [(n, tuple(devs), b) for n, devs, b in shards] == [
+        (rows, tuple(two_d.replicas), 3), (rows, tuple(two_d.replicas), 2)]
+    r1 = evaluate_dataset(tir, tv, ds, mesh=one_d, **ekw)
+    assert np.array_equal(r2["coco_stats"], r1["coco_stats"])
+    assert r2["ap"] == r1["ap"] and r2["lamr"] == r1["lamr"]
+    for k, (b1, s1) in r1["predictions"].items():
+        assert np.array_equal(r2["predictions"][k][0], b1)
+        assert np.array_equal(r2["predictions"][k][1], s1)

@@ -37,7 +37,7 @@ def test_port_imports_no_jax():
                  "export", "export_model", "cuda_graphs", "microbatch",
                  "overfit_check", "models.builder", "utils.general",
                  "utils.npz", "parallel", "parallel.mesh",
-                 "parallel.multihost"):
+                 "parallel.multihost", "parallel.spatial", "dryrun"):
         assert f"double_yolo_kaist_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -215,6 +215,39 @@ def test_train_entry_point_on_card(split, capsys):
         "epoch:0", "epoch:1", "epoch:2"]
 
 
+@pytest.mark.parametrize("cards, extra, want", [
+    (4, ["--batch-size", "8"], 4), (4, ["--batch-size", "6"], 3),
+    (4, ["--batch-size", "8", "--no-dp"], 1),
+    (1, ["--batch-size", "8"], 1)],
+    ids=["4cards-bs8", "4cards-bs6", "no-dp", "1card"])
+def test_train_spawns_a_rank_a_card(split, monkeypatch, capsys, cards, extra,
+                                    want):
+    """F6: with several cards visible and no process group, plain
+    ``train`` spawns k ranks, k the largest count of cards that divides
+    the batch (JAX trainer.py:100-106), and prints JAX's line;
+    ``--no-dp`` and one card train in this process."""
+    from double_yolo_kaist_torch.train import cli
+
+    spawned, trained = [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.delenv("DYK_DISTRIBUTED", raising=False)
+    monkeypatch.setattr(cli, "run_ranks",
+                        lambda k, args: spawned.append((k, args)) or 0)
+    monkeypatch.setattr(cli, "_train", lambda opt: trained.append(opt))
+    args = _default_device(split, "--epochs", "1") + extra
+    main(args)
+    if want > 1:
+        assert spawned == [(want, ["-m", "double_yolo_kaist_torch.train",
+                                   *args])] and not trained
+        bs = int(extra[1])
+        assert (f"data parallel: {want}-device mesh ({bs // want} "
+                f"images/device)") in capsys.readouterr().out
+    else:
+        assert not spawned and len(trained) == 1
+        assert trained[0].device == "cuda"
+
+
 def test_multi_scale_buckets_match_jax():
     for s in (64, 320, 416, 512, 640):
         assert multi_scale_buckets(s) == jax_buckets(s)
