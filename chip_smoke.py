@@ -95,10 +95,11 @@ result line):
  13. training end to end: the Trainer in process (flagship bf16, bs 8, one
      epoch on phase 9's split and its evaluation), whose launch counts
      must show K1 and K2 once and K3 twice per evaluation batch; beside
-     it ``python -m double_yolo_kaist_torch.train`` as subprocesses: 2
-     epochs (``last``, ``best``, ``results.txt``), ``--resume <out>/last
-     --epochs 3`` (one more epoch), and MNv3 fine-tuned with ``--ema`` for
-     1 epoch from phase 9's checkpoint (SGD); their checkpoints hold the
+     it ``python -m double_yolo_kaist_torch.train`` as subprocesses: 1
+     epoch (``last``, ``best``, ``results.txt``), ``--resume <out>/last
+     --epochs 2`` (one more epoch), and MNv3 fine-tuned with ``--ema`` for
+     1 epoch from phase 9's checkpoint (SGD, deterministic algorithms: its
+     mAP above 0 is a gate); their checkpoints hold the
      JAX package's layout (every key of params, BN state, the Adam or SGD
      optimizer state and the EMA; ``load_checkpoint`` takes them all);
      ``python -m double_yolo_kaist_torch.evaluate`` on the flagship's and
@@ -178,9 +179,9 @@ result line):
      in-process Predictor; the two gloo ranks run ``Trainer.fit`` for an
      epoch of 8 pairs: rank 0 alone writes, equal params, the same
      in-train mAP, K1 and K2 launched by each rank's evaluation.
- 17. slice 11 (``--only spatial`` runs it alone): the 2-D data x space
-     path on the one card. (a) Four gloo ranks on cuda:0 at mesh (2, 2),
-     spawned, against one process on the card at the whole global batch
+ 17. slice 11: the 2-D data x space path on the one card. (a) Four gloo
+     ranks on cuda:0 at mesh (2, 2) (this process is rank 0, three are
+     spawned) against one process on the card at the whole global batch
      of 4: the tiny cfg's and the mini-flagship's fp32 eval forwards at
      64x64 (TF32 off) within rtol and atol 2e-4, K1 launched once by each
      rank's gathering forward; the tiny cfg's first fp32 SGD step, loss
@@ -192,18 +193,72 @@ result line):
      ms, halo exchanges a step, their bytes and their ms (CUDA events
      around each), the gradient all-reduce's ms, peak GiB a rank (one
      card: not a scaling number). (c) ``python -m
-     double_yolo_kaist_torch.dryrun 4`` exits 0 with its three lines (the
-     whole script starts it beside phase 13's untimed subprocesses and
-     holds it here; ``--only spatial`` runs it in this phase). (d)
+     double_yolo_kaist_torch.dryrun 4`` exits 0 with its three lines (a
+     job of its own: its four ranks are the card's four processes). (d)
      A Predictor on the mesh ["cuda:0"] * 4 of shape (2, 2): buckets
      (1, 8) become [2, 8], requests of 3 and 8 frames bit-equal to a 1-D
      mesh of 2, K1 and K2 once a replica.
-``python3 chip_smoke.py --only train`` runs phases 12 and 13 alone,
-``--only int8aug`` phases 8 and 14, ``--only slice9`` phase 15, ``--only
-dp`` phase 16, ``--only spatial`` phase 17 (no result line). After each
-phase the script prints its elapsed time. Then a JSON line of
-kernel numbers, the nvidia-smi line, and last {"ok": true, "device":
-{...}}.
+ 18. the tools: the whole zoo on the card and the port's tools. (a) Each
+     of the 16 zoo models on ``bench.seeded_variables``: the folded fp32
+     forward on the card (TF32 off) against the CPU's plain path on one
+     seeded 64x96 pair (one frame for the single-stream models), raw
+     heads within 1e-3 of their scale and decoded rows within 1e-3
+     relative, then bf16 at 512x640 on the card, finite heads that move
+     when the visible frame changes; K1 once a forward. Then each tool
+     as a subprocess (``python -m double_yolo_kaist_torch.<tool>``, its
+     launch counts printed after its run and held): (b) ``zoo_bench
+     --int8`` on a leaky YOLOv3, the inception cfg and a MobileNet (the
+     draws F7 repaired) at ``--iters 2``: a finite bf16 fps a row, an
+     int8 chain fps where the chain plan is not empty and the empty plan
+     marked where it is; (c) ``serving_bench`` on MNv3 and the flagship,
+     bf16 and int8 (the flagship's int8 run as a subprocess, the other
+     three through ``serving_bench.main`` in the job's process; K3 twice
+     and K4 ten times a flagship int8 forward);
+     (d) ``serve_loadtest --spawn --payload raw`` on MNv3 at concurrency
+     1 and 4 (rps, p50 / p95 / p99, the batch histogram); (e)
+     ``int8_ab`` on the flagship, chain and edge, one round; (f)
+     ``train_wallclock`` on MNv3, one epoch; (g) ``real_model_overfit``
+     on MNv3, 100 steps, deterministic, AP@0.5 at least 0.5 with its
+     margin printed; (h) ``dataset_preview``, ``compare_clahe`` and
+     ``plot_activations`` (both panels): their PNGs, or, where matplotlib
+     is absent (the card's machine), a refusal naming it.
+
+How the script runs. The process started as ``python3 chip_smoke.py``
+never creates a context on the card: it builds the kernels, then starts
+each group of phases as a job, ``chip_smoke.py --job NAME``, a process
+of its own running groups of phases one after another (core: phases
+3-10 and the references of 11's subprocesses, then int8aug: 14, train:
+12-13, tools: 18 (a) and (c) in process; and slice9: 15, then dp: 16;
+then spatial: 17 but (c), and dryrun: 17 (c)), runs every subprocess
+whose check needs no card as a task (a thread of the script: phase 11's
+entry points, 13's and 15's train runs, 14's snow train, 15's check-ap,
+16's torchrun train and serve --dp, and 18's tools), and reads what each
+wrote. At most four processes hold a context on the card at once, a rank
+counted as one: each holds one of four slots (flock'd files) from its
+start to its end, taken by whoever starts it; two jobs run at once, a
+job's subprocesses go before the tasks and the tasks go in TASKS' order;
+spatial and dryrun run with the card to themselves; nvidia-smi's count
+of processes on the card, read each second, must stay within the four.
+Core times the kernels before anything else starts; what reads phase
+9's split starts once core has written it. Every process
+that imports the port prints its peak device memory as it exits (and
+the script lists them all). No check depends on a time or a ratio of
+times: times are printed. A check on a trained result runs under
+deterministic algorithms from its seed and prints its margin. Servers
+bind port 0 and name the port they bound. Each caught failure prints
+``chip_smoke: FAILED <phase>: <type>: <message>`` (a wait that ran out:
+"timed out after N s"), and a failed run ends with ``chip_smoke: failed
+phases: ...`` and exit 1. A job past its own limit, or any job still
+running 1080 s into the script, is stopped and reported.
+The script makes itself the reaper of every process it starts, and of
+those processes' own children (Linux's child subreaper). Before it exits,
+whatever the outcome, it stops any of them still there, names each on its
+standard error, and reaps them, so that nothing it started outlives it.
+``python3 chip_smoke.py --only JOB [JOB ...]`` runs those jobs alone
+(each makes phase 9's split for itself where it reads it) and prints no
+result line. Each job prints its elapsed time after each phase. Then a
+JSON line of kernel numbers, the nvidia-smi line, and last {"ok": true,
+"device": {...}}.
 
 Times come from CUDA events (kernels) or the host clock around a
 synchronised request (end to end), after warm-up; each is the median of
@@ -255,6 +310,269 @@ def _stamp(t0: float, what: str) -> None:
 def _fail(msg: str) -> int:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+def _failed(phase: str, e: BaseException) -> None:
+    """The line a caught failure prints on stdout: the phase, the
+    exception's type and its message (a wait that ran out says so)."""
+    if isinstance(e, subprocess.TimeoutExpired):
+        msg = (f"{os.path.basename(str(e.cmd[0] if isinstance(e.cmd, list) else e.cmd))} "
+               f"timed out after {e.timeout:.0f} s")
+    else:
+        msg = " ".join(str(e).split())[:600]
+    print(f"chip_smoke: FAILED {phase}: {type(e).__name__}: {msg}",
+          flush=True)
+
+
+# ------------------------------------------------- the card's process budget
+
+CUDA_SLOTS = 4        # CUDA processes on the card at once (a rank is one)
+SLOTS_ENV = "DYK_SMOKE_SLOTS"
+
+
+_JOBS_WAITING = threading.Event()    # the script's tasks hold back
+_IS_SCRIPT = [False]       # this process is the script (it runs the tasks)
+_TASK = threading.local()  # .priority: the task's place in TASKS
+_WAITING = {}              # thread id: priority of a task waiting for a slot
+_WAITING_LOCK = threading.Lock()
+
+
+def _take_slots(n: int, wait: bool = True, first: bool = False) -> list:
+    """Take ``n`` of the run's CUDA slots at once (all or none; waiting
+    until ``n`` are free, or else returning [] at once): flock'd files in
+    the directory that ``DYK_SMOKE_SLOTS`` names, shared by every process
+    of the run. A job started by hand, outside the script, has no budget
+    and takes nothing. Jobs go before tasks: a job process that waits
+    leaves a ``want.*`` file there meanwhile, and the script's tasks take
+    nothing while one is there or while a job waits to start
+    (``_JOBS_WAITING``; the script's own take for it is ``first``)."""
+    import fcntl
+    import glob
+    d = os.environ.get(SLOTS_ENV)
+    if not d or n <= 0:
+        return []
+    want = None
+    me = threading.get_ident()
+    prio = getattr(_TASK, "priority", None)
+    if prio is not None:
+        with _WAITING_LOCK:
+            _WAITING[me] = prio
+    try:
+        while True:
+            if _IS_SCRIPT[0] and not first and (
+                    _JOBS_WAITING.is_set()
+                    or glob.glob(os.path.join(d, "want.*"))):
+                time.sleep(0.1)
+                continue
+            if prio is not None:      # the first task in TASKS' order goes
+                with _WAITING_LOCK:
+                    ahead = min(_WAITING.values()) < prio
+                if ahead:
+                    time.sleep(0.1)
+                    continue
+            held = []
+            for i in range(CUDA_SLOTS):
+                fd = os.open(os.path.join(d, f"slot{i}"),
+                             os.O_RDWR | os.O_CREAT)
+                try:
+                    fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                except OSError:
+                    os.close(fd)
+                    continue
+                held.append(fd)
+                if len(held) == n:
+                    return held
+            for fd in held:
+                os.close(fd)
+            if not wait:
+                return []
+            if want is None and not _IS_SCRIPT[0]:
+                want = os.path.join(
+                    d, f"want.{os.getpid()}.{threading.get_ident()}")
+                open(want, "w").close()
+            time.sleep(0.1)
+    finally:
+        if want is not None:
+            os.remove(want)
+        with _WAITING_LOCK:
+            _WAITING.pop(me, None)
+
+
+_SLOTS_LOCK = threading.Lock()
+
+
+def _give_slots(held: list) -> None:
+    with _SLOTS_LOCK:
+        while held:
+            os.close(held.pop())    # closing the file drops its lock
+
+
+def _give_when_done(procs, held: list) -> None:
+    """Give ``held`` back once every process of ``procs`` has ended (a
+    thread of its own waits), whoever else waits for them and when."""
+    def watch():
+        for p in procs:
+            subprocess.Popen.wait(p)
+        _give_slots(held)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+class _Proc(subprocess.Popen):
+    """A subprocess that holds ``slots`` of the run's CUDA slots from just
+    before its start until it ends (``slots=0``: one that never reaches
+    the card). A slot never waits on a caller that is itself waiting for
+    a slot."""
+
+    def __init__(self, *args, slots: int = 1, **kw):
+        t0 = time.perf_counter()
+        held = _take_slots(slots)
+        self.t_start = time.perf_counter()
+        self.waited = self.t_start - t0
+        try:
+            super().__init__(*args, **kw)
+        except BaseException:
+            _give_slots(held)
+            raise
+        if held:
+            _give_when_done([self], held)
+
+
+def _sub(cmd, timeout=900, slots=1, **kw):
+    """``subprocess.run`` (output captured as text) through :class:`_Proc`;
+    a run past ``timeout`` is killed and raises TimeoutExpired. The result
+    carries ``waited`` (s its slot took to come) and ``ran`` (s from the
+    start)."""
+    kw.setdefault("cwd", ROOT)
+    kw.setdefault("env", dict(os.environ, PYTHONPATH=ROOT))
+    with _Proc(cmd, slots=slots, stdout=subprocess.PIPE,
+               stderr=subprocess.PIPE, text=True, **kw) as p:
+        try:
+            out, err = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise
+    r = subprocess.CompletedProcess(cmd, p.returncode, out, err)
+    r.waited, r.ran = p.waited, time.perf_counter() - p.t_start
+    print(f"  [{_what(cmd)}: a slot after {r.waited:.1f} s, ran "
+          f"{r.ran:.1f} s]", flush=True)
+    return r
+
+
+def _what(cmd) -> str:
+    """A short name of a subprocess's command line."""
+    mods = [x for x in cmd if x.startswith("double_yolo_kaist_torch.")]
+    return mods[0].split(".", 1)[1] if mods else os.path.basename(cmd[-1])
+
+
+# run a module of the port as its entry point, clearing the kernels'
+# launch counts before and printing them after (its last stdout line);
+# with "1" as its second argument, under utils.general.deterministic
+RUNPY = ("import contextlib, json, runpy, sys\n"
+         "from double_yolo_kaist_torch.ops import _build\n"
+         "from double_yolo_kaist_torch.utils.general import deterministic\n"
+         "mod, det = sys.argv[1], sys.argv[2] == '1'\n"
+         "sys.argv = [mod] + sys.argv[3:]\n"
+         "_build.launches.clear()\n"
+         "try:\n"
+         "    with deterministic() if det else contextlib.nullcontext():\n"
+         "        runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+         "finally:\n"
+         "    print('launches ' + json.dumps(dict(_build.launches)),\n"
+         "          flush=True)\n")
+
+
+def _runpy(module: str, *args, deterministic: bool = False) -> list:
+    """argv of ``python -m double_yolo_kaist_torch.<module> *args`` through
+    RUNPY."""
+    return [sys.executable, "-c", RUNPY, f"double_yolo_kaist_torch.{module}",
+            "1" if deterministic else "0", *map(str, args)]
+
+
+def _launches_of(lines) -> dict:
+    """The launch counts RUNPY printed."""
+    got = [x for x in lines if x.startswith("launches ")]
+    if not got:
+        raise AssertionError("the run printed no launch counts")
+    return json.loads(got[-1][len("launches "):])
+
+
+PR_SET_CHILD_SUBREAPER = 36       # <linux/prctl.h>
+
+
+def _become_subreaper() -> None:
+    """Orphaned descendants (a tool's server, a launcher's ranks in a
+    session of their own) are handed to this process instead of to init,
+    so that :func:`_stop_leftovers` can find and reap them."""
+    import ctypes
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1,
+                                                0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _descendants(pid: int) -> list:
+    """[(pid, state, command line)] of every live process under ``pid``,
+    read from /proc."""
+    kids, info = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        kids.setdefault(int(ppid), []).append(int(d))
+        info[int(d)] = (state, cmd.strip())
+    out, todo = [], [pid]
+    while todo:
+        for c in kids.get(todo.pop(), []):
+            out.append((c, *info[c]))
+            todo.append(c)
+    return out
+
+
+def _reap() -> None:
+    """Collect the exit of every child that has ended."""
+    while True:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                return
+        except ChildProcessError:
+            return
+
+
+def _stop_leftovers(limit_s: float = 60.0) -> None:
+    """Stop and reap every process this script started that is still
+    there, naming each (but zombies) on standard error."""
+    named = set()
+    deadline = time.monotonic() + limit_s
+    while True:
+        _reap()
+        left = _descendants(os.getpid())
+        if not left:
+            return
+        for pid, state, cmd in left:
+            if state != "Z" and pid not in named:
+                named.add(pid)
+                print(f"chip_smoke: stopping a process left running: pid "
+                      f"{pid} ({state}) {cmd[:300]}", file=sys.stderr,
+                      flush=True)
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        if time.monotonic() > deadline:
+            print(f"chip_smoke: {len(left)} processes did not end within "
+                  f"{limit_s:.0f} s", file=sys.stderr, flush=True)
+            return
+        time.sleep(0.1)
 
 
 def _smi_line() -> str:
@@ -1685,13 +2003,15 @@ def _eval_shape_kernels(torch, dev, mnv3_ir, placed, ds, flagship_ir, pools,
     return out
 
 
-def phase_eval(torch, dev, launches, mnv3_ir, flagship_ir, results, root):
+def phase_eval(torch, dev, launches, mnv3_ir, flagship_ir, results, root,
+               ready=None):
     """The offline evaluation path: evaluate_dataset on an 80-frame KAIST
     split written under ``root`` (MNv3 bf16, the flagship bf16 and int8),
     card against CPU, the tiers, the calibration artifact, launch counts
     per run, K1-K4 at the eval's shapes, and the entry point as a
-    subprocess. Returns (counts, kernel numbers, the MNv3 checkpoint
-    directory it wrote)."""
+    subprocess. ``ready`` is called once the split is labelled and MNv3's
+    checkpoint written beside it. Returns (counts, kernel numbers, the
+    MNv3 checkpoint directory it wrote)."""
     from double_yolo_kaist_torch.bench import seeded_variables
     from double_yolo_kaist_torch.data import pipeline as P
     from double_yolo_kaist_torch.data.dataset import KaistDataset
@@ -1725,6 +2045,11 @@ def phase_eval(torch, dev, launches, mnv3_ir, flagship_ir, results, root):
     n_labels = _write_labels(unlabelled, res["predictions"])
     print(f"eval labels: {n_labels} boxes, the 5 most confident MNv3 "
           f"fp32 detections of each frame", flush=True)
+    ck = os.path.join(root, "mnv3_ckpt")
+    jx = weights.to_jax_variables(mnv3_vars)
+    save_checkpoint(ck, params=jx["params"], bn_state=jx["state"])
+    if ready is not None:
+        ready()
     ds = dataset("eval80")            # reads the labels just written
 
     # 1. card against the port's CPU path, fp32, the first 8 frames
@@ -1835,10 +2160,7 @@ def phase_eval(torch, dev, launches, mnv3_ir, flagship_ir, results, root):
                                   flagship_ir, pools, results)
     del placed
 
-    # 6. the entry point as a subprocess
-    ck = os.path.join(root, "mnv3_ckpt")
-    jx = weights.to_jax_variables(mnv3_vars)
-    save_checkpoint(ck, params=jx["params"], bn_state=jx["state"])
+    # 6. the entry point as a subprocess (on the checkpoint written above)
     data = os.path.join(root, "eval.data")
     with open(data, "w") as f:
         f.write(f"classes=1\ntest={splits['eval80']}\n")
@@ -1846,10 +2168,8 @@ def phase_eval(torch, dev, launches, mnv3_ir, flagship_ir, results, root):
            "--cfg", MNV3_NAME, "--weights", ck, "--data", data,
            "--img-size", str(EVAL_IMG), "--batch-size", str(EVAL_BS),
            "--cache-images", "disk"]
-    env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                       text=True, timeout=600)
+    r = _sub(cmd, timeout=600)
     lines = r.stdout.splitlines()
     print(f"entry point: exit {r.returncode} in "
           f"{time.perf_counter() - t0:.1f} s; stdout:\n  "
@@ -2011,13 +2331,65 @@ def phase_graphs(torch, launches, served):
 
 # ---------------------------------------------------------------- phase 11
 
-def _free_port() -> int:
-    import socket
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+class _Server:
+    """A ``serve`` subprocess started with ``--port 0``: it binds a port of
+    the system's choosing (no other process can race it for a port picked
+    before), named in its banner; up once that port's ``/healthz``
+    answers ok. Its output (stdout and stderr) collects in ``lines``;
+    :meth:`stop` ends it."""
+
+    def __init__(self, cmd, what, limit=300):
+        self.what, self.lines, self.url = what, [], None
+        self.proc = _Proc(cmd + ["--port", "0"], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT),
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+        t0 = self.proc.t_start
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        try:
+            while True:
+                if self.url is None:
+                    on = [x for x in list(self.lines) if " on http://" in x]
+                    if on:
+                        self.url = "http://" + on[0].split(
+                            " on http://", 1)[1].strip()
+                if self.url is not None:
+                    try:
+                        if _http(f"{self.url}/healthz",
+                                 timeout=2)["status"] == "ok":
+                            break
+                    except OSError:
+                        pass
+                if self.proc.poll() is not None:
+                    raise AssertionError(
+                        f"{what} exited {self.proc.returncode}:\n"
+                        + "\n".join(self.lines[-30:]))
+                if time.perf_counter() - t0 > limit:
+                    raise AssertionError(f"{what}: timed out after "
+                                         f"{limit} s coming up")
+                time.sleep(0.3)
+        except BaseException:
+            self.stop()
+            raise
+        self.up_s = time.perf_counter() - t0
+        print(f"{what}: bound {self.url}, up in {self.up_s:.1f} s (a slot "
+              f"after {self.proc.waited:.1f} s)", flush=True)
+
+    def _read(self):
+        for x in self.proc.stdout:
+            self.lines.append(x.rstrip("\n"))
+
+    def stop(self) -> list:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.reader.join(timeout=10)
+        return self.lines
 
 
 def _http(url, body=None, timeout=300):
@@ -2051,38 +2423,69 @@ def _matching_bucket(got, alone):
             if all(equal(x, y) for x, y in zip(got, want))]
 
 
-def _serve_subprocess(torch, dev, mnv3_ir, mnv3_vars, ckpt):
-    """``serve`` on MNv3 by its zoo name: 32 concurrent raw requests."""
-    import base64
+SERVE_BUCKETS = (1, 4, 16)     # serve's MicroBatcher buckets at --microbatch 16
 
-    from double_yolo_kaist_torch.serving import Predictor
-    port = _free_port()
-    url = f"http://127.0.0.1:{port}"
-    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.serve", "--cfg",
-           MNV3_NAME, "--weights", ckpt, "--img-size", "640",
-           "--warmup-hw", "512", "640", "--port", str(port)]
+
+def _serve_frames():
+    """The 32 raw request frames of :func:`_serve_check`."""
     rng = np.random.default_rng(SEED + 11)
-    frames = [tuple(rng.integers(0, 256, (512, 640, 3), dtype=np.uint8)
-                    for _ in range(2)) for _ in range(32)]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ,
-                                                    PYTHONPATH=ROOT),
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    try:
-        while True:
-            try:
-                if _http(f"{url}/healthz", timeout=2)["status"] == "ok":
-                    break
-            except OSError:
-                if proc.poll() is not None:
-                    raise AssertionError(f"serve exited {proc.returncode}:\n"
-                                         f"{proc.stdout.read()[-3000:]}")
-                if time.perf_counter() - t0 > 300:
-                    raise AssertionError("serve did not come up in 300 s")
-                time.sleep(0.5)
-        up = time.perf_counter() - t0
+    return [tuple(rng.integers(0, 256, (512, 640, 3), dtype=np.uint8)
+                  for _ in range(2)) for _ in range(32)]
 
+
+def _entry_refs(torch, dev, mnv3_ir, mnv3_vars, root):
+    """What phase 11's subprocesses (and phase 16's ``serve --dp 1``) are
+    held against, made in process on the card: each of
+    :func:`_serve_frames` (and :func:`_dp_frame`) served alone in each of
+    serve's buckets (``serve_alone.npz``), and the detections of every
+    pair of the split as ``detect``'s Predictor serves it
+    (``detect_counts.json``)."""
+    import cv2
+
+    from double_yolo_kaist_torch.detect import get_pair_paths
+    from double_yolo_kaist_torch.serving import Predictor
+    pred = Predictor(mnv3_ir, mnv3_vars, img_size=640,
+                     batch_buckets=SERVE_BUCKETS, device=dev)
+    out = {}
+    for i, (v, l) in enumerate(_serve_frames()):
+        for b, dets in _alone(pred, v, l, SERVE_BUCKETS).items():
+            for k, x in zip(("boxes", "scores", "classes"), dets):
+                out[f"{i}/{b}/{k}"] = np.asarray(x)
+    v, l = _dp_frame()
+    for b, dets in _alone(pred, v, l, SERVE_BUCKETS).items():
+        for k, x in zip(("boxes", "scores", "classes"), dets):
+            out[f"dp/{b}/{k}"] = np.asarray(x)
+    np.savez(os.path.join(root, "serve_alone.npz"), **out)
+    del pred
+    src = os.path.join(root, "images", "eval")
+    pred = Predictor(mnv3_ir, mnv3_vars, img_size=512, conf_thres=0.1,
+                     iou_thres=0.5, batch_buckets=(1,), device=dev)
+    counts = {}
+    for name in sorted(os.listdir(src)):
+        if name.endswith("_visible.jpg"):
+            vp, lp = get_pair_paths(os.path.join(src, name))
+            v = cv2.imread(vp)[None, :, :, ::-1]
+            l = cv2.imread(lp)[None, :, :, ::-1]
+            counts[name] = len(pred(v, l)[0][0])
+    with open(os.path.join(root, "detect_counts.json"), "w") as f:
+        json.dump(counts, f)
+    print(f"entry refs: 32 frames alone in buckets {SERVE_BUCKETS}, "
+          f"detect's counts of {len(counts)} pairs", flush=True)
+
+
+def _serve_check(root):
+    """``serve`` on MNv3 by its zoo name and phase 9's checkpoint: 32
+    concurrent raw requests, each answer the detections of its frame served
+    alone in one of the buckets (:func:`_entry_refs`), and a mean micro-
+    batch above 1 in ``/healthz``."""
+    import base64
+    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.serve", "--cfg",
+           MNV3_NAME, "--weights", os.path.join(root, "mnv3_ckpt"),
+           "--img-size", "640", "--warmup-hw", "512", "640"]
+    frames = _serve_frames()
+    srv = _Server(cmd, "serve")
+    url, up = srv.url, srv.up_s
+    try:
         def post(pair):
             v, l = pair
             return _http(f"{url}/detect", json.dumps({
@@ -2096,22 +2499,17 @@ def _serve_subprocess(torch, dev, mnv3_ir, mnv3_vars, ckpt):
         burst = time.perf_counter() - t1
         stats = _http(f"{url}/healthz")["microbatch"]
     finally:
-        proc.terminate()
-        try:
-            out, _ = proc.communicate(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-    print(f"serve: up in {up:.1f} s ({out.strip().splitlines()}); 32 "
+        out = srv.stop()
+    print(f"serve: up in {up:.1f} s ({out}); 32 "
           f"concurrent raw requests in {burst:.3f} s; micro-batch stats "
           f"{stats}", flush=True)
-    buckets = (1, 4, 16)
-    pred = Predictor(mnv3_ir, mnv3_vars, img_size=640, batch_buckets=buckets,
-                     device=dev)
+    ref = np.load(os.path.join(root, "serve_alone.npz"))
     matched = []
-    for (v, l), a in zip(frames, answers):
+    for i, a in enumerate(answers):
         got = (a["boxes"], a["scores"], a["classes"])
-        alone = _alone(pred, v, l, buckets)
+        alone = {b: tuple(ref[f"{i}/{b}/{k}"] for k in
+                          ("boxes", "scores", "classes"))
+                 for b in SERVE_BUCKETS}
         matched.append(_matching_bucket(got, alone))
     print(f"serve: answers equal to the frame served alone in process, "
           f"buckets matched per request {matched}; detections "
@@ -2121,43 +2519,24 @@ def _serve_subprocess(torch, dev, mnv3_ir, mnv3_vars, ckpt):
                              "in-process Predictor")
     if stats["frames"] != 32 or not stats["mean_batch"] > 1:
         raise AssertionError(f"serve did not coalesce: {stats}")
-    return stats
+    return {}
 
 
-def _detect_start(ckpt, root):
-    """Start ``detect --no-figure`` on 8 pairs of phase 9's split; returns
-    (the process, its start time) for :func:`_detect_subprocess`."""
+def _detect_check(root):
+    """``detect --no-figure`` on 8 pairs of phase 9's split: its count per
+    image that of the in-process Predictor (:func:`_entry_refs`)."""
     cmd = [sys.executable, "-m", "double_yolo_kaist_torch.detect", "--cfg",
-           MNV3_NAME, "--weights", ckpt, "--source",
-           os.path.join(root, "images", "eval"), "--max-images", "8",
-           "--no-figure"]
-    return (subprocess.Popen(cmd, cwd=ROOT,
-                             env=dict(os.environ, PYTHONPATH=ROOT),
-                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                             text=True), time.perf_counter())
-
-
-def _detect_subprocess(dev, mnv3_ir, mnv3_vars, root, started):
-    """``detect``'s counts per image (``started``: :func:`_detect_start`)
-    against an in-process Predictor's."""
-    import cv2
-
-    from double_yolo_kaist_torch.detect import get_pair_paths
-    from double_yolo_kaist_torch.serving import Predictor
-    src = os.path.join(root, "images", "eval")
-    proc, t0 = started
-    try:
-        out, err = proc.communicate(timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    lines = out.splitlines()
-    print(f"detect: exit {proc.returncode} in "
+           MNV3_NAME, "--weights", os.path.join(root, "mnv3_ckpt"),
+           "--source", os.path.join(root, "images", "eval"),
+           "--max-images", "8", "--no-figure"]
+    t0 = time.perf_counter()
+    r = _sub(cmd, timeout=600)
+    lines = r.stdout.splitlines()
+    print(f"detect: exit {r.returncode} in "
           f"{time.perf_counter() - t0:.1f} s; stdout:\n  "
           + "\n  ".join(lines), flush=True)
-    if proc.returncode != 0:
-        raise AssertionError(f"detect failed:\n{err[-3000:]}")
+    if r.returncode != 0:
+        raise AssertionError(f"detect failed:\n{r.stderr[-3000:]}")
     counts = {}
     for x in lines[:-2]:
         name, n = x.rsplit(": ", 1)
@@ -2165,26 +2544,26 @@ def _detect_subprocess(dev, mnv3_ir, mnv3_vars, root, started):
     if len(counts) != 8 or not lines[-2].startswith("average fps: ") \
             or not lines[-1].startswith("miss rate"):
         raise AssertionError("detect did not print its lines")
-    pred = Predictor(mnv3_ir, mnv3_vars, img_size=512, conf_thres=0.1,
-                     iou_thres=0.5, batch_buckets=(1,), device=dev)
-    want = {}
-    for name in counts:
-        vp, lp = get_pair_paths(os.path.join(src, name))
-        v = cv2.imread(vp)[None, :, :, ::-1]
-        l = cv2.imread(lp)[None, :, :, ::-1]
-        want[name] = len(pred(v, l)[0][0])
+    with open(os.path.join(root, "detect_counts.json")) as f:
+        ref = json.load(f)
+    want = {name: ref[name] for name in counts}
     print(f"detect: counts per image {counts}, in process {want}",
           flush=True)
     if counts != want:
         raise AssertionError("detect's counts differ from the in-process "
                              "Predictor's")
+    return {}
+
+
+BENCH_ITERS = 10     # replays a repeat of phase 11's bench legs (20 by
+                     # default; the zoo sweep of PERF.md §5 runs 20)
 
 
 def _bench_subprocess(leg):
-    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.bench", leg]
+    cmd = [sys.executable, "-m", "double_yolo_kaist_torch.bench", leg,
+           "--iters", str(BENCH_ITERS)]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-                       capture_output=True, text=True, timeout=600)
+    r = _sub(cmd, timeout=600)
     print(f"bench {leg}: exit {r.returncode} in "
           f"{time.perf_counter() - t0:.1f} s; stderr "
           f"{r.stderr.strip().splitlines()[-4:]}", flush=True)
@@ -2256,27 +2635,6 @@ def _microbatch(torch, launches, pred, counts):
           f"{sum(1 in m for m in matched)} of 16 bit-identical, {same_n} "
           f"with the same count; every box within {d_box:.4f} px of one in "
           f"the other answer, sorted scores within {d_score:.6f}", flush=True)
-
-
-def phase_entry_points(torch, dev, launches, mnv3_ir, mnv3_vars,
-                       flagship_pred, ckpt, root):
-    """The entry points as subprocesses, and the MicroBatcher in process.
-    Returns (launch counts of the in-process run, numbers)."""
-    counts, numbers = {}, {}
-    # detect runs beside serve: both check answers, neither is a timing
-    started = _detect_start(ckpt, root)
-    try:
-        numbers["serve"] = _serve_subprocess(torch, dev, mnv3_ir, mnv3_vars,
-                                             ckpt)
-    except BaseException:
-        started[0].kill()
-        started[0].wait()
-        raise
-    _detect_subprocess(dev, mnv3_ir, mnv3_vars, root, started)
-    numbers["bench"] = {leg: _bench_subprocess(leg)
-                        for leg in ("--bf16", "--int8")}
-    _microbatch(torch, launches, flagship_pred, counts)
-    return counts, numbers
 
 
 # ---------------------------------------------------------------- phase 12
@@ -2441,9 +2799,14 @@ def phase_train_step(torch, dev, mnv3_ir, flagship_ir):
     """The train step on the card: MNv3 card vs CPU (fp32, SGD and Adam);
     the flagship at full width, bf16, bs 8, 512x512 from graph.init: step
     times, images/s, busy share, top kernels, peak memory, and 20 steps on
-    one batch that must lower its loss; MNv3's step at the same shape.
-    Returns the numbers."""
+    one batch that must lower its loss (a gate on a trained result: these
+    steps run under deterministic algorithms, so the verdict repeats, and
+    the margin is printed); MNv3's step at the same shape. Returns the
+    numbers."""
+    import contextlib
+
     from double_yolo_kaist_torch.models import graph, weights
+    from double_yolo_kaist_torch.utils.general import deterministic
     mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
     _step_card_vs_cpu(torch, dev, mnv3_ir, mnv3_vars)
     numbers = {}
@@ -2451,8 +2814,10 @@ def phase_train_step(torch, dev, mnv3_ir, flagship_ir):
             ("flagship", flagship_ir, graph.init(flagship_ir, SEED),
              TRAIN_FIT),
             ("MNv3", mnv3_ir, mnv3_vars, TRAIN_WARMUP + TRAIN_TIMED)):
-        losses, timed, prof, peak = _time_steps(torch, ir, variables, dev,
-                                                label, n)
+        with (deterministic() if label == "flagship"
+              else contextlib.nullcontext()):
+            losses, timed, prof, peak = _time_steps(torch, ir, variables,
+                                                    dev, label, n)
         med = statistics.median(timed)
         busy = sum(prof.values())
         top = sorted(prof.items(), key=lambda kv: -kv[1])[:10]
@@ -2473,9 +2838,13 @@ def phase_train_step(torch, dev, mnv3_ir, flagship_ir):
         print(f"train {label} top kernels (device ms a step):\n  "
               + "\n  ".join(f"{v:.3f} {k[:200]}" for k, v in top),
               flush=True)
-        if label == "flagship" and not losses[-1] < losses[0]:
-            raise AssertionError(f"train {label}: {len(losses)} steps on one "
-                                 f"batch did not lower the loss")
+        if label == "flagship":
+            print(f"train flagship: the last of {len(losses)} losses under "
+                  f"the first by {losses[0] - losses[-1]:+.4f} (the gate: "
+                  f"above 0; deterministic algorithms)", flush=True)
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"train {label}: {len(losses)} steps "
+                                     f"on one batch did not lower the loss")
     print("train numbers: " + json.dumps(numbers), flush=True)
     return numbers
 
@@ -2484,8 +2853,7 @@ def phase_train_step(torch, dev, mnv3_ir, flagship_ir):
 
 def _run(cmd, what, timeout=900):
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-                       capture_output=True, text=True, timeout=timeout)
+    r = _sub(cmd, timeout=timeout)
     lines = r.stdout.splitlines()
     print(f"{what}: exit {r.returncode} in {time.perf_counter() - t0:.1f} "
           f"s; last lines:\n  " + "\n  ".join(lines[-6:]), flush=True)
@@ -2556,115 +2924,151 @@ def _leaves_np(tree):
     return [np.asarray(tree)]
 
 
-def phase_train_entry(torch, dev, launches, flagship_ir, root,
-                      beside=None):
+TRAIN_RUNS = "runs13"            # phase 13's entry-point runs, under the
+                                 # run's directory
+TRAIN_WAIT_S = 480
+
+
+TRAIN_PAIRS = 32         # the entry-point train runs' split (phases 13, 15)
+
+
+def _train_data(root, name="train"):
+    """A .data file over the first TRAIN_PAIRS pairs of ``root``'s split
+    (train, valid and test)."""
+    with open(os.path.join(root, "eval80.txt")) as f:
+        lines = f.read().splitlines()[:TRAIN_PAIRS]
+    split = os.path.join(root, f"{name}.txt")
+    with open(split, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    data = os.path.join(root, f"{name}.data")
+    with open(data, "w") as f:
+        f.write(f"classes=1\ntrain={split}\nvalid={split}\ntest={split}\n")
+    return data
+
+
+def _train_base(root):
+    """``python -m double_yolo_kaist_torch.train`` on the flagship with
+    phase 13's data, size, batch and runs directory (the run's, beside the
+    task's own directory ``root``)."""
+    return [sys.executable, "-m", "double_yolo_kaist_torch.train", "--cfg",
+            "Double-YOLOv4-Fshare-Global-CSE3", "--data", _train_data(root),
+            "--img-size", str(TRAIN_HW), "--batch-size", str(TRAIN_BS),
+            "--out-dir", os.path.join(os.path.dirname(root), TRAIN_RUNS)]
+
+
+def _train_ema(root):
+    """Phase 13's MNv3 fine-tuned with ``--ema``: one epoch of SGD from its
+    trained weights (phase 9's checkpoint; Adam's first steps at lr 1e-3
+    undo trained weights), so that its mAP is not 0 and evaluate's
+    reproduction of it means something. The mAP is gated (above 0): the
+    run is deterministic (RUNPY). Its checkpoint holds the JAX layout."""
+    base = _train_base(root)
+    runs = base[-1]
+    _run(_runpy("train", "--cfg", MNV3_NAME, "--weights",
+                os.path.join(root, "mnv3_ckpt"), *base[5:], "--epochs", "1",
+                "--name", "mnv3", "--ema", "--sgd", deterministic=True),
+         "train MNv3 --ema --sgd, 1 epoch from its trained weights "
+         "(deterministic algorithms)")
+    _check_checkpoint(os.path.join(runs, "mnv3", "last"), ema=True,
+                      sgd=True)
+    _mark(runs, "mnv3.done")
+    return {}
+
+
+def _train_resumed(root):
+    """Phase 13's flagship runs: 1 epoch (``last``, ``best``,
+    ``results.txt``), then ``--resume <out>/last --epochs 2`` (one more
+    epoch); the checkpoint holds the JAX layout."""
+    base = _train_base(root)
+    out = os.path.join(base[-1], "t2")
+    _run(base + ["--epochs", "1", "--name", "t2"], "train 1 epoch")
+    for name in ("last", "best", "results.txt"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"train: no {name} in {out}")
+    if len(_results_lines(os.path.join(out, "results.txt"))) != 1:
+        raise AssertionError("train: results.txt wants 1 epoch line")
+    _run(base + ["--epochs", "2", "--name", "t2", "--resume",
+                 os.path.join(out, "last")], "train resumed to 2 epochs")
+    res = _results_lines(os.path.join(out, "results.txt"))
+    with open(os.path.join(out, "last", "manifest.json")) as f:
+        epoch = json.load(f)["epoch"]
+    print(f"resume: results.txt {len(res)} lines, last checkpoint epoch "
+          f"{epoch}", flush=True)
+    if len(res) != 2 or not res[-1].startswith("epoch:1 ") or epoch != 1:
+        raise AssertionError("train: the resume did not train epoch 1")
+    _check_checkpoint(os.path.join(out, "last"), ema=False)
+    _mark(base[-1], "t2.done")
+    return {}
+
+
+def _wait_for(path, what, limit=TRAIN_WAIT_S):
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError(f"{what}: timed out after {limit} s")
+        time.sleep(0.5)
+
+
+def phase_train_entry(torch, dev, launches, flagship_ir, root, shared):
     """The trainer in process (flagship bf16, bs 8, one epoch with its
-    evaluation, launch counts), beside ``python -m
-    double_yolo_kaist_torch.train`` as subprocesses on phase 9's split:
-    2 epochs, a resume to 3, and beside them MNv3 fine-tuned with
-    ``--ema``; ``evaluate``
-    on each ``last`` at the trainer's batch size must print results.txt's
-    last mAP; the checkpoints hold the JAX layout. ``beside``, where
-    given, is called once the in-process run is counted; its work runs
-    while the subprocesses end (nothing here is timed), and the callable
-    it returns, which waits for that work, is called before this phase
-    ends. Returns the launch counts of the in-process run."""
+    evaluation, launch counts); then ``evaluate`` on the ``last`` of each
+    of phase 13's entry-point runs (tasks of the script: :func:`_train_ema`,
+    :func:`_train_resumed`, writing under ``shared``) at the trainer's
+    batch size must print results.txt's last mAP and give the detections
+    of the same checkpoint scored in process; MNv3's mAP must be above 0.
+    Returns the launch counts of the in-process run."""
     from double_yolo_kaist_torch.config.parser import load_hyp
     from double_yolo_kaist_torch.data.dataset import KaistDataset
     from double_yolo_kaist_torch.train.trainer import Trainer
     split = os.path.join(root, "eval80.txt")
-    data = os.path.join(root, "train.data")
-    with open(data, "w") as f:
-        f.write(f"classes=1\ntrain={split}\nvalid={split}\ntest={split}\n")
+    data = _train_data(root, "train13")
     hyp = load_hyp(os.path.join(ROOT, "configs", "hyp.scratch.4.yaml"))
     hyp["cls"] *= 1 / 80.0
     hyp["obj"] *= TRAIN_HW / 320.0
-    runs = os.path.join(root, "runs")
+    # the main path in process: one epoch and its evaluation
+    train_ds = KaistDataset(split, TRAIN_HW, TRAIN_BS, augment=True,
+                            hyp=hyp, single_cls=True)
+    val_ds = KaistDataset(split, TRAIN_HW, TRAIN_BS, hyp=hyp, rect=True,
+                          single_cls=True)
+    n_batches = len(train_ds) // TRAIN_BS
+    n_eval = -(-len(val_ds) // TRAIN_BS)
+    trainer = Trainer(flagship_ir, hyp, epochs=1, batch_size=TRAIN_BS,
+                      img_size=TRAIN_HW, train_dataset=train_ds,
+                      val_dataset=val_ds, out_dir=os.path.join(root, "runs"),
+                      name="inproc", device=dev)
+    launches.clear()
+    t0 = time.perf_counter()
+    best = trainer.fit()
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    want = {"decode_head": n_eval, "nms_indices": n_eval,
+            "stem_conv_s2": 2 * n_eval, "qgemm": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    print(f"train in process: flagship bf16, {n_batches} steps + eval of "
+          f"{len(val_ds)} frames in {time.perf_counter() - t0:.1f} s, best "
+          f"mAP {best:.4f}; launches {got} (want {want})", flush=True)
+    if got != want:
+        raise AssertionError("train in process: launch counts")
+    del trainer
+    torch.cuda.empty_cache()
+    runs = os.path.join(shared, TRAIN_RUNS)
 
-    # the entry point as subprocesses (nothing timed), started first: the
-    # flagship's runs and, beside them, the shorter --ema run: MNv3 from
-    # its trained weights (phase 9's checkpoint), one epoch of SGD (Adam's
-    # first steps at lr 1e-3 undo trained weights); its mAP is not 0, so
-    # that evaluate's reproduction of it means something. Their in-process
-    # halves (evaluate_last) wait for the counted run below to end: they
-    # launch kernels in this process
-    base = [sys.executable, "-m", "double_yolo_kaist_torch.train", "--cfg",
-            "Double-YOLOv4-Fshare-Global-CSE3", "--data", data,
-            "--img-size", str(TRAIN_HW), "--batch-size", str(TRAIN_BS),
-            "--out-dir", runs]
-    counted = threading.Event()
-
-    def mnv3_ema():
-        ckpt = os.path.join(root, "mnv3_ckpt")
-        _run(base[:4] + [MNV3_NAME, "--weights", ckpt] + base[5:]
-             + ["--epochs", "1", "--name", "mnv3", "--ema", "--sgd"],
-             "train MNv3 --ema --sgd, 1 epoch from its trained weights")
-        _check_checkpoint(os.path.join(runs, "mnv3", "last"), ema=True,
-                          sgd=True)
-        counted.wait()
-        if _evaluate_last(os.path.join(runs, "mnv3"), MNV3_NAME, data) <= 0:
+    def mnv3():
+        _wait_for(os.path.join(runs, "mnv3.done"), "train MNv3 --ema")
+        got = _evaluate_last(os.path.join(runs, "mnv3"), MNV3_NAME, data)
+        print(f"train MNv3: mAP {got:.4f} after fine-tuning, over the gate "
+              f"(above 0) by {got:+.4f}", flush=True)
+        if got <= 0:
             raise AssertionError("train MNv3: mAP 0 after fine-tuning")
 
-    def resumed():
-        out = os.path.join(runs, "t2")
-        _run(base + ["--epochs", "2", "--name", "t2"], "train 2 epochs")
-        for name in ("last", "best", "results.txt"):
-            if not os.path.exists(os.path.join(out, name)):
-                raise AssertionError(f"train: no {name} in {out}")
-        if len(_results_lines(os.path.join(out, "results.txt"))) != 2:
-            raise AssertionError("train: results.txt wants 2 epoch lines")
-        _run(base + ["--epochs", "3", "--name", "t2", "--resume",
-                     os.path.join(out, "last")], "train resumed to 3 epochs")
-        res = _results_lines(os.path.join(out, "results.txt"))
-        with open(os.path.join(out, "last", "manifest.json")) as f:
-            epoch = json.load(f)["epoch"]
-        print(f"resume: results.txt {len(res)} lines, last checkpoint epoch "
-              f"{epoch}", flush=True)
-        if len(res) != 3 or not res[-1].startswith("epoch:2 ") or epoch != 2:
-            raise AssertionError("train: the resume did not train epoch 2")
-        _check_checkpoint(os.path.join(out, "last"), ema=False)
-        counted.wait()
-        _evaluate_last(out, "Double-YOLOv4-Fshare-Global-CSE3", data)
+    def flagship():
+        _wait_for(os.path.join(runs, "t2.done"), "train 1 epoch + resume")
+        _evaluate_last(os.path.join(runs, "t2"),
+                       "Double-YOLOv4-Fshare-Global-CSE3", data)
 
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        chains = [pool.submit(mnv3_ema), pool.submit(resumed)]
-        try:
-            # the main path in process: one epoch and its evaluation
-            train_ds = KaistDataset(split, TRAIN_HW, TRAIN_BS, augment=True,
-                                    hyp=hyp, single_cls=True)
-            val_ds = KaistDataset(split, TRAIN_HW, TRAIN_BS, hyp=hyp,
-                                  rect=True, single_cls=True)
-            n_batches = len(train_ds) // TRAIN_BS
-            n_eval = -(-len(val_ds) // TRAIN_BS)
-            trainer = Trainer(flagship_ir, hyp, epochs=1,
-                              batch_size=TRAIN_BS, img_size=TRAIN_HW,
-                              train_dataset=train_ds, val_dataset=val_ds,
-                              out_dir=runs, name="inproc", device=dev)
-            launches.clear()
-            t0 = time.perf_counter()
-            best = trainer.fit()
-            torch.cuda.synchronize()
-            counts = dict(launches)
-        finally:
-            counted.set()
-        want = {"decode_head": n_eval, "nms_indices": n_eval,
-                "stem_conv_s2": 2 * n_eval, "qgemm": 0}
-        got = {k: counts.get(k, 0) for k in want}
-        print(f"train in process: flagship bf16, {n_batches} steps + eval "
-              f"of {len(val_ds)} frames in {time.perf_counter() - t0:.1f} "
-              f"s (beside the entry points' runs), best mAP {best:.4f}; "
-              f"launches {got} (want {want})", flush=True)
-        if got != want:
-            raise AssertionError("train in process: launch counts")
-        del trainer
-        torch.cuda.empty_cache()
-        wait = beside() if beside is not None else None
-        try:
-            for c in chains:
-                c.result()
-        finally:
-            if wait is not None:
-                wait()
+        for f in [pool.submit(mnv3), pool.submit(flagship)]:
+            f.result()
     return counts
 
 
@@ -3040,12 +3444,36 @@ def _int8_entry_points(torch, dev, launches, root):
     return {"eval int8 edge": counts}
 
 
+def _snow_train(root):
+    """``python -m double_yolo_kaist_torch.train --snow --clahe``: one short
+    epoch of MNv3 on the split's first 8 pairs (one step and their CLAHE'd
+    evaluation): ``last`` and one line of ``results.txt``."""
+    split = os.path.join(root, "eval8.txt")
+    data = os.path.join(root, "snow.data")
+    with open(data, "w") as f:
+        f.write(f"classes=1\ntrain={split}\nvalid={split}\ntest={split}\n")
+    out = os.path.join(root, "runs", "snow")
+    _run([sys.executable, "-m", "double_yolo_kaist_torch.train", "--cfg",
+          MNV3_NAME, "--weights", os.path.join(root, "mnv3_ckpt"), "--data",
+          data, "--img-size", str(TRAIN_HW), "--batch-size", str(TRAIN_BS),
+          "--epochs", "1", "--sgd", "--snow", "--clahe", "--out-dir",
+          os.path.dirname(out), "--name", "snow"],
+         "train --snow --clahe, MNv3, 1 epoch of 8 pairs")
+    for name in ("last", "results.txt"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"train --snow --clahe: no {name}")
+    if len(_results_lines(os.path.join(out, "results.txt"))) != 1:
+        raise AssertionError("train --snow --clahe: results.txt wants 1 line")
+    return {}
+
+
 def phase_int8aug(torch, dev, launches, root, flagship_times):
     """Phase 14: CLAHE and the cutout on the card, the train augment with
-    both, ``train --snow --clahe``, the flagship in int8 edge, spine and
-    spineall (artifacts, graphs, K4 at the served operands, card vs CPU),
-    timed beside phase 8's bf16 and chain (``flagship_times``), and the
-    calibrate / evaluate --int8-qvars entry points. Needs phase 9's
+    both, the flagship in int8 edge, spine and spineall (artifacts,
+    graphs, K4 at the served operands, card vs CPU), timed beside phase
+    8's bf16 and chain (``flagship_times``), and the calibrate / evaluate
+    --int8-qvars entry points (``train --snow --clahe`` is a task of the
+    script: :func:`_snow_train`). Needs phase 9's
     labelled split and MNv3 checkpoint under ``root``. Returns the launch
     counts of its main-path runs."""
     from double_yolo_kaist_torch.bench import seeded_variables
@@ -3085,31 +3513,7 @@ def phase_int8aug(torch, dev, launches, root, flagship_times):
                for m, t in times.items()}
     summary["spine"] = {k: round(v, 4) for k, v in startup["spine"].items()}
     numbers["flagship"] = summary
-    # one short epoch of the split's first 8 pairs (one step and their
-    # CLAHE'd evaluation), run beside the entry points below: nothing is
-    # timed from here on
-    split = os.path.join(root, "eval8.txt")
-    data = os.path.join(root, "snow.data")
-    with open(data, "w") as f:
-        f.write(f"classes=1\ntrain={split}\nvalid={split}\ntest={split}\n")
-    out = os.path.join(root, "runs", "snow")
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        train = pool.submit(
-            _run, [sys.executable, "-m", "double_yolo_kaist_torch.train",
-                   "--cfg", MNV3_NAME, "--weights",
-                   os.path.join(root, "mnv3_ckpt"), "--data", data,
-                   "--img-size", str(TRAIN_HW), "--batch-size",
-                   str(TRAIN_BS), "--epochs", "1", "--sgd", "--snow",
-                   "--clahe", "--out-dir", os.path.dirname(out), "--name",
-                   "snow"],
-            "train --snow --clahe, MNv3, 1 epoch of 8 pairs")
-        counts.update(_int8_entry_points(torch, dev, launches, root))
-        train.result()
-    for name in ("last", "results.txt"):
-        if not os.path.exists(os.path.join(out, name)):
-            raise AssertionError(f"train --snow --clahe: no {name}")
-    if len(_results_lines(os.path.join(out, "results.txt"))) != 1:
-        raise AssertionError("train --snow --clahe: results.txt wants 1 line")
+    counts.update(_int8_entry_points(torch, dev, launches, root))
     print("int8aug numbers (bf16 and chain: phase 8's Predictors; spine "
           "serves chain's program): " + json.dumps(numbers), flush=True)
     print(f"phase 14 in {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3119,7 +3523,8 @@ def phase_int8aug(torch, dev, launches, root, flagship_times):
 # ---------------------------------------------------------------- phase 15
 
 K_STEPS = 4                  # steps a dispatch in the A/B
-AB_WARMUP, AB_TIMED = 1, 4   # dispatches (K=4) or 4x as many steps (K=1)
+AB_WARMUP, AB_TIMED = 1, 2   # dispatches (K=4) or 4x as many steps (K=1);
+                             # earlier figures in PERF.md timed 4
 EXPORT_HW = (512, 640)
 EXPORT_BS = 8
 
@@ -3263,60 +3668,50 @@ def _multi_step_ab(torch, dev, mnv3_ir, mnv3_vars, flagship_ir):
     return numbers
 
 
-def _slice9_train_entry(root):
+SLICE9_TRAIN_RUNS = {
+    "flagship device pool": (["--cfg", FLAGSHIP_CFG, "--device-cache", "on"],
+                             {}),
+    "MNv3 pinned host": (["--cfg", MNV3_NAME, "--sgd"],
+                         {"DYK_DEVICE_CACHE_GB": "0"})}
+
+
+def _slice9_train(root, name):
     """``python -m double_yolo_kaist_torch.train --steps-per-dispatch 4``,
-    one epoch on phase 9's split: the flagship on the device-pool tier,
-    MNv3 from phase 9's checkpoint on the pinned-host tier (no device
-    pool: DYK_DEVICE_CACHE_GB=0), run as the entry point (``runpy``) in
-    processes that print the kernel launches of the run at the end."""
-    data = os.path.join(root, "slice9.data")
-    split = os.path.join(root, "eval80.txt")
-    with open(data, "w") as f:
-        f.write(f"classes=1\ntrain={split}\nvalid={split}\ntest={split}\n")
-    code = ("import json, runpy, sys\n"
-            "from double_yolo_kaist_torch.ops import _build\n"
-            "sys.argv = ['train'] + sys.argv[1:]\n"
-            "runpy.run_module('double_yolo_kaist_torch.train', "
-            "run_name='__main__')\n"
-            "print('launches ' + json.dumps(dict(_build.launches)))\n")
-    runs = {"flagship device pool": (["--cfg", FLAGSHIP_CFG,
-                                      "--device-cache", "on"], {}),
-            "MNv3 pinned host": (["--cfg", MNV3_NAME, "--weights",
-                                  os.path.join(root, "mnv3_ckpt"), "--sgd"],
-                                 {"DYK_DEVICE_CACHE_GB": "0"})}
-    procs = {}
-    for name, (extra, env) in runs.items():
-        out = os.path.join(root, "k4runs")
-        cmd = [sys.executable, "-c", code, "--data", data, "--img-size",
-               str(TRAIN_HW), "--batch-size", str(TRAIN_BS), "--epochs", "1",
-               "--steps-per-dispatch", str(K_STEPS), "--out-dir", out,
-               "--name", name.split()[0], *extra]
-        procs[name] = subprocess.Popen(
-            cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, **env),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    launches = {}
-    for name, proc in procs.items():
-        text, _ = proc.communicate(timeout=900)
-        lines = text.splitlines()
-        print(f"train --steps-per-dispatch {K_STEPS} ({name}): exit "
-              f"{proc.returncode}; last lines:\n  "
-              + "\n  ".join(lines[-5:]), flush=True)
-        if proc.returncode != 0:
-            raise AssertionError(f"train --steps-per-dispatch ({name}) "
-                                 f"failed:\n{text[-3000:]}")
-        tier = ("device image pool" if "flagship" in name
-                else "host image pool")
-        if not any(tier in x for x in lines):
-            raise AssertionError(f"train ({name}) did not use the {tier}")
-        got = json.loads([x for x in lines
-                          if x.startswith("launches ")][-1][9:])
-        want = {"decode_head", "nms_indices"} | (
-            {"stem_conv_s2"} if "flagship" in name else set())
-        if not all(got.get(k, 0) > 0 for k in want):
-            raise AssertionError(f"train ({name}): the in-train evaluation "
-                                 f"launched {got}, wants {sorted(want)}")
-        launches[name] = got
-    return launches
+    one epoch on TRAIN_PAIRS pairs of phase 9's split, run ``name`` of
+    SLICE9_TRAIN_RUNS: the
+    flagship on the device-pool tier, MNv3 from phase 9's checkpoint on the
+    pinned-host tier (no device pool: DYK_DEVICE_CACHE_GB=0); the entry
+    point through RUNPY, which prints the kernel launches of the run.
+    Returns them."""
+    data = _train_data(root, "slice9")
+    extra, env = SLICE9_TRAIN_RUNS[name]
+    if "MNv3" in name:
+        extra = extra + ["--weights", os.path.join(root, "mnv3_ckpt")]
+    cmd = _runpy("train", "--data", data, "--img-size", TRAIN_HW,
+                 "--batch-size", TRAIN_BS, "--epochs", 1,
+                 "--steps-per-dispatch", K_STEPS, "--out-dir",
+                 os.path.join(root, "k4runs"), "--name", name.split()[0],
+                 *extra)
+    r = _sub(cmd, env=dict(os.environ, PYTHONPATH=ROOT, **env))
+    lines = r.stdout.splitlines()
+    print(f"train --steps-per-dispatch {K_STEPS} ({name}): exit "
+          f"{r.returncode}; last lines:\n  " + "\n  ".join(
+              lines[-5:] + [x for x in r.stderr.splitlines()
+                            if x.startswith("peak device memory")]),
+          flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"train --steps-per-dispatch ({name}) "
+                             f"failed:\n{(r.stdout + r.stderr)[-3000:]}")
+    tier = "device image pool" if "flagship" in name else "host image pool"
+    if not any(tier in x for x in lines):
+        raise AssertionError(f"train ({name}) did not use the {tier}")
+    got = _launches_of(lines)
+    want = {"decode_head", "nms_indices"} | (
+        {"stem_conv_s2"} if "flagship" in name else set())
+    if not all(got.get(k, 0) > 0 for k in want):
+        raise AssertionError(f"train ({name}): the in-train evaluation "
+                             f"launched {got}, wants {sorted(want)}")
+    return {f"train K={K_STEPS} {name}": got}
 
 
 def _check_ap():
@@ -3326,10 +3721,8 @@ def _check_ap():
     check trains in true fp32 under deterministic algorithms, so its
     weights and verdict are the same on every run. Returns the numbers."""
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "double_yolo_kaist_torch.bench",
-                        "--check-ap"], cwd=ROOT,
-                       env=dict(os.environ, PYTHONPATH=ROOT),
-                       capture_output=True, text=True, timeout=900)
+    r = _sub([sys.executable, "-m", "double_yolo_kaist_torch.bench",
+              "--check-ap"], timeout=900)
     lines = r.stdout.splitlines()
     traj = [x for x in lines if x.startswith("AP trajectory:")]
     int8 = [x for x in lines if x.startswith("int8[")]
@@ -3339,7 +3732,21 @@ def _check_ap():
     if r.returncode != 0:
         raise AssertionError(f"bench --check-ap failed:\n"
                              f"{(r.stdout + r.stderr)[-3000:]}")
-    return json.loads(lines[-1])
+    res = json.loads(lines[-1])
+    # the margins over its gates (bench.py: fp AP > 0.5, every int8 mode
+    # within 0.05 of it, edge within 0.15)
+    gaps = {}
+    for x in int8:
+        mode = x[len("int8["):].split(",")[0]
+        ap, fp = (float(v.rstrip("%)")) / 100 for v in
+                  (x.split("AP@0.5=")[1].split()[0],
+                   x.split("(fp ")[1]))
+        gaps[mode] = round((0.15 if mode == "edge" else 0.05)
+                           - (fp - ap), 4)
+    print(f"bench --check-ap margins: fp AP {res['value']:.4f} over its "
+          f"gate 0.5 by {res['value'] - 0.5:+.4f}; int8 modes under their "
+          f"bound by {gaps}", flush=True)
+    return res
 
 
 def _fresh_process_loads(paths, frames_npz, root):
@@ -3369,10 +3776,9 @@ def _fresh_process_loads(paths, frames_npz, root):
         "\n    'double_yolo_kaist_torch.serving')))\n"
         "assert not bad, bad\n"
         "print('loaded ' + json.dumps(out))\n")
-    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
-                            env=dict(os.environ, PYTHONPATH=ROOT),
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+    return _Proc([sys.executable, "-c", code], cwd=ROOT,
+                 env=dict(os.environ, PYTHONPATH=ROOT),
+                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def _fresh_process_result(proc, paths, wants, root):
@@ -3405,42 +3811,18 @@ def _fresh_process_result(proc, paths, wants, root):
 def _serve_exported(path, frame):
     """``serve --exported`` answering one raw request over HTTP."""
     import base64
-    port = _free_port()
-    url = f"http://127.0.0.1:{port}"
     cmd = [sys.executable, "-m", "double_yolo_kaist_torch.serve",
-           "--exported", path, "--img-size", "640", "--port", str(port)]
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ,
-                                                    PYTHONPATH=ROOT),
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    t0 = time.perf_counter()
+           "--exported", path, "--img-size", "640"]
+    srv = _Server(cmd, "serve --exported")
+    url, up = srv.url, srv.up_s
     try:
-        while True:
-            try:
-                if _http(f"{url}/healthz", timeout=2)["status"] == "ok":
-                    break
-            except OSError:
-                if proc.poll() is not None:
-                    raise AssertionError(f"serve --exported exited "
-                                         f"{proc.returncode}:\n"
-                                         f"{proc.stdout.read()[-3000:]}")
-                if time.perf_counter() - t0 > 300:
-                    raise AssertionError("serve --exported did not come up")
-                time.sleep(0.5)
-        up = time.perf_counter() - t0
         v, l = frame
         ans = _http(f"{url}/detect", json.dumps({
             "visible": base64.b64encode(v.tobytes()).decode(),
             "lwir": base64.b64encode(l.tobytes()).decode(),
             "encoding": "raw", "shape": list(v.shape[:2])}).encode())
     finally:
-        proc.terminate()
-        try:
-            out, _ = proc.communicate(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-    lines = out.strip().splitlines()
+        lines = srv.stop()
     if not any(x.startswith("# --exported: ignoring --img-size")
                for x in lines):
         raise AssertionError(f"serve --exported printed {lines}")
@@ -3690,13 +4072,14 @@ def _eval_dispatch_ab(torch, dev, mnv3_ir, mnv3_vars, root):
 def phase_slice9(torch, dev, launches, mnv3_ir, flagship_ir, root):
     """Phase 15: captured K steps against eager (bit for bit), the K=1 /
     K=4 train A/B of the flagship and MNv3, the registered ops' dispatch
-    cost; then the three artifacts are exported while ``train
-    --steps-per-dispatch 4`` (both residency tiers) and ``bench
-    --check-ap`` run beside the tracing; then, the card quiet again, each
-    artifact is held and timed against its Predictor; last, the artifacts
-    load in a fresh process with no model code while ``serve --exported``
-    answers. Needs phase 9's split and checkpoint under ``root``. Returns
-    the main-path launch counts of its runs and its numbers."""
+    cost; then the three artifacts are exported, each is held and timed
+    against its Predictor; last, the artifacts load in a fresh process
+    with no model code while ``serve --exported`` answers. (``train
+    --steps-per-dispatch 4`` on both residency tiers and ``bench
+    --check-ap`` are tasks of the script: :func:`_slice9_train`,
+    :func:`_check_ap`.) Needs phase 9's split and checkpoint under
+    ``root``. Returns the main-path launch counts of its runs and its
+    numbers."""
     from double_yolo_kaist_torch.models import weights
     t_phase = time.perf_counter()
     mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
@@ -3709,15 +4092,9 @@ def phase_slice9(torch, dev, launches, mnv3_ir, flagship_ir, root):
                                                  mnv3_vars, root)
     _stamp(t_phase, "phase 15 timings")
     counts = {}
-    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
-        check = ex.submit(_check_ap)
-        train = ex.submit(_slice9_train_entry, root)
-        preds, paths, export_s, frames = _export_all(
-            torch, dev, mnv3_ir, mnv3_vars, flagship_ir, root)
-        numbers["check_ap"] = check.result()
-        counts.update({f"train K={K_STEPS} {k}": v
-                       for k, v in train.result().items()})
-    _stamp(t_phase, "phase 15 exports and subprocesses")
+    preds, paths, export_s, frames = _export_all(
+        torch, dev, mnv3_ir, mnv3_vars, flagship_ir, root)
+    _stamp(t_phase, "phase 15 exports")
     numbers["export"], held, wants, alone = _hold_exports(
         torch, launches, preds, paths, export_s, frames)
     counts.update(held)
@@ -4030,19 +4407,36 @@ def _dp_rank_main(rank: int, root: str) -> None:
     torch.distributed.destroy_process_group()
 
 
+def _spawn_ranks(main: str, ranks, root: str, tag: str) -> list:
+    """Start ``chip_smoke.<main>(r, root)`` for each r of ``ranks``, the
+    output of rank r to ``root/<tag><r>.log``. The ranks' CUDA slots are
+    taken together before the first starts and given back once all have
+    ended."""
+    code = ("import sys; import chip_smoke; "
+            f"chip_smoke.{main}(int(sys.argv[1]), sys.argv[2])")
+    held = _take_slots(len(ranks))
+    procs = []
+    try:
+        for r in ranks:
+            with open(os.path.join(root, f"{tag}{r}.log"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, str(r), root], cwd=ROOT,
+                    env=dict(os.environ, PYTHONPATH=ROOT), stdout=log,
+                    stderr=subprocess.STDOUT))
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        _give_slots(held)
+        raise
+    _give_when_done(procs, held)
+    return procs
+
+
 def _dp_spawn_ranks(root):
     """Start the two gloo ranks of (c) and (e) (:func:`_dp_rank_main`),
     their output to ``root/dp_rank<r>.log``."""
-    code = ("import sys; import chip_smoke; "
-            "chip_smoke._dp_rank_main(int(sys.argv[1]), sys.argv[2])")
-    procs = []
-    for r in range(2):
-        with open(os.path.join(root, f"dp_rank{r}.log"), "w") as log:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", code, str(r), root], cwd=ROOT,
-                env=dict(os.environ, PYTHONPATH=ROOT), stdout=log,
-                stderr=subprocess.STDOUT))
-    return procs
+    return _spawn_ranks("_dp_rank_main", range(2), root, "dp_rank")
 
 
 def _dp_two_ranks(torch, dev, mnv3_ir, root, procs):
@@ -4139,8 +4533,9 @@ def _dp_nccl(torch, dev, mnv3_ir, ab_without):
     from double_yolo_kaist_torch.models import weights
     dist = torch.distributed
     mnv3_vars = weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ)
-    port = _free_port()
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+    # a file rendezvous: no port to pick (NCCL binds its own)
+    rdzv = os.path.join(tempfile.mkdtemp(prefix="dyk_nccl_"), "rendezvous")
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}",
                             world_size=1, rank=0)
     try:
         group = dist.group.WORLD
@@ -4165,82 +4560,80 @@ def _dp_nccl(torch, dev, mnv3_ir, ab_without):
             "without_group": ab_without}
 
 
+def _dp_torchrun(root):
+    """(e) ``python -m torch.distributed.run --nproc_per_node 1 -m
+    double_yolo_kaist_torch.train`` with DYK_DISTRIBUTED=1: one epoch of
+    MNv3 on DP_TRAIN_PAIRS pairs, its ``last`` and results.txt."""
+    _dp_split(root)
+    r = _sub([sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", "1", "-m", "double_yolo_kaist_torch.train",
+              "--cfg", MNV3_NAME, "--weights",
+              os.path.join(root, "mnv3_ckpt"), "--data",
+              os.path.join(root, "dp8.data"), "--img-size", str(TRAIN_HW),
+              "--batch-size", "4", "--epochs", "1", "--out-dir",
+              os.path.join(root, "dp_torchrun"), "--name", "mnv3"],
+             timeout=DP_TIMEOUT,
+             env=dict(os.environ, PYTHONPATH=ROOT, DYK_DISTRIBUTED="1"))
+    text = r.stdout + r.stderr
+    print(f"dp (e) torch.distributed.run --nproc_per_node 1 -m "
+          f"double_yolo_kaist_torch.train: exit {r.returncode}; last "
+          f"lines:\n  " + "\n  ".join(r.stdout.splitlines()[-3:]),
+          flush=True)
+    out_dir = os.path.join(root, "dp_torchrun", "mnv3")
+    if r.returncode != 0 or not os.path.exists(
+            os.path.join(out_dir, "last", "manifest.json")) or \
+            len(_results_lines(os.path.join(out_dir, "results.txt"))) != 1:
+        raise AssertionError(f"train under torch.distributed.run failed:\n"
+                             f"{text[-3000:]}")
+    return {}
+
+
+def _dp_frame():
+    """The raw frame ``serve --dp 1`` answers (:func:`_dp_entry_points`)."""
+    rng = np.random.default_rng(SEED + 163)
+    return tuple(rng.integers(0, 256, (512, 640, 3), dtype=np.uint8)
+                 for _ in range(2))
+
+
 def _dp_entry_points(root):
-    """(e) the entry points as subprocesses, started together: ``python -m
-    torch.distributed.run --nproc_per_node 1 -m double_yolo_kaist_torch.
-    train`` with DYK_DISTRIBUTED=1 (one epoch of MNv3 on DP_TRAIN_PAIRS
-    pairs), ``serve --dp 2`` (must exit naming the one visible card) and
-    ``serve --dp 1`` (answers one request). Returns (serve --dp 1's answer,
-    its frame)."""
+    """(e) the serving entry points as subprocesses: ``serve --dp 2``
+    (must exit naming the one visible card) and ``serve --dp 1``, whose
+    answer to one request must be the frame's served alone in one of the
+    buckets (core's references, :func:`_entry_refs`)."""
     import base64
-    data = os.path.join(root, "dp8.data")
     env = dict(os.environ, PYTHONPATH=ROOT)
-    train = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "1", "-m", "double_yolo_kaist_torch.train",
-         "--cfg", MNV3_NAME, "--weights", os.path.join(root, "mnv3_ckpt"),
-         "--data", data, "--img-size", str(TRAIN_HW), "--batch-size", "4",
-         "--epochs", "1", "--out-dir", os.path.join(root, "dp_torchrun"),
-         "--name", "mnv3"], cwd=ROOT, env=dict(env, DYK_DISTRIBUTED="1"),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     serve = [sys.executable, "-m", "double_yolo_kaist_torch.serve", "--cfg",
              MNV3_NAME, "--weights", os.path.join(root, "mnv3_ckpt"),
              "--img-size", "640", "--warmup-hw", "512", "640"]
-    refused = subprocess.run(serve + ["--dp", "2"], cwd=ROOT, env=env,
-                             capture_output=True, text=True, timeout=300)
+    refused = _sub(serve + ["--dp", "2"], env=env, timeout=300, slots=0)
     last = (refused.stdout + refused.stderr).strip().splitlines()[-1:]
     print(f"dp (e) serve --dp 2: exit {refused.returncode}, {last}",
           flush=True)
     if refused.returncode == 0 or \
             "--dp 2: only 1 device(s) visible" not in refused.stderr:
         raise AssertionError("serve --dp 2 did not refuse the one card")
-    port = _free_port()
-    url = f"http://127.0.0.1:{port}"
-    proc = subprocess.Popen(serve + ["--dp", "1", "--port", str(port)],
-                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    rng = np.random.default_rng(SEED + 163)
-    v, l = (rng.integers(0, 256, (512, 640, 3), dtype=np.uint8)
-            for _ in range(2))
-    t0 = time.perf_counter()
+    v, l = _dp_frame()
+    srv = _Server(serve + ["--dp", "1"], "serve --dp 1")
+    url = srv.url
     try:
-        while True:
-            try:
-                if _http(f"{url}/healthz", timeout=2)["status"] == "ok":
-                    break
-            except OSError:
-                if proc.poll() is not None:
-                    raise AssertionError(f"serve --dp 1 exited "
-                                         f"{proc.returncode}:\n"
-                                         f"{proc.stdout.read()[-3000:]}")
-                if time.perf_counter() - t0 > 300:
-                    raise AssertionError("serve --dp 1 did not come up")
-                time.sleep(0.5)
         answer = _http(f"{url}/detect", json.dumps({
             "visible": base64.b64encode(v.tobytes()).decode(),
             "lwir": base64.b64encode(l.tobytes()).decode(),
             "encoding": "raw", "shape": [512, 640]}).encode())
     finally:
-        proc.terminate()
-        try:
-            out, _ = proc.communicate(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-    print(f"dp (e) serve --dp 1: up in {time.perf_counter() - t0:.1f} s, "
-          f"{[x for x in out.splitlines() if 'data-parallel' in x]}, "
+        out = srv.stop()
+    print(f"dp (e) serve --dp 1: up in {srv.up_s:.1f} s, "
+          f"{[x for x in out if 'data-parallel' in x]}, "
           f"{len(answer['boxes'])} detections", flush=True)
-    text, _ = train.communicate(timeout=DP_TIMEOUT)
-    print(f"dp (e) torch.distributed.run --nproc_per_node 1 -m "
-          f"double_yolo_kaist_torch.train: exit {train.returncode}; last "
-          f"lines:\n  " + "\n  ".join(text.splitlines()[-3:]), flush=True)
-    out_dir = os.path.join(root, "dp_torchrun", "mnv3")
-    if train.returncode != 0 or not os.path.exists(
-            os.path.join(out_dir, "last", "manifest.json")) or \
-            len(_results_lines(os.path.join(out_dir, "results.txt"))) != 1:
-        raise AssertionError(f"train under torch.distributed.run failed:\n"
-                             f"{text[-3000:]}")
-    return answer, (v, l)
+    ref = np.load(os.path.join(root, "serve_alone.npz"))
+    alone = {b: tuple(ref[f"dp/{b}/{k}"] for k in
+                      ("boxes", "scores", "classes"))
+             for b in SERVE_BUCKETS}
+    if not _matching_bucket((answer["boxes"], answer["scores"],
+                             answer["classes"]), alone):
+        raise AssertionError("serve --dp 1 answered other detections than "
+                             "the in-process Predictor")
+    return {}
 
 
 def _dp_split(root):
@@ -4274,14 +4667,13 @@ def _chain_artifact(torch, dev, flagship_ir, fvars, root):
 def phase_dp(torch, dev, launches, mnv3_ir, flagship_ir, root,
              ab_without=None):
     """Phase 16: data parallelism on one card. The two gloo ranks of (c)
-    and (e) and (e)'s subprocesses start first and run beside (b) and the
-    one-process float64 reference; then (a) and (d) run alone. Each part
-    runs even when one before it failed; the phase fails if any did. Needs phase 9's split and
-    checkpoint under ``root``. Returns (launch counts of its main-path
-    runs, numbers)."""
+    and (e) start first and run beside (b) and the one-process float64
+    reference; then (a) and (d) run alone. (e)'s entry points are tasks of
+    the script: :func:`_dp_torchrun`, :func:`_dp_entry_points`. Each part
+    runs even when one before it failed; the phase fails if any did.
+    Needs phase 9's split and checkpoint under ``root``. Returns (launch
+    counts of its main-path runs, numbers)."""
     from double_yolo_kaist_torch.bench import seeded_variables
-    from double_yolo_kaist_torch.models import weights
-    from double_yolo_kaist_torch.serving import Predictor
     t_phase = time.perf_counter()
     smi = _smi_line()
     _dp_split(root)
@@ -4291,27 +4683,14 @@ def phase_dp(torch, dev, launches, mnv3_ir, flagship_ir, root,
         try:
             c, numbers[name] = fn()
             counts.update(c)
-        except Exception:                  # noqa: BLE001 — report, go on
+        except Exception as e:             # noqa: BLE001 — report, go on
             traceback.print_exc()
+            _failed(f"dp/{name}", e)
             failed.append(name)
         _stamp(t_phase, f"phase 16 {name}")
 
-    def entry_and_eval():
-        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
-            entry = ex.submit(_dp_entry_points, root)
-            try:
-                c, n = _dp_mesh_eval(torch, dev, launches, mnv3_ir, root)
-            finally:
-                answer, (v, l) = entry.result()
-        buckets = (1, 4, 16)
-        pred = Predictor(mnv3_ir,
-                         weights.load_state_dict_npz(mnv3_ir, MNV3_NPZ),
-                         img_size=640, batch_buckets=buckets, device=dev)
-        if not _matching_bucket((answer["boxes"], answer["scores"],
-                                 answer["classes"]),
-                                _alone(pred, v, l, buckets)):
-            raise AssertionError("serve --dp 1 answered other detections "
-                                 "than the in-process Predictor")
+    def mesh_eval():
+        c, n = _dp_mesh_eval(torch, dev, launches, mnv3_ir, root)
         return {"dp mesh eval": c}, n
 
     def mesh_serving():
@@ -4320,10 +4699,10 @@ def phase_dp(torch, dev, launches, mnv3_ir, flagship_ir, root,
         return _dp_mesh_serving(torch, dev, launches, flagship_ir, fvars,
                                 qpath)
 
-    # the ranks run beside (b) and the entry points: their step times
-    # are the one card's under that load, not a scaling number
+    # the ranks run beside (b): their step times are the one card's under
+    # that load, not a scaling number
     procs = _dp_spawn_ranks(root)
-    part("(b) and the entry points", entry_and_eval)
+    part("(b)", mesh_eval)
     part("(c) and (e)'s ranks",
          lambda: _dp_two_ranks(torch, dev, mnv3_ir, root, procs))
     torch.cuda.empty_cache()
@@ -4336,17 +4715,6 @@ def phase_dp(torch, dev, launches, mnv3_ir, flagship_ir, root,
     if failed:
         raise AssertionError(f"phase 16 parts failed: {failed}")
     return counts, numbers
-
-
-def _only_dp(torch, dev, mnv3_ir, flagship_ir) -> int:
-    """``--only dp``: phase 16 alone, on phase 9's split labelled and
-    checkpointed as phase 9 does it (it prints no result line)."""
-    from double_yolo_kaist_torch.ops import _build
-    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
-        _labelled_split(torch, dev, mnv3_ir, root)
-        phase_dp(torch, dev, _build.launches, mnv3_ir, flagship_ir, root)
-    print("chip_smoke --only dp: phase 16 passed", flush=True)
-    return 0
 
 
 # ------------------------------------------------ phase 17: data x space
@@ -4569,7 +4937,8 @@ def _sp_rank_main(rank: int, root: str) -> None:
     t0 = time.perf_counter()
     while not os.path.exists(os.path.join(root, "sp_go")):
         if time.perf_counter() - t0 > SP_TIMEOUT:
-            raise AssertionError("no go for the 2-D timing")
+            raise AssertionError(f"the go for the 2-D timing: timed out "
+                                 f"after {SP_TIMEOUT} s")
         time.sleep(0.2)
     numbers["flagship bf16"] = _sp_flagship_timing(torch, dev, flagship,
                                                    fvars, space)
@@ -4579,19 +4948,44 @@ def _sp_rank_main(rank: int, root: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def _sp_spawn_ranks(root):
-    """Start the four gloo ranks of (a) and (b) (:func:`_sp_rank_main`),
-    their output to ``root/sp_rank<r>.log``."""
-    code = ("import sys; import chip_smoke; "
-            "chip_smoke._sp_rank_main(int(sys.argv[1]), sys.argv[2])")
-    procs = []
-    for r in range(SP_MESH[0] * SP_MESH[1]):
-        with open(os.path.join(root, f"sp_rank{r}.log"), "w") as log:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", code, str(r), root], cwd=ROOT,
-                env=dict(os.environ, PYTHONPATH=ROOT), stdout=log,
-                stderr=subprocess.STDOUT))
-    return procs
+class _InProcessRank:
+    """Rank 0 of (a) and (b), run in this process (:func:`_sp_ranks`), as
+    :func:`_sp_hold_ranks` waits for a spawned one."""
+
+    def __init__(self, returncode: int):
+        self.returncode = returncode
+
+    def wait(self, timeout=None):
+        return self.returncode
+
+    poll = wait
+
+    def kill(self):
+        pass
+
+
+def _sp_ranks(root) -> list:
+    """(a) and (b): ranks 1-3 spawned (:func:`_sp_rank_main`, output to
+    ``root/sp_rank<r>.log``) and rank 0 run here, so that four processes
+    share the card, this one among them. Returns the four ranks' records
+    for :func:`_sp_hold_ranks`."""
+    n = SP_MESH[0] * SP_MESH[1]
+    procs = _spawn_ranks("_sp_rank_main", range(1, n), root, "sp_rank")
+    rc = 0
+    try:
+        _sp_rank_main(0, root)
+    except Exception as e:                 # noqa: BLE001 — held below
+        traceback.print_exc()
+        _failed("spatial/rank 0", e)
+        with open(os.path.join(root, "sp_rank0.log"), "w") as f:
+            f.write(traceback.format_exc())
+        rc = 1
+        import torch
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for p in procs:
+            p.kill()
+    return [_InProcessRank(rc)] + procs
 
 
 def _sp_references(torch, dev, flagship_ir):
@@ -4695,69 +5089,21 @@ def _sp_hold_ranks(ref, root, procs):
                     "flagship_bf16": fl}
 
 
-def _sp_dryrun_start(root):
-    """Start ``python -m double_yolo_kaist_torch.dryrun 4`` (four gloo
-    ranks on cuda:0) in a session of its own, its output to files under
-    ``root``; returns the record that :func:`_sp_dryrun_wait` and
-    :func:`_sp_dryrun` take (a thread notes when it ended)."""
-    files = [open(os.path.join(root, f"dryrun.{k}"), "w")
-             for k in ("out", "err")]
-    try:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "double_yolo_kaist_torch.dryrun", "4"],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-            stdout=files[0], stderr=files[1], start_new_session=True)
-    finally:
-        for f in files:
-            f.close()
-    dry = {"proc": proc, "root": root, "t0": time.perf_counter(), "s": None}
-
-    def watch():
-        proc.wait()
-        dry["s"] = time.perf_counter() - dry["t0"]
-
-    threading.Thread(target=watch, daemon=True).start()
-    return dry
-
-
-def _sp_dryrun_wait(dry):
-    """Wait for the dryrun to end, SP_TIMEOUT at most from its start; then
-    stop whatever of its session is left (nothing, when it ended as it
-    should), so that no rank outlives it."""
-    proc = dry["proc"]
-    try:
-        proc.wait(timeout=max(1.0, SP_TIMEOUT
-                              - (time.perf_counter() - dry["t0"])))
-    finally:
-        try:
-            os.killpg(proc.pid, signal.SIGKILL)
-        except ProcessLookupError:
-            pass
-        proc.wait()
-
-
-def _sp_dryrun(dry):
-    """(c) the dryrun (``dry``: :func:`_sp_dryrun_start`): exit 0 and
-    JAX's three lines."""
-    _sp_dryrun_wait(dry)
-    proc = dry["proc"]
-    with open(os.path.join(dry["root"], "dryrun.out")) as f:
-        out = f.read()
-    with open(os.path.join(dry["root"], "dryrun.err")) as f:
-        err = f.read()
+def _sp_dryrun(rc: int, out: str, err: str, took: float) -> None:
+    """(c) ``python -m double_yolo_kaist_torch.dryrun 4`` (four gloo ranks
+    on cuda:0) ended with ``rc``: exit 0 and JAX's three lines."""
     lines = [x for x in out.splitlines()
              if x.startswith("dryrun_multichip(4): ok")]
-    took = dry["s"] if dry["s"] is not None else (
-        time.perf_counter() - dry["t0"])
-    print(f"space (c) dryrun 4: exit {proc.returncode} in {took:.1f} s:\n  "
-          + "\n  ".join(lines), flush=True)
+    print(f"space (c) dryrun 4: exit {rc} in {took:.1f} s:\n  "
+          + "\n  ".join(lines + [x for x in err.splitlines()
+                                  if x.startswith("peak device memory")]),
+          flush=True)
     legs = ("flagship train, 1-D data parallel", "flagship DP inference",
             "mini-flagship train, 2-D data x space")
-    if proc.returncode != 0 or not all(any(leg in x for x in lines)
-                                       for leg in legs):
+    if rc != 0 or not all(any(leg in x for x in lines) for leg in legs):
         raise AssertionError(f"dryrun 4 failed:\n{out[-2000:]}\n"
                              f"{err[-3000:]}")
-    return {}, {"dryrun_s": took}
+
 
 def _sp_mesh_predictor(torch, dev, launches, mnv3_ir):
     """(d) F5 repaired: a Predictor on the mesh ["cuda:0"] * 4 of shape
@@ -4803,17 +5149,14 @@ def _sp_mesh_predictor(torch, dev, launches, mnv3_ir):
     return counts, {}
 
 
-def phase_spatial(torch, dev, launches, mnv3_ir, flagship_ir, root,
-                  dryrun=None):
-    """Phase 17: the 2-D data x space path on the one card. ``dryrun``:
-    the dryrun (c) as :func:`_sp_dryrun_start` started it (the whole
-    script starts it beside phase 13's entry-point runs, which nothing
-    times); without it, it starts here. The four gloo ranks of (a) and
-    (b) start first; (d) and the one-process references run beside them;
-    the ranks' bf16 timing (b) waits until the dryrun has ended and the
-    references are made, so that it has the card to itself. Each part
-    runs even when one before it failed; the phase fails if any did.
-    Returns (launch counts of its main-path runs, numbers)."""
+def phase_spatial(torch, dev, launches, mnv3_ir, flagship_ir, root):
+    """Phase 17: the 2-D data x space path on the one card: (d) and the
+    one-process references first, then the four gloo ranks of (a) and (b)
+    (this process is rank 0, three are spawned), whose bf16 timing has
+    the card to itself. ``python -m double_yolo_kaist_torch.dryrun 4``,
+    (c), is a job of its own (:func:`_dryrun_job`). Each part runs even
+    when one before it failed; the phase fails if any did. Returns
+    (launch counts of its main-path runs, numbers)."""
     t_phase = time.perf_counter()
     smi = _smi_line()
     numbers, counts, failed = {"card": smi}, {}, []
@@ -4822,25 +5165,20 @@ def phase_spatial(torch, dev, launches, mnv3_ir, flagship_ir, root,
         try:
             c, numbers[name] = fn()
             counts.update(c)
-        except Exception:                  # noqa: BLE001 — report, go on
+        except Exception as e:             # noqa: BLE001 — report, go on
             traceback.print_exc()
+            _failed(f"spatial/{name}", e)
             failed.append(name)
         _stamp(t_phase, f"phase 17 {name}")
 
-    dry = dryrun or _sp_dryrun_start(root)
-    procs = _sp_spawn_ranks(root)
     ref = {}
-    try:
-        part("(d)", lambda: _sp_mesh_predictor(torch, dev, launches,
-                                               mnv3_ir))
-        part("references", lambda: ({}, ref.update(
-            _sp_references(torch, dev, flagship_ir))))
-        torch.cuda.empty_cache()
-        part("(c)", lambda: _sp_dryrun(dry))
-    finally:
-        with open(os.path.join(root, "sp_go"), "w"):
-            pass
-    part("(a) and (b)", lambda: _sp_hold_ranks(ref, root, procs))
+    part("(d)", lambda: _sp_mesh_predictor(torch, dev, launches, mnv3_ir))
+    part("references", lambda: ({}, ref.update(
+        _sp_references(torch, dev, flagship_ir))))
+    torch.cuda.empty_cache()
+    with open(os.path.join(root, "sp_go"), "w"):
+        pass
+    part("(a) and (b)", lambda: _sp_hold_ranks(ref, root, _sp_ranks(root)))
     print(f"space numbers ({smi}; one card: no multi-card number): "
           + json.dumps(numbers), flush=True)
     print(f"phase 17 in {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -4849,14 +5187,333 @@ def phase_spatial(torch, dev, launches, mnv3_ir, flagship_ir, root,
     return counts, numbers
 
 
-def _only_spatial(torch, dev, mnv3_ir, flagship_ir) -> int:
-    """``--only spatial``: phase 17 alone (it prints no result line)."""
-    from double_yolo_kaist_torch.ops import _build
-    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
-        phase_spatial(torch, dev, _build.launches, mnv3_ir, flagship_ir,
-                      root)
-    print("chip_smoke --only spatial: phase 17 passed", flush=True)
-    return 0
+# ----------------------------------------------------------------- phase 18
+
+ZOO_HW = (64, 96)             # (a): the card against the CPU, fp32
+ZOO_REL = 1e-3                # phase 9's relative bound
+ZOO_MOVES = 1e-3              # least max |change| of a head, one frame new
+TOOLS_BS = 16                 # zoo_bench, serving_bench, int8_ab
+# (b): a leaky Darknet53 YOLOv3, the inception cfg and a MobileNet (its
+# chain plan is empty), the three kinds of draw F7 repaired; the sweep of
+# all 16 at 20 iters is PERF.md's, run on its own
+ZOO_SMOKE_MODELS = ("Double-YOLOv3-Add-SL",
+                    "Double-YOLOv3-Concat-Inception-SE",
+                    "Visible-YOLOv4-MobileNetv2")
+ZOO_SMOKE_ITERS = 2
+TOOLS_TIMEOUT = 600
+
+
+def _zoo_card_vs_cpu(torch, dev, launches):
+    """(a) every zoo model on bench.seeded_variables: the folded fp32
+    forward on the card (TF32 off) against the CPU's plain path on one
+    seeded 64x96 pair (the visible frame alone for single-stream models),
+    raw heads within ZOO_REL of their scale and decoded rows within
+    ZOO_REL relative; then bf16 at 512x640 on the card: finite heads that
+    move when the visible frame changes. K1 launches once a forward."""
+    from double_yolo_kaist_torch.bench import seeded_variables
+    from double_yolo_kaist_torch.config.ir import compile_cfg
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.models.zoo import MODELS, cfg_path
+    rng = np.random.default_rng(SEED + 180)
+    small = [rng.random((1,) + ZOO_HW + (3,), dtype=np.float32)
+             for _ in range(2)]
+    big = [torch.from_numpy(rng.random((1,) + EVAL_HW + (3,),
+                                       dtype=np.float32)).to(dev,
+                                                             torch.bfloat16)
+           for _ in range(3)]
+
+    def prepare(name):
+        ir = compile_cfg(cfg_path(name))
+        folded = graph.fold_batchnorm(ir, seeded_variables(ir, SEED))
+        cpu = graph.place_folded(ir, folded, "cpu", torch.float32)
+        with torch.inference_mode():
+            io, raw = graph.apply_folded(
+                ir, cpu, torch.from_numpy(small[0]),
+                torch.from_numpy(small[1]) if ir.dual_stream else None)
+        return ir, folded, io, raw
+
+    # the CPU's forwards (and the draws) run in a pool beside the card's
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futs = {name: pool.submit(prepare, name) for name in MODELS}
+        launches.clear()
+        for name, fut in futs.items():
+            ir, folded, want_io, want_raw = fut.result()
+            two = ir.dual_stream
+            placed = graph.place_folded(ir, folded, dev, torch.float32)
+            with _NoTF32(torch), torch.inference_mode():
+                io, raw = graph.apply_folded(
+                    ir, placed, torch.from_numpy(small[0]).to(dev),
+                    torch.from_numpy(small[1]).to(dev) if two else None)
+                io, raw = io.cpu(), [r.cpu() for r in raw]
+            scale = max(float(r.abs().max()) for r in want_raw)
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(raw, want_raw)) / scale
+            io_err = float(((io - want_io).abs()
+                            / (want_io.abs() + 1)).max())
+            del placed
+            placed = graph.place_folded(ir, folded, dev, torch.bfloat16)
+            with torch.inference_mode():
+                a = graph.apply_folded(ir, placed, big[0],
+                                       big[2] if two else None,
+                                       compute_dtype=torch.bfloat16)
+                b = graph.apply_folded(ir, placed, big[1],
+                                       big[2] if two else None,
+                                       compute_dtype=torch.bfloat16)
+                finite = bool(torch.isfinite(a[0]).all()
+                              and torch.isfinite(b[0]).all())
+                moved = max(float((x.float() - y.float()).abs().max())
+                            for x, y in zip(a[1], b[1]))
+            del placed, a, b
+            print(f"zoo (a) {name}: fp32 {ZOO_HW[0]}x{ZOO_HW[1]} card vs "
+                  f"CPU heads {err:.2e} of their scale {scale:.3g}, "
+                  f"decoded {io_err:.2e} rel; bf16 {EVAL_HW[0]}x"
+                  f"{EVAL_HW[1]} finite {finite}, heads move by "
+                  f"{moved:.3g}", flush=True)
+            if not (err <= ZOO_REL and io_err <= ZOO_REL and finite
+                    and moved > ZOO_MOVES):
+                raise AssertionError(f"zoo (a) {name}: card vs CPU or the "
+                                     f"bf16 heads")
+        torch.cuda.synchronize()
+        counts = dict(launches)
+    print(f"zoo (a): launches {counts} ({3 * len(MODELS)} forwards; K3 in "
+          f"the forwards of the models whose stems are packed for it)",
+          flush=True)
+    if counts.get("decode_head", 0) != 3 * len(MODELS):
+        raise AssertionError(f"zoo (a): K1 launched {counts} (want one a "
+                             f"forward, {3 * len(MODELS)})")
+    return counts
+
+
+def _tool(name, module, *args, deterministic=False, slots=1):
+    """``python -m double_yolo_kaist_torch.<module> *args`` through RUNPY
+    (launch counts printed last); prints its exit, time, last lines and
+    peak device memory. Returns (exit code, stdout lines, stderr)."""
+    t0 = time.perf_counter()
+    r = _sub(_runpy(module, *args, deterministic=deterministic),
+             timeout=TOOLS_TIMEOUT, slots=slots)
+    lines = r.stdout.splitlines()
+    shown = [x for x in lines if not x.startswith("launches ")][-4:]
+    peak = [x for x in r.stderr.splitlines()
+            if x.startswith("peak device memory")]
+    print(f"tool {name}: exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; last lines:\n  "
+          + "\n  ".join(shown + peak), flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"{name} exited {r.returncode}:\n"
+                             f"{r.stdout[-1500:]}\n{r.stderr[-3000:]}")
+    return lines
+
+
+def _zoo_bench(tools):
+    """(b) ``zoo_bench --int8`` over ZOO_SMOKE_MODELS: a finite bf16 fps on
+    each row, an int8 chain fps on each model whose chain plan is not
+    empty and the empty plan marked (no int8 number) on the others; K1
+    and K4 launched."""
+    from double_yolo_kaist_torch.config.ir import compile_cfg
+    from double_yolo_kaist_torch.models import quantize as Q
+    from double_yolo_kaist_torch.models.zoo import cfg_path
+    out = os.path.join(tools, "zoo.jsonl")
+    lines = _tool("zoo_bench", "zoo_bench", "--int8", "--models",
+                  *ZOO_SMOKE_MODELS, "--batch", TOOLS_BS, "--height",
+                  EVAL_HW[0], "--width", EVAL_HW[1], "--iters",
+                  ZOO_SMOKE_ITERS, "--out", out)
+    with open(out) as f:
+        rows = {r["model"]: r for r in map(json.loads, f) if r}
+    table = [x for x in lines if x.startswith("|")]
+    print("zoo_bench table:\n  " + "\n  ".join(table), flush=True)
+
+    def fps(x):
+        return isinstance(x, (int, float)) and np.isfinite(x) and x > 0
+
+    for name in ZOO_SMOKE_MODELS:
+        r = rows.get(name, {})
+        planned = bool(Q.plan_quantization(compile_cfg(cfg_path(name)),
+                                           "chain")[0])
+        ok = "error" not in r and fps(r.get("bf16_fps"))
+        if planned:
+            ok = ok and fps(r.get("int8_fps"))
+        else:
+            ok = ok and r.get("int8_plan") == "empty" \
+                and "int8_fps" not in r
+        if not ok:
+            raise AssertionError(f"zoo_bench row of {name}: {r}")
+    c = _launches_of(lines)
+    if c.get("decode_head", 0) <= 0 or c.get("qgemm", 0) <= 0:
+        raise AssertionError(f"zoo_bench launched {c}")
+    return {"tools zoo_bench": c}
+
+
+def _serving_bench_args(model, int8):
+    return ["--model", model, "--batch", str(TOOLS_BS), "--n", "5",
+            *(["--int8"] if int8 else [])]
+
+
+def _serving_bench(model, int8):
+    """(c) ``serving_bench`` on ``model`` in bf16 or int8 as a subprocess:
+    its line and the launch counts of its run (:func:`_hold_serving`)."""
+    label = f"{model} {'int8' if int8 else 'bf16'}"
+    lines = _tool(f"serving_bench {label}", "serving_bench",
+                  *_serving_bench_args(model, int8))
+    if not any(x.startswith("serving e2e") for x in lines):
+        raise AssertionError(f"serving_bench {label} printed no result")
+    c = _launches_of(lines)
+    _hold_serving(model, int8, c)
+    return {f"tools serving_bench {label}": c}
+
+
+def _serving_bench_inproc(torch, launches, model, int8):
+    """(c) ``serving_bench.main`` in process on ``model`` in bf16 or int8,
+    its launch counts held (:func:`_hold_serving`)."""
+    from double_yolo_kaist_torch import serving_bench
+    label = f"{model} {'int8' if int8 else 'bf16'}"
+    launches.clear()
+    res = serving_bench.main(_serving_bench_args(model, int8))
+    torch.cuda.synchronize()
+    c = dict(launches)
+    print(f"serving_bench {label} (in process): {res['ms']:.3f} ms a batch "
+          f"of {res['batch']}, {res['img_s']:.1f} img/s; launches {c}",
+          flush=True)
+    _hold_serving(model, int8, c)
+    return {f"serving_bench {label}": c}
+
+
+def _hold_serving(model, int8, c):
+    """K1 and K2 launched by a serving_bench run on ``model``; K3 twice and
+    K4 ten times a flagship int8 forward (the calibration request's batch
+    is calibrated first: one undecoded forward, 2 stems), K3 twice a
+    flagship bf16 forward, neither on MNv3 (its chain plan is empty: it
+    serves bf16)."""
+    from double_yolo_kaist_torch.models.zoo import FLAGSHIP
+    label = f"{model} {'int8' if int8 else 'bf16'}"
+    k1, k2 = c.get("decode_head", 0), c.get("nms_indices", 0)
+    k3, k4 = c.get("stem_conv_s2", 0), c.get("qgemm", 0)
+    ok = k1 > 0 and k2 > 0
+    if model == FLAGSHIP and int8:
+        # the calibration request's batch is calibrated (one undecoded
+        # forward: 2 stems), then served in int8
+        ok = ok and k3 == 2 * k1 + 2 and k4 == 10 * k1
+    elif model == FLAGSHIP:
+        ok = ok and k3 == 2 * k1 and k4 == 0
+    else:
+        ok = ok and k3 == 0 and k4 == 0
+    if not ok:
+        raise AssertionError(f"serving_bench {label}: launches {c}")
+
+
+def _loadtest(root):
+    """(d) ``serve_loadtest --spawn --payload raw`` on MNv3 at concurrency
+    1 and 4: one line a level with rps, p50/p95/p99 and the MicroBatcher's
+    batch histogram (printed, not gated: how requests coalesce depends
+    on timing)."""
+    ckpt = os.path.join(root, "mnv3_ckpt")
+    lines = _tool("serve_loadtest", "serve_loadtest", "--spawn", "--payload",
+                  "raw", "--cfg", MNV3_NAME, "--weights", ckpt,
+                  "--concurrency", 1, 4, "--requests", 32, "--port", 0)
+    levels = [json.loads(x) for x in lines if x.startswith("{")]
+    keys = {"rps", "p50_ms", "p95_ms", "p99_ms", "microbatch", "device"}
+    if ([x["concurrency"] for x in levels] != [1, 4]
+            or not all(keys <= set(x) and x["rps"] > 0
+                       and "size_hist" in x["microbatch"] for x in levels)):
+        raise AssertionError(f"serve_loadtest printed {levels}")
+    return {}
+
+
+def _wallclock(tools):
+    """(f) ``train_wallclock`` on MNv3: one epoch of 64 pairs at bs 8, 4
+    steps a dispatch; its epoch time and the extrapolation to KAIST."""
+    lines = _tool("train_wallclock", "train_wallclock", "--model",
+                  MNV3_NAME, "--images", 64, "--epochs", 1, "--batch", 8,
+                  "--spd", 4, "--root", os.path.join(tools, "wallclock"))
+    if not (any("[wallclock] epoch 0:" in x for x in lines)
+            and any("steady-state" in x and "KAIST" in x for x in lines)):
+        raise AssertionError("train_wallclock did not print its lines")
+    return {}
+
+
+def _int8_ab():
+    """(e) ``int8_ab`` on the flagship, chain and edge, one round: a
+    finite fps a mode, K3 and K4 launched."""
+    lines = _tool("int8_ab", "int8_ab", "--modes", "chain", "edge",
+                  "--rounds", 1, "--batch", TOOLS_BS, "--iters", 5)
+    best = {x.split(":")[0]: float(x.split(":")[1].split()[0])
+            for x in lines if x.startswith(("chain:", "edge:"))}
+    c = _launches_of(lines)
+    if (set(best) != {"chain", "edge"} or min(best.values()) <= 0
+            or c.get("qgemm", 0) <= 0 or c.get("stem_conv_s2", 0) <= 0):
+        raise AssertionError(f"int8_ab: {best}, launches {c}")
+    return {"tools int8_ab": c}
+
+
+OVERFIT_STEPS = 100     # the tool's default is 150
+
+
+def _overfit():
+    """(g) ``real_model_overfit`` on MNv3, OVERFIT_STEPS steps, under
+    deterministic algorithms (the tool's own): AP@0.5 at least 0.5 (its
+    default gate), the margin printed by the tool."""
+    lines = _tool("real_model_overfit", "real_model_overfit", "--steps",
+                  OVERFIT_STEPS)
+    if "REAL MODEL OVERFIT PASSED" not in lines:
+        raise AssertionError("real_model_overfit did not pass")
+    return {}
+
+
+def _visual(tools):
+    """(h) ``dataset_preview``, ``compare_clahe`` and ``plot_activations``
+    (both panels): their PNGs, or, where matplotlib is absent, a refusal
+    naming it before the card is touched."""
+    import importlib.util
+
+    from double_yolo_kaist_torch.train_wallclock import make_dataset
+    split = make_dataset(os.path.join(tools, "preview"), 4, EVAL_HW)
+    data = os.path.join(tools, "preview", "m.data")
+    with open(data, "w") as f:
+        f.write(f"classes=1\ntrain={split}\nvalid={split}\n")
+    with open(split) as f:
+        image = f.readline().strip().replace(".jpg", "_visible.jpg")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    for module, png, args in (
+            ("dataset_preview", "preview.png",
+             ["--data", data, "--n", "2", "--out"]),
+            ("compare_clahe", "clahe.png", [image]),
+            ("plot_activations", "activations.png", []),
+            ("plot_activations", "curves.png", ["--panel", "curves"])):
+        path = os.path.join(tools, png)
+        argv = args + [path] if module != "plot_activations" \
+            else [path] + args
+        r = _sub([sys.executable, "-m", f"double_yolo_kaist_torch.{module}",
+                  *argv], timeout=TOOLS_TIMEOUT,
+                 slots=1 if has_mpl else 0)
+        print(f"tool {module} {png}: exit {r.returncode}; "
+              f"{(r.stdout + r.stderr).strip().splitlines()[-1:]}",
+              flush=True)
+        if has_mpl:
+            with open(path, "rb") as f:
+                ok = f.read(8) == b"\x89PNG\r\n\x1a\n"
+            if r.returncode != 0 or not ok or os.path.getsize(path) < 1000:
+                raise AssertionError(f"{module}: no PNG\n{r.stderr[-2000:]}")
+        elif (r.returncode == 0 or "matplotlib" not in r.stderr
+              or os.path.exists(path)):
+            raise AssertionError(f"{module} without matplotlib:\n"
+                                 f"{r.stderr[-2000:]}")
+    print("visual tools: " + ("PNGs written" if has_mpl else
+                              "refused, naming matplotlib (absent)"),
+          flush=True)
+    return {}
+
+
+def phase_tools(torch, dev, launches):
+    """Phase 18's in-process parts: (a) the 16 zoo models card vs CPU, and
+    (c) ``serving_bench.main`` on MNv3 (bf16 and int8) and the flagship in
+    bf16 (its int8 run, and the other tools, (b)-(h), are subprocesses:
+    tasks of the script, TASKS). Returns (launch counts of each run,
+    numbers)."""
+    from double_yolo_kaist_torch.models.zoo import FLAGSHIP
+    counts = {"zoo card vs CPU": _zoo_card_vs_cpu(torch, dev, launches)}
+    for model, int8 in ((FLAGSHIP, False), (MNV3_NAME, False),
+                        (MNV3_NAME, True)):
+        counts.update(_serving_bench_inproc(torch, launches, model, int8))
+    return counts, {}
 
 
 def _labelled_split(torch, dev, mnv3_ir, root):
@@ -4885,74 +5542,607 @@ def _labelled_split(torch, dev, mnv3_ir, root):
                     bn_state=jx["state"])
 
 
-def _train_phases(torch, dev, mnv3_ir, flagship_ir, root, counts, failed,
-                  beside=None):
-    """Phases 12 and 13 (after the others have passed; ``beside`` as
-    :func:`phase_train_entry` takes it); returns the names of those that
-    failed."""
-    from double_yolo_kaist_torch.ops import _build
-    out = []
-    if failed:
-        return out
-    try:
-        phase_train_step(torch, dev, mnv3_ir, flagship_ir)
-    except Exception:                      # noqa: BLE001
-        traceback.print_exc()
-        out.append("train step")
-    if not out:
+# ------------------------------------------------------------------ the jobs
+#
+# The script runs as one process that never touches the card (it builds
+# the kernels, starts the jobs, holds the card's process budget and reads
+# what the jobs wrote) and a process a job (``--job NAME``), each with its
+# own subprocesses. Every process on the card holds one of CUDA_SLOTS
+# slots; at most MAX_MAINS jobs run at once, so that a slot is always left
+# for their subprocesses. "core" times the kernels on a quiet card first;
+# the jobs that read phase 9's split start once core has written it.
+
+class _Job:
+    """What a job process keeps: its launch counts by run, its failed
+    phases, its numbers for the result line."""
+
+    def __init__(self, name: str, root: str):
+        self.name, self.root = name, root
+        self.counts, self.failed, self.out = {}, [], {}
+        self.state = {}      # what a group leaves for the next one
+        self.t0 = time.perf_counter()
+
+    def run(self, phase: str, fn):
+        """``fn()``; a failure is printed (``chip_smoke: FAILED``) and
+        recorded, and gives None."""
         try:
-            counts["train"] = phase_train_entry(torch, dev, _build.launches,
-                                                flagship_ir, root, beside)
-        except Exception:                  # noqa: BLE001
+            return fn()
+        except Exception as e:             # noqa: BLE001 — report, go on
             traceback.print_exc()
-            out.append("train entry point")
-    return out
+            _failed(f"{self.name}/{phase}", e)
+            self.failed.append(phase)
+            return None
+        finally:
+            _stamp(self.t0, f"{self.name}: {phase}")
 
 
-def _only_train(torch, dev, mnv3_ir, flagship_ir) -> int:
-    """``--only train``: phases 12 and 13 alone, on phase 9's split
-    labelled and checkpointed as phase 9 does it (a quicker run for work on
-    the training path; it prints no result line)."""
-    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
-        _labelled_split(torch, dev, mnv3_ir, root)
-        failed = _train_phases(torch, dev, mnv3_ir, flagship_ir, root, {},
-                               [])
-    if failed:
-        return _fail(f"phases failed: {failed}")
-    print("chip_smoke --only train: phases 12 and 13 passed", flush=True)
-    return 0
+def _mark(root: str, what: str) -> None:
+    with open(os.path.join(root, what), "w"):
+        pass
 
 
-def _only_int8aug(torch, dev, mnv3_ir) -> int:
-    """``--only int8aug``: phase 14 after phase 8 (its bf16 and chain
-    times), on phase 9's split labelled and checkpointed as phase 9 does it
-    (it prints no result line)."""
+def _job_core(j, torch, dev, ir, fir):
+    """Phases 3-10: the kernels against their plain versions (timed on a
+    quiet card: no other job starts before ``kernels.timed``), MNv3 and
+    the flagship end to end, evaluate (which writes the split the other
+    jobs read: ``split.ready``), the CUDA graphs."""
     from double_yolo_kaist_torch.ops import _build
-    _, times, served = phase_flagship(torch, dev, _build.launches)
+    L = _build.launches
+    results = {}
+    try:
+        for name, fn in (("K1", lambda: phase_decode(torch, ir, dev, L)),
+                         ("K2", lambda: phase_nms(torch, dev)),
+                         ("K3", lambda: phase_stem(torch, dev)),
+                         ("K3 probes", lambda: phase_probes(torch, dev, L)),
+                         ("K4", lambda: phase_qgemm(torch, fir, dev, L))):
+            r = j.run(name, fn)
+            if r is not None:
+                results[name] = r
+    finally:
+        _mark(j.root, "kernels.timed")
+    j.out["results"] = results
+    served = {}
+    r = j.run("MNv3 end to end", lambda: phase_end_to_end(torch, ir, dev, L))
+    if r is not None:
+        j.counts["mnv3"], _, served["mnv3"] = r
+    r = j.run("flagship end to end", lambda: phase_flagship(torch, dev, L))
+    if r is not None:
+        j.counts.update(r[0])
+        j.state["flagship times"] = r[1]
+        served.update(r[2])
+    r = j.run("evaluate", lambda: phase_eval(
+        torch, dev, L, ir, fir, results, j.root,
+        ready=lambda: _mark(j.root, "split.ready")))
+    if r is not None:
+        j.counts.update(r[0])
+        j.out["eval_kernels"] = r[1]
+    held = {"decode_head": 1, "nms_indices": 1}
+    r = j.run("graphs", lambda: phase_graphs(torch, L, [
+        ("MNv3 bf16", served["mnv3"][0], served["mnv3"][1], held),
+        ("flagship bf16", *served["flagship bf16"],
+         dict(held, stem_conv_s2=2)),
+        ("flagship int8", *served["flagship int8"],
+         dict(held, stem_conv_s2=2, qgemm=10))]))
+    if r is not None:
+        j.counts.update(r[0])
+
+    def entry():
+        _entry_refs(torch, dev, ir, served["mnv3"][2], j.root)
+        _mark(j.root, "entry.refs")
+        _microbatch(torch, L, served["flagship bf16"][0], j.counts)
+
+    j.run("entry refs and MicroBatcher", entry)
     served.clear()
-    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
-        _labelled_split(torch, dev, mnv3_ir, root)
-        phase_int8aug(torch, dev, _build.launches, root, times)
-    print("chip_smoke --only int8aug: phase 14 passed", flush=True)
-    return 0
+    torch.cuda.empty_cache()
 
 
-def _only_slice9(torch, dev, mnv3_ir, flagship_ir) -> int:
-    """``--only slice9``: phase 15 alone, on phase 9's split labelled and
-    checkpointed as phase 9 does it (it prints no result line)."""
+def _job_train(j, torch, dev, ir, fir):
+    """Phases 12 and 13 (13's entry-point runs are tasks of the script,
+    which run meanwhile)."""
     from double_yolo_kaist_torch.ops import _build
-    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
-        _labelled_split(torch, dev, mnv3_ir, root)
-        phase_slice9(torch, dev, _build.launches, mnv3_ir, flagship_ir,
-                     root)
-    print("chip_smoke --only slice9: phase 15 passed", flush=True)
-    return 0
+    j.run("train step", lambda: phase_train_step(torch, dev, ir, fir))
+    r = j.run("train entry point", lambda: phase_train_entry(
+        torch, dev, _build.launches, fir, j.root, j.shared))
+    if r is not None:
+        j.counts["train"] = r
 
 
-def main() -> int:
-    # before any cuBLAS handle exists: phase 15's deterministic steps need
-    # cuBLAS's fixed workspace
+def _job_int8aug(j, torch, dev, ir, fir):
+    """Phase 14 beside phase 8's bf16 and chain times: core's, when it ran
+    in this process before, else phase 8 again."""
+    from double_yolo_kaist_torch.ops import _build
+    times = j.state.get("flagship times")
+    if times is None:
+        r = j.run("flagship end to end", lambda: phase_flagship(
+            torch, dev, _build.launches))
+        if r is None:
+            return
+        counts, times, served = r
+        j.counts.update({f"int8aug {k}": v for k, v in counts.items()})
+        served.clear()
+        torch.cuda.empty_cache()
+    r = j.run("int8 modes and augment", lambda: phase_int8aug(
+        torch, dev, _build.launches, j.root, times))
+    if r is not None:
+        j.counts.update(r)
+
+
+def _job_slice9(j, torch, dev, ir, fir):
+    """Phase 15; it leaves MNv3's K=4 A/B for phase 16 (d)."""
+    from double_yolo_kaist_torch.ops import _build
+    r = j.run("slice9", lambda: phase_slice9(torch, dev, _build.launches, ir,
+                                             fir, j.root))
+    if r is not None:
+        j.counts.update(r[0])
+        j.state["ab"] = r[1]["ab"][f"MNv3 K={K_STEPS}"]
+    torch.cuda.empty_cache()
+
+
+def _job_dp(j, torch, dev, ir, fir):
+    """Phase 16 (with phase 15's A/B and chain artifact where phase 15 ran
+    in this process before)."""
+    from double_yolo_kaist_torch.ops import _build
+    r = j.run("dp", lambda: phase_dp(torch, dev, _build.launches, ir, fir,
+                                     j.root, j.state.get("ab")))
+    if r is not None:
+        j.counts.update(r[0])
+    torch.cuda.empty_cache()
+
+
+def _job_phase(name, fn):
+    """A group of one phase function that returns (counts, numbers)."""
+    def job(j, torch, dev, ir, fir):
+        from double_yolo_kaist_torch.ops import _build
+        r = j.run(name, lambda: fn(torch, dev, _build.launches, ir, fir,
+                                   j.root))
+        if r is not None:
+            j.counts.update(r[0])
+    return job
+
+
+def _job_split(j, torch, dev, ir, fir):
+    """For ``--only`` runs without core: phase 9's split, labelled and
+    checkpointed as phase 9 does it, and core's references for the
+    serving entry points."""
+    from double_yolo_kaist_torch.models import weights
+    try:
+        j.run("split", lambda: _labelled_split(torch, dev, ir, j.root))
+        if not j.failed:
+            _mark(j.root, "split.ready")
+            j.run("entry refs", lambda: _entry_refs(
+                torch, dev, ir, weights.load_state_dict_npz(ir, MNV3_NPZ),
+                j.root))
+            if not j.failed:
+                _mark(j.root, "entry.refs")
+    finally:
+        _mark(j.root, "kernels.timed")
+
+
+SPLIT_FILES = ("images", "labels", "mnv3_ckpt", "eval80.txt",
+               "eval80.shapes", "eval8.txt", "eval8.shapes")
+
+# name: (function, reads phase 9's split, runs with the card to itself)
+JOBS = {
+    "split": (_job_split, False, False),  # --only runs without core
+    "core": (_job_core, False, False),
+    "slice9": (_job_slice9, True, False),
+    "train": (_job_train, True, False),
+    "int8aug": (_job_int8aug, True, False),
+    "dp": (_job_dp, True, False),
+    "tools": (_job_phase("tools", lambda torch, dev, L, ir, fir, root:
+                         phase_tools(torch, dev, L)), False, False),
+    "spatial": (_job_phase("spatial", phase_spatial), False, True),
+    "dryrun": (None, False, True),      # run by the script itself
+}
+# the whole run's jobs: two lanes, each a process that runs its groups
+# one after another, then the two that have the card to themselves
+RUN = ("core+int8aug+train+tools", "slice9+dp", "spatial", "dryrun")
+PRODUCERS = ("core", "split")    # the jobs that write the markers
+MAX_MAINS = 2            # jobs at once (two slots are left for subprocesses)
+JOB_LIMIT_S = {"core": 300, "slice9": 420, "train": 360, "int8aug": 300,
+               "dp": 300, "tools": 180, "spatial": 300, "dryrun": 240,
+               "split": 300}     # a job of several groups: their sum
+
+# the subprocess runs whose checks need no card (what they are held
+# against, if anything, a job wrote first): run by the script itself, in
+# threads, each subprocess holding a slot. name: (function of the task's
+# directory, the marker it waits for)
+TASKS = {
+    "train flagship 1 epoch + resume": (_train_resumed, "split.ready"),
+    "train MNv3 --ema": (_train_ema, "split.ready"),
+    "slice9 train K=4 flagship": (
+        lambda root: _slice9_train(root, "flagship device pool"),
+        "split.ready"),
+    "slice9 train K=4 MNv3": (
+        lambda root: _slice9_train(root, "MNv3 pinned host"), "split.ready"),
+    "slice9 bench --check-ap": (lambda root: (_check_ap(), {})[1],
+                                "kernels.timed"),
+    "entry serve": (_serve_check, "entry.refs"),
+    "entry detect": (_detect_check, "entry.refs"),
+    "entry bench --bf16": (lambda root: (_bench_subprocess("--bf16"), {})[1],
+                           "kernels.timed"),
+    "entry bench --int8": (lambda root: (_bench_subprocess("--int8"), {})[1],
+                           "kernels.timed"),
+    "int8aug train --snow --clahe": (_snow_train, "split.ready"),
+    "dp torchrun train": (_dp_torchrun, "split.ready"),
+    "dp serve --dp": (_dp_entry_points, "entry.refs"),
+    "tools real_model_overfit": (lambda root: _overfit(), "kernels.timed"),
+    "tools zoo_bench": (_zoo_bench, "kernels.timed"),
+    "tools serve_loadtest": (_loadtest, "split.ready"),
+    "tools train_wallclock": (_wallclock, "kernels.timed"),
+    "tools int8_ab": (lambda root: _int8_ab(), "kernels.timed"),
+    "tools serving_bench flagship int8": (
+        lambda root: _serving_bench("Double-YOLOv4-Fshare-Global-CSE3", True),
+        "kernels.timed"),
+    "tools visual": (_visual, "kernels.timed"),
+}
+# the jobs and tasks of each --only name
+ONLY = {name: [name] + [t for t in TASKS if t.split()[0] == name]
+        for name in JOBS if name != "split"}
+ONLY["entry"] = ["core"] + [t for t in TASKS if t.startswith("entry")]
+SCRIPT_LIMIT_S = 1080    # the whole script's own limit, inside the 1200 s
+                         # a smoke run is held to: past it every job still
+                         # running is stopped and reported
+
+
+def _groups(name: str) -> list:
+    """The groups of phases of job ``name`` ("a+b": a, then b)."""
+    return name.split("+")
+
+
+def _spec(name: str):
+    """(reads phase 9's split, has the card to itself, writes the markers,
+    its time limit) of job ``name``."""
+    groups = _groups(name)
+    return (any(JOBS[g][1] for g in groups), any(JOBS[g][2] for g in groups),
+            any(g in PRODUCERS for g in groups),
+            sum(JOB_LIMIT_S[g] for g in groups))
+
+
+def _job_main(name: str, shared: str) -> int:
+    """``--job NAME SHARED``: one job in its own process, its groups of
+    phases one after another; what it found goes to
+    ``SHARED/NAME.json``."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    sys.path.insert(0, ROOT)
+    from double_yolo_kaist_torch.config.ir import compile_cfg
+    from double_yolo_kaist_torch.ops import _build
+    reads_split, _, produces, _ = _spec(name)
+    root = shared if produces else os.path.join(shared, name)
+    os.makedirs(root, exist_ok=True)
+    j = _Job(name, root)
+    j.shared = shared
+    dev = torch.device("cuda", 0)
+    _build.build_all()                # built by the script: loads them
+    ir, fir = compile_cfg(MNV3_CFG), compile_cfg(FLAGSHIP_CFG)
+    if reads_split and not produces:
+        for f in SPLIT_FILES:
+            os.symlink(os.path.join(shared, f), os.path.join(root, f))
+    for g in _groups(name):
+        JOBS[g][0](j, torch, dev, ir, fir)
+    gib = 2.0 ** 30
+    print(f"job {name}: peak device memory {torch.cuda.max_memory_allocated() / gib:.3f} GiB allocated, "
+          f"{torch.cuda.max_memory_reserved() / gib:.3f} GiB reserved; "
+          f"failed {j.failed}", flush=True)
+    with open(os.path.join(shared, f"{name}.json"), "w") as f:
+        json.dump(dict(j.out, counts=j.counts, failed=j.failed), f)
+    return 1 if j.failed else 0
+
+
+def _card_processes() -> int:
+    """Processes holding a context on the card, as nvidia-smi lists them."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=20)
+    return len([x for x in r.stdout.splitlines() if x.strip()])
+
+
+class _Monitor(threading.Thread):
+    """The most processes on the card at once, read each second."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.peak, self.over, self.stopped = 0, 0, threading.Event()
+
+    def run(self):
+        prev = 0
+        while not self.stopped.wait(1.0):
+            try:
+                n = _card_processes()
+            except (OSError, subprocess.SubprocessError):
+                continue
+            self.peak = max(self.peak, n)
+            # a process ending as the next starts can show once: two
+            # readings in a row over the budget are a breach
+            if n > CUDA_SLOTS and prev > CUDA_SLOTS:
+                self.over += 1
+            prev = n
+
+
+def _dryrun_job(shared: str):
+    """(c) of phase 17: ``python -m double_yolo_kaist_torch.dryrun 4``,
+    four ranks on the card (its four slots); started here, by a process
+    that holds no context."""
+    out, err = (open(os.path.join(shared, f"dryrun.{k}"), "w")
+                for k in ("out", "err"))
+    with out, err:
+        return subprocess.Popen([sys.executable, "-m",
+                                 "double_yolo_kaist_torch.dryrun", "4"],
+                                cwd=ROOT, env=dict(os.environ,
+                                                   PYTHONPATH=ROOT),
+                                stdout=out, stderr=err,
+                                start_new_session=True)
+
+
+def _start_job(name: str, shared: str):
+    if name == "dryrun":
+        return _dryrun_job(shared)
+    out, err = (open(os.path.join(shared, f"{name}.{k}"), "w")
+                for k in ("out", "err"))
+    with out, err:
+        return subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--job",
+             name, shared],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
+            stderr=err, start_new_session=True)
+
+
+def _end_job(name, rc, took, shared, records, failed):
+    """Print a job's output and collect what it wrote."""
+    def read(k):
+        with open(os.path.join(shared, f"{name}.{k}")) as f:
+            return f.read()
+
+    out, err = read("out"), read("err")
+    state = ("timed out" if rc == "timeout" else f"exit {rc}")
+    print(f"=== job {name}: {state} in {took:.1f} s ===", flush=True)
+    sys.stdout.write(out if out.endswith("\n") or not out else out + "\n")
+    if rc == "timeout":
+        _failed(name, TimeoutError(
+            f"the job timed out after {_spec(name)[3]} s"))
+        failed.append(name)
+    elif name == "dryrun":
+        try:
+            _sp_dryrun(rc, out, err, took)
+        except Exception as e:             # noqa: BLE001
+            _failed("spatial/(c) dryrun 4", e)
+            failed.append("spatial/(c) dryrun 4")
+    else:
+        path = os.path.join(shared, f"{name}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                records[name] = json.load(f)
+            failed += [f"{name}/{p}" for p in records[name]["failed"]]
+        if rc != 0 and not (name in records and records[name]["failed"]):
+            _failed(name, RuntimeError(f"the job exited {rc}"))
+            failed.append(name)
+    if rc != 0:
+        print(f"--- job {name}: the end of its standard error ---\n"
+              f"{err[-4000:]}", file=sys.stderr, flush=True)
+
+
+class _ThreadOut:
+    """The script's stdout while tasks run in its threads: what a task's
+    thread prints collects in its buffer (printed whole when the task
+    ends), the rest goes straight through."""
+
+    def __init__(self, real):
+        self.real, self.bufs = real, {}
+
+    def write(self, text):
+        buf = self.bufs.get(threading.get_ident())
+        if buf is None:
+            return self.real.write(text)
+        buf.append(text)
+        return len(text)
+
+    def flush(self):
+        self.real.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+def _task_root(shared: str, name: str) -> str:
+    """A directory of the task's own (its caches and outputs), phase 9's
+    split and core's references for phase 11 linked in."""
+    root = os.path.join(shared, name.replace(" ", "_"))
+    os.makedirs(root)
+    for f in SPLIT_FILES + ("serve_alone.npz", "detect_counts.json"):
+        if os.path.exists(os.path.join(shared, f)):
+            os.symlink(os.path.join(shared, f), os.path.join(root, f))
+    return root
+
+
+def _start_task(name, shared, out, records, failed, lock, t_start):
+    """Run task ``name`` in a thread; its output is printed as one block
+    when it ends."""
+    fn, _ = TASKS[name]
+
+    def run():
+        buf = out.bufs[threading.get_ident()] = []
+        _TASK.priority = list(TASKS).index(name)
+        t0 = time.perf_counter()
+        ok = False
+        try:
+            root = _task_root(shared, name)
+            records[name] = {"counts": fn(root) or {}, "failed": []}
+            ok = True
+        except Exception as e:             # noqa: BLE001 — report, go on
+            buf.append(traceback.format_exc())
+            _failed(name, e)
+            with lock:
+                failed.append(name)
+        finally:
+            del out.bufs[threading.get_ident()]
+            with lock:
+                out.real.write(
+                    f"=== task {name}: {'passed' if ok else 'FAILED'} in "
+                    f"{time.perf_counter() - t0:.1f} s (ended at "
+                    f"{time.perf_counter() - t_start:.1f} s) ===\n"
+                    + "".join(buf))
+                out.real.flush()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def _run_jobs(names, shared, t_start):
+    """Run the jobs and tasks ``names`` (in JOBS' and TASKS' order of
+    priority) under the card's budget; returns ({job or task: what it
+    wrote}, [failed phases])."""
+    import signal as sg
+    pending = [n for n in names if n not in TASKS]
+    tasks = [n for n in TASKS if n in names]
+    producers = [n for n in pending if _spec(n)[2]]
+    running, threads, records, failed = {}, {}, {}, []
+    lock = threading.Lock()
+    out = sys.stdout = _ThreadOut(sys.stdout)
+    try:
+        while pending or running or tasks or any(
+                t.is_alive() for t in threads.values()):
+            with lock:
+                for name, (proc, t0, held) in list(running.items()):
+                    rc = proc.poll()
+                    took = time.perf_counter() - t0
+                    if rc is None and (took > _spec(name)[3] or
+                                       time.perf_counter() - t_start
+                                       > SCRIPT_LIMIT_S):
+                        try:
+                            os.killpg(proc.pid, sg.SIGKILL)
+                        except ProcessLookupError:
+                            pass
+                        proc.wait()
+                        rc = "timeout"
+                    if rc is not None:
+                        _give_slots(held)
+                        del running[name]
+                        _end_job(name, rc, took, shared, records, failed)
+            if time.perf_counter() - t_start > SCRIPT_LIMIT_S:
+                for name in pending + tasks:
+                    _failed(name, TimeoutError(
+                        f"not started: the script's limit of "
+                        f"{SCRIPT_LIMIT_S} s ran out"))
+                    failed.append(name)
+                pending, tasks = [], []
+                if not running:
+                    break          # tasks still running: their threads end
+                                   # with the script, their processes are
+                                   # stopped on its exit
+            def ready(marker):
+                if not producers or os.path.exists(os.path.join(shared,
+                                                                marker)):
+                    return True
+                if not any(n in running or n in pending for n in producers):
+                    raise RuntimeError(f"not started: {producers[0]} did "
+                                       f"not write {marker}")
+                return False
+
+            want_slot = False
+            for name in list(pending):
+                reads_split, alone, produces, _ = _spec(name)
+                marker = "split.ready" if reads_split else "kernels.timed"
+                try:
+                    go = produces or ready(marker)
+                except RuntimeError as e:
+                    _failed(name, e)
+                    failed.append(name)
+                    pending.remove(name)
+                    continue
+                if not go:
+                    continue
+                if alone and (running or any(t.is_alive() for t in
+                                             threads.values()) or tasks):
+                    break             # the card to itself: after the rest
+                if len(running) >= MAX_MAINS:
+                    break
+                held = _take_slots(CUDA_SLOTS if name == "dryrun" else 1,
+                                   wait=False, first=True)
+                if not held:
+                    want_slot = True
+                    break
+                running[name] = (_start_job(name, shared),
+                                 time.perf_counter(), held)
+                pending.remove(name)
+                print(f"[{time.perf_counter() - t_start:.1f} s] job {name} "
+                      f"started", flush=True)
+            for name in list(tasks):
+                try:
+                    go = ready(TASKS[name][1])
+                except RuntimeError as e:
+                    _failed(name, e)
+                    failed.append(name)
+                    tasks.remove(name)
+                    continue
+                if go:
+                    tasks.remove(name)
+                    threads[name] = _start_task(name, shared, out, records,
+                                                failed, lock, t_start)
+            # while a job waits for a slot, the tasks' threads hold back
+            (_JOBS_WAITING.set if want_slot else _JOBS_WAITING.clear)()
+            time.sleep(0.2)
+    finally:
+        sys.stdout = out.real
+        _JOBS_WAITING.clear()
+    for name, t in threads.items():
+        if t.is_alive():
+            _failed(name, TimeoutError(f"still running at the script's "
+                                       f"limit of {SCRIPT_LIMIT_S} s"))
+            failed.append(name)
+    return records, failed
+
+
+def _kernels_line(records):
+    """The result line's kernels: core's numbers, launches summed over
+    every job's main-path runs."""
+    core = next(r for r in records.values() if "results" in r)
+    results, ek = core["results"], core["eval_kernels"]
+
+    def launched(kernel):
+        """Launches of ``kernel`` summed over the main-path runs of every
+        job and task (each counted from 0 just before its run and read
+        just after it): MNv3, flagship bf16 and int8, the eval runs, the
+        graph replays and the micro-batched run of core; the Trainer's
+        epoch of train; phase 8's runs again, the int8 modes and the edge
+        eval of int8aug; the exported and Predictor replays of slice9 and
+        its K-step train runs' evaluations; the mesh Predictors, the mesh
+        evaluation and the ranks' Trainer fits of dp; the 2-D forwards and
+        the 2-D mesh Predictor of spatial; the zoo's card forwards of
+        tools, and the tools' runs."""
+        return sum(c.get(kernel, 0) for r in records.values()
+                   for c in r["counts"].values())
+
+    return [
+        {"name": "K1 head decode", "route": "cuda",
+         "source": "double_yolo_kaist_torch/ops/csrc/decode.cu",
+         "replaces": "double_yolo_kaist_tpu/ops/pallas_decode.py:28",
+         "launches": launched("decode_head"), **results["K1"],
+         **ek["K1"], "library_ms": None},
+        {"name": "K2 greedy NMS", "route": "cuda",
+         "source": "double_yolo_kaist_torch/ops/csrc/nms.cu",
+         "replaces": "double_yolo_kaist_tpu/ops/pallas_nms.py:34",
+         "launches": launched("nms_indices"), **results["K2"],
+         **ek["K2"], "library_ms": None},
+        {"name": "K3 stem conv 3x3 s2", "route": "cuda",
+         "source": "double_yolo_kaist_torch/ops/csrc/stem.cu",
+         "replaces": "double_yolo_kaist_tpu/ops/pallas_stem.py:138",
+         "launches": launched("stem_conv_s2"), **results["K3"],
+         **ek["K3"]},
+        {"name": "K4 int8 GEMM + epilogue", "route": "cuda",
+         "source": "double_yolo_kaist_torch/ops/csrc/qgemm.cu",
+         "replaces": "double_yolo_kaist_tpu/ops/pallas_qgemm.py:101",
+         "launches": launched("qgemm"), **results["K4"], **ek["K4"]},
+        # launches: one run of the probes' own entry point (breakdown)
+        {"name": "K3 probes", "route": "cuda",
+         "source": "double_yolo_kaist_torch/ops/csrc/stem.cu",
+         "replaces": "tools/archive/stem_probe.py:99",
+         **results["K3 probes"]},
+    ]
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         return _fail("CUDA is not available; this script needs one GPU")
@@ -4963,17 +6153,19 @@ def main() -> int:
         return _fail(f"the port is not next to this script ({e})")
     if not os.path.abspath(port.__file__).startswith(ROOT + os.sep):
         return _fail(f"imported the port from {port.__file__}, not {ROOT}")
-    from double_yolo_kaist_torch.config.ir import compile_cfg
     from double_yolo_kaist_torch.ops import _build
-
-    failed = []
+    only = None
+    if argv:
+        if argv[0] != "--only" or not set(argv[1:]) <= set(ONLY) \
+                or len(argv) < 2:
+            return _fail(f"usage: chip_smoke.py [--only NAME ...]; names: "
+                         f"{' '.join(ONLY)}")
+        only = argv[1:]
     t_start = time.perf_counter()
-    dev = torch.device("cuda", 0)
     smi = _smi_line()
     print(f"card: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
-
     t0 = time.perf_counter()
     try:
         _build.build_all()
@@ -4981,182 +6173,56 @@ def main() -> int:
         return _fail(f"kernel build: {e}")
     print(f"build: {sorted(_build.SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-
-    ir = compile_cfg(MNV3_CFG)
-    flagship_ir = compile_cfg(FLAGSHIP_CFG)
-    if sys.argv[1:] == ["--only", "train"]:
-        return _only_train(torch, dev, ir, flagship_ir)
-    if sys.argv[1:] == ["--only", "int8aug"]:
-        return _only_int8aug(torch, dev, ir)
-    if sys.argv[1:] == ["--only", "slice9"]:
-        return _only_slice9(torch, dev, ir, flagship_ir)
-    if sys.argv[1:] == ["--only", "dp"]:
-        return _only_dp(torch, dev, ir, flagship_ir)
-    if sys.argv[1:] == ["--only", "spatial"]:
-        return _only_spatial(torch, dev, ir, flagship_ir)
-    results = {}
-    for name, fn in (("K1", lambda: phase_decode(torch, ir, dev,
-                                                 _build.launches)),
-                     ("K2", lambda: phase_nms(torch, dev)),
-                     ("K3", lambda: phase_stem(torch, dev)),
-                     ("K3 probes", lambda: phase_probes(torch, dev,
-                                                        _build.launches)),
-                     ("K4", lambda: phase_qgemm(torch, flagship_ir, dev,
-                                                _build.launches))):
-        try:
-            results[name] = fn()
-        except Exception:                  # noqa: BLE001 — report, go on
-            traceback.print_exc()
-            failed.append(name)
-        _stamp(t_start, f"phase {name}")
-    counts, served = {}, {}
+    _IS_SCRIPT[0] = True
+    shared = tempfile.mkdtemp(prefix="dyk_smoke_")
+    slots = os.path.join(shared, "slots")
+    os.makedirs(slots)
+    os.environ[SLOTS_ENV] = slots
+    os.environ["DYK_PEAK_MEMORY"] = os.path.join(shared, "peaks.jsonl")
+    monitor = _Monitor()
+    monitor.start()
     try:
-        counts["mnv3"], _, served["mnv3"] = phase_end_to_end(
-            torch, ir, dev, _build.launches)
-    except Exception:                      # noqa: BLE001
-        traceback.print_exc()
-        failed.append("end to end")
-    _stamp(t_start, "MNv3 end to end")
-    try:
-        flagship_counts, flagship_times, flagship_served = phase_flagship(
-            torch, dev, _build.launches)
-        counts.update(flagship_counts)
-        served.update(flagship_served)
-    except Exception:                      # noqa: BLE001
-        traceback.print_exc()
-        failed.append("flagship end to end")
-    _stamp(t_start, "flagship end to end")
-    eval_kernels = {}
-    with tempfile.TemporaryDirectory(prefix="dyk_smoke_") as root:
-        ckpt = None
-        if not failed:                     # it prints beside phases 3-7
-            try:
-                eval_counts, eval_kernels, ckpt = phase_eval(
-                    torch, dev, _build.launches, ir, flagship_ir, results,
-                    root)
-                counts.update(eval_counts)
-            except Exception:              # noqa: BLE001
-                traceback.print_exc()
-                failed.append("evaluate")
-            _stamp(t_start, "evaluate")
-        if not failed:
-            held = {"decode_head": 1, "nms_indices": 1}
-            try:
-                graph_counts, _ = phase_graphs(torch, _build.launches, [
-                    ("MNv3 bf16", served["mnv3"][0], served["mnv3"][1],
-                     held),
-                    ("flagship bf16", *served["flagship bf16"],
-                     dict(held, stem_conv_s2=2)),
-                    ("flagship int8", *served["flagship int8"],
-                     dict(held, stem_conv_s2=2, qgemm=10))])
-                counts.update(graph_counts)
-            except Exception:              # noqa: BLE001
-                traceback.print_exc()
-                failed.append("graphs")
-            _stamp(t_start, "graphs")
-        if not failed:
-            try:
-                entry_counts, _ = phase_entry_points(
-                    torch, dev, _build.launches, ir, served["mnv3"][2],
-                    served["flagship bf16"][0], ckpt, root)
-                counts.update(entry_counts)
-            except Exception:              # noqa: BLE001
-                traceback.print_exc()
-                failed.append("entry points")
-            _stamp(t_start, "entry points")
-        # phase 17's dryrun runs beside phase 13's untimed subprocesses
-        dry = []
-
-        def start_dryrun():
-            dry.append(_sp_dryrun_start(root))
-            return lambda: _sp_dryrun_wait(dry[0])
-
-        failed += _train_phases(torch, dev, ir, flagship_ir, root, counts,
-                                failed, beside=start_dryrun)
-        _stamp(t_start, "train step and entry point")
-        served.clear()                 # phase 10 and 11 are done with them
-        flagship_served = None
-        if not failed:
-            try:
-                counts.update(phase_int8aug(torch, dev, _build.launches,
-                                            root, flagship_times))
-            except Exception:              # noqa: BLE001
-                traceback.print_exc()
-                failed.append("int8 modes and augment")
-            _stamp(t_start, "int8 modes and augment")
-        ab = None
-        if not failed:
-            try:
-                c, numbers = phase_slice9(torch, dev, _build.launches, ir,
-                                          flagship_ir, root)
-                counts.update(c)
-                ab = numbers["ab"][f"MNv3 K={K_STEPS}"]
-            except Exception:              # noqa: BLE001
-                traceback.print_exc()
-                failed.append("slice 9")
-            _stamp(t_start, "slice 9")
-        if not failed:
-            try:
-                c, _ = phase_dp(torch, dev, _build.launches, ir,
-                                flagship_ir, root, ab)
-                counts.update(c)
-            except Exception:              # noqa: BLE001
-                traceback.print_exc()
-                failed.append("slice 10")
-            _stamp(t_start, "slice 10")
-        if not failed:
-            try:
-                c, _ = phase_spatial(torch, dev, _build.launches, ir,
-                                     flagship_ir, root,
-                                     dry[0] if dry else None)
-                counts.update(c)
-            except Exception:              # noqa: BLE001
-                traceback.print_exc()
-                failed.append("slice 11")
-            _stamp(t_start, "slice 11")
+        if only is None:
+            names = list(RUN) + list(TASKS)
+        else:
+            picked = {x for n in only for x in ONLY[n]}
+            if "core" not in picked and (
+                    any(JOBS[n][1] for n in picked if n in JOBS)
+                    or any(TASKS[n][1] != "kernels.timed" for n in picked
+                           if n in TASKS)):
+                picked.add("split")
+            names = [n for n in list(JOBS) + list(TASKS) if n in picked]
+        records, failed = _run_jobs(names, shared, t_start)
+    finally:
+        monitor.stopped.set()
+        monitor.join()
+    print(f"jobs done in {time.perf_counter() - t_start:.1f} s; processes "
+          f"on the card at once (nvidia-smi, read each second): at most "
+          f"{monitor.peak} (budget {CUDA_SLOTS})", flush=True)
+    if monitor.over:
+        _failed("load", RuntimeError(
+            f"{monitor.peak} processes on the card at once, over the "
+            f"budget of {CUDA_SLOTS}"))
+        failed.append("load")
+    peaks = os.path.join(shared, "peaks.jsonl")
+    if os.path.exists(peaks):
+        with open(peaks) as f:
+            for x in f:
+                r = json.loads(x)
+                print(f"peak device memory: {r['allocated_gib']} GiB "
+                      f"allocated, {r['reserved_gib']} GiB reserved: "
+                      f"{r['argv'][:160]}", flush=True)
     if failed:
-        return _fail(f"phases failed: {failed}")
-
-    def launched(kernel):
-        """Launches of ``kernel`` summed over the main-path runs (MNv3,
-        flagship bf16, flagship int8, the eval runs of phase 9, the graph
-        runs of phase 10, the micro-batched run of phase 11, the Trainer's
-        epoch of phase 13, the int8 runs of each mode and the edge eval of
-        phase 14, the exported and Predictor replays and the K-step train
-        runs' evaluations of phase 15, the mesh Predictors, the mesh
-        evaluation and the two ranks' Trainer fits of phase 16, the 2-D
-        ranks' forwards and the 2-D mesh Predictor of phase 17), each
-        counted from 0 just before its run and read just after it."""
-        return sum(c.get(kernel, 0) for c in counts.values())
-
-    kernels = [
-        {"name": "K1 head decode", "route": "cuda",
-         "source": "double_yolo_kaist_torch/ops/csrc/decode.cu",
-         "replaces": "double_yolo_kaist_tpu/ops/pallas_decode.py:28",
-         "launches": launched("decode_head"), **results["K1"],
-         **eval_kernels["K1"], "library_ms": None},
-        {"name": "K2 greedy NMS", "route": "cuda",
-         "source": "double_yolo_kaist_torch/ops/csrc/nms.cu",
-         "replaces": "double_yolo_kaist_tpu/ops/pallas_nms.py:34",
-         "launches": launched("nms_indices"), **results["K2"],
-         **eval_kernels["K2"], "library_ms": None},
-        {"name": "K3 stem conv 3x3 s2", "route": "cuda",
-         "source": "double_yolo_kaist_torch/ops/csrc/stem.cu",
-         "replaces": "double_yolo_kaist_tpu/ops/pallas_stem.py:138",
-         "launches": launched("stem_conv_s2"), **results["K3"],
-         **eval_kernels["K3"]},
-        {"name": "K4 int8 GEMM + epilogue", "route": "cuda",
-         "source": "double_yolo_kaist_torch/ops/csrc/qgemm.cu",
-         "replaces": "double_yolo_kaist_tpu/ops/pallas_qgemm.py:101",
-         "launches": launched("qgemm"), **results["K4"],
-         **eval_kernels["K4"]},
-        # launches: one run of the probes' own entry point (breakdown)
-        {"name": "K3 probes", "route": "cuda",
-         "source": "double_yolo_kaist_torch/ops/csrc/stem.cu",
-         "replaces": "tools/archive/stem_probe.py:99", **results["K3 probes"]},
-    ]
+        print(f"chip_smoke: failed phases: {', '.join(failed)}", flush=True)
+        return 1
+    if only is not None:
+        print(f"chip_smoke --only {' '.join(only)}: passed", flush=True)
+        return 0
+    kernels = _kernels_line(records)
     if any(k["launches"] < 1 for k in kernels):
-        return _fail(f"a kernel of the main path never launched: {counts}")
+        print("chip_smoke: failed phases: launches (a kernel of the main "
+              "path never launched)", flush=True)
+        return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5166,4 +6232,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--job"]:
+        sys.exit(_job_main(sys.argv[2], sys.argv[3]))
+    _become_subreaper()
+    try:
+        rc = main(sys.argv[1:])
+    finally:
+        _stop_leftovers()
+    sys.exit(rc)

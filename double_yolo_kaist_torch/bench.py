@@ -23,8 +23,9 @@ worst int8 mode's AP).
 
 Weights: ``--weights`` (a checkpoint directory, ``.pt`` or darknet
 ``.weights``), else :func:`seeded_variables` (kernels of graph.init's range
-times a gain, and BN statistics that are not the identity, so that the
-folded forward does real work on every layer).
+times the gain of the model's family, :func:`seeded_gain`, and BN
+statistics that are not the identity, so that the folded forward does real
+work on every layer and its heads move with the input on every zoo model).
 """
 
 from __future__ import annotations
@@ -45,14 +46,51 @@ from .models.zoo import FLAGSHIP, MODELS, reference_fps
 # kaiming-uniform kernels times this gain keep the flagship's heads input-
 # dependent and finite through its 185 convs (tests/test_torch_slice.py)
 FLAGSHIP_GAIN = 2.2
+# the gain of each family of stacks (seeded_gain), measured on every zoo
+# model at seed 0 (tests/test_torch_bench_seeded.py)
+DARKNET53_GAIN = 1.8
+MOBILENET_GAIN = 2.5
 
 
-def seeded_variables(ir: GraphIR, seed: int, gain: float = FLAGSHIP_GAIN):
-    """The port's variables for ``ir`` drawn from numpy: conv kernels
-    U(+-gain * sqrt(1 / fan_in)), BN statistics in the ranges of
-    tests/test_torch_slice._perturb_bn, SE and head biases U(+-sqrt(1 /
-    fan_in)) with graph.init's obj / cls prior on the heads, weighted
-    shortcuts at 0 (graph.init's)."""
+def seeded_gain(ir: GraphIR) -> float:
+    """The kernel gain of :func:`seeded_variables`, chosen by the family of
+    the stack, because one gain does not fit all three: below a family's
+    gain the heads stop moving with the input (the BN biases drown the
+    signal), above it the residual stacks blow up. Raw head values at seed
+    0, fp32, 64x96 (max |head|, max change when one frame changes; about
+    4.6 of each max is the obj prior):
+
+    * a mish stack (CSPDarknet53: the YOLOv4 Darknet family and the
+      flagship): :data:`FLAGSHIP_GAIN`, 2.2; the YOLOv4 models give max
+      6.7-19.5, change 0.28-1.06. Their decode is sigmoid-only, so larger
+      heads stay finite;
+    * a stack of depthwise-separable blocks (MobileNetv2 / v3, relu6 and
+      hard-swish): 2.5; at 2.2 MNv3 dual's heads change by only 0.006, at
+      2.5 max 6.5-8.9, change 0.98-1.72;
+    * otherwise the leaky Darknet53 stacks of the YOLOv3 family: 1.8; at
+      2.2 Visible-YOLOv3-Normal's heads reach 924 (exp() of the wh terms
+      overflows), at 2.0 80; at 1.8 max 5.2-11.1, change 0.016-0.28 (and
+      at 256x320 max 6.5-26.3, change 0.026-0.66), within exp()'s range.
+    """
+    if any(node.act == "mish" for node in ir.nodes):
+        return FLAGSHIP_GAIN
+    if any(node.kind == "dwconv" for node in ir.nodes):
+        return MOBILENET_GAIN
+    return DARKNET53_GAIN
+
+
+def seeded_variables(ir: GraphIR, seed: int, gain: float | None = None):
+    """The port's variables for ``ir`` drawn from numpy, in graph.init's
+    tree (the same keys, shapes and dtypes): conv kernels (each conv of a
+    depthwise-separable block and of an inception branch too)
+    U(+-gain * sqrt(1 / fan_in)), fan_in = in_ch / groups * kernel ** 2,
+    ``gain`` by default :func:`seeded_gain`; BN statistics in the ranges
+    of tests/test_torch_slice._perturb_bn; SE and head biases U(+-sqrt(1 /
+    fan_in)) with graph.init's obj / cls prior on the heads; weighted
+    shortcuts at 0 (graph.init's). The draws of a graph of convs, SEs and
+    shortcuts (the flagship's) are those the function has always made."""
+    if gain is None:
+        gain = seeded_gain(ir)
     rng = np.random.default_rng(seed)
 
     def uniform(bound, shape):
@@ -62,24 +100,46 @@ def seeded_variables(ir: GraphIR, seed: int, gain: float = FLAGSHIP_GAIN):
     def normal(std, n):
         return torch.from_numpy(rng.normal(0, std, n).astype(np.float32))
 
+    def conv(kernel, in_ch, out_ch, groups=1, bn=True):
+        """(params, BN state or None) of one conv."""
+        fan_in = in_ch // groups * kernel ** 2
+        p = {"w": uniform(gain * math.sqrt(1 / fan_in),
+                          (out_ch, in_ch // groups, kernel, kernel))}
+        if not bn:
+            p["b"] = uniform(math.sqrt(1 / fan_in), (out_ch,))
+            return p, None
+        p["bn"] = {"scale": torch.from_numpy(
+            rng.uniform(0.5, 1.5, out_ch).astype(np.float32)),
+            "bias": normal(0.2, out_ch)}
+        return p, {"mean": normal(0.2, out_ch), "var": torch.from_numpy(
+            rng.uniform(0.5, 2.0, out_ch).astype(np.float32))}
+
     params, state = {}, {}
     for node in ir.nodes:
         key = f"l{node.index}"
         if node.kind == "conv":
-            fan_in = node.in_ch // node.groups * node.kernel ** 2
-            p = {"w": uniform(gain * math.sqrt(1 / fan_in),
-                              (node.out_ch, node.in_ch // node.groups,
-                               node.kernel, node.kernel))}
-            if node.bn:
-                c = node.out_ch
-                p["bn"] = {"scale": torch.from_numpy(
-                    rng.uniform(0.5, 1.5, c).astype(np.float32)),
-                    "bias": normal(0.2, c)}
-                state[key] = {"mean": normal(0.2, c), "var": torch.from_numpy(
-                    rng.uniform(0.5, 2.0, c).astype(np.float32))}
-            else:
-                p["b"] = uniform(math.sqrt(1 / fan_in), (node.out_ch,))
-            params[key] = p
+            params[key], s = conv(node.kernel, node.in_ch, node.out_ch,
+                                  node.groups, node.bn)
+            if s is not None:
+                state[key] = s
+        elif node.kind == "dwconv":         # graph.init's dw, then pw
+            c = node.in_ch
+            dw, s_dw = conv(node.kernel, c, c, groups=c)
+            pw, s_pw = conv(1, c, node.out_ch)
+            params[key] = {"dw": dw, "pw": pw}
+            state[key] = {"dw": s_dw, "pw": s_pw}
+        elif node.kind == "inception":
+            icp, c = node.icp, node.in_ch
+            params[key], state[key] = {}, {}
+            for name, (k, ci, co) in {
+                    "b1_1": (1, c, icp["n1x1"]),
+                    "b2_1": (1, c, icp["n3x3_reduce"]),
+                    "b2_2": (3, icp["n3x3_reduce"], icp["n3x3"]),
+                    "b3_1": (1, c, icp["n5x5_reduce"]),
+                    "b3_2": (3, icp["n5x5_reduce"], icp["n5x5"]),
+                    "b3_3": (3, icp["n5x5"], icp["n5x5"]),
+                    "b4_1": (1, c, icp["pool_proj"])}.items():
+                params[key][name], state[key][name] = conv(k, ci, co)
         elif node.kind == "se":
             c, sq = node.in_ch, node.squeeze_ch
             params[key] = {
@@ -89,8 +149,6 @@ def seeded_variables(ir: GraphIR, seed: int, gain: float = FLAGSHIP_GAIN):
                         "b": uniform(math.sqrt(1 / sq), (c,))}}
         elif node.kind == "shortcut" and node.weighted:
             params[key] = {"w": torch.zeros(len(node.inputs) + 1)}
-        elif node.kind in ("dwconv", "inception"):
-            raise ValueError(f"no seeded init for {node.kind}")
     for yi in ir.yolo_indices:              # graph.init's smart bias
         head, pred = ir.nodes[yi], ir.nodes[yi - 1]
         b = params[f"l{pred.index}"]["b"].reshape(len(head.anchors), -1)
@@ -99,26 +157,43 @@ def seeded_variables(ir: GraphIR, seed: int, gain: float = FLAGSHIP_GAIN):
     return {"params": params, "state": state}
 
 
+def calibration_stats(ir: GraphIR, placed: dict, args, device) -> dict:
+    """int8 calibration statistics of the placed bf16 fold ``placed`` on
+    one seeded batch of 8 frames of ``args.height`` x ``args.width``."""
+    from .models import quantize as Q
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(1)
+    cal = torch.from_numpy(rng.random((8, args.height, args.width, 3),
+                                      dtype=np.float32)).to(device, bf16)
+    return Q.calibrate(ir, placed, [(cal, cal if ir.dual_stream else None)],
+                       compute_dtype=bf16)
+
+
+def int8_forward(ir: GraphIR, folded: dict, stats: dict, mode: str, device):
+    """Quantize the fp32 fold ``folded`` with ``stats`` in ``mode`` and
+    place it on ``device``; returns forward(xv, xl) -> the decoded heads,
+    bf16 compute."""
+    from .models import quantize as Q
+    bf16 = torch.bfloat16
+    qvars = Q.place_quantized(
+        ir, Q.quantize(ir, folded, stats, mode=mode), device, bf16)
+    return lambda xv, xl: Q.apply_quantized(
+        ir, qvars, xv, xl, compute_dtype=bf16, mode=mode)[0]
+
+
 def make_forward(ir: GraphIR, variables: dict, args, int8: bool, device):
     """BN-fold (and, for int8, calibrate on one seeded batch of 8 and
     quantize), place on ``device``; returns forward(xv, xl) -> the decoded
     heads, bf16 compute."""
     from .models import graph
-    from .models import quantize as Q
     bf16 = torch.bfloat16
     folded = graph.fold_batchnorm(ir, variables)
     placed = graph.place_folded(ir, folded, device, bf16)
     if not int8:
         return lambda xv, xl: graph.apply_folded(ir, placed, xv, xl,
                                                  compute_dtype=bf16)[0]
-    rng = np.random.default_rng(1)
-    cal = torch.from_numpy(rng.random((8, args.height, args.width, 3),
-                                      dtype=np.float32)).to(device, bf16)
-    stats = Q.calibrate(ir, placed, [(cal, cal)], compute_dtype=bf16)
-    qvars = Q.place_quantized(
-        ir, Q.quantize(ir, folded, stats, mode=args.int8_mode), device, bf16)
-    return lambda xv, xl: Q.apply_quantized(
-        ir, qvars, xv, xl, compute_dtype=bf16, mode=args.int8_mode)[0]
+    stats = calibration_stats(ir, placed, args, device)
+    return int8_forward(ir, folded, stats, args.int8_mode, device)
 
 
 def _seconds(run, iters: int, device) -> float:
@@ -142,7 +217,9 @@ def _seconds(run, iters: int, device) -> float:
 @torch.inference_mode()
 def measure_fps(ir: GraphIR, variables: dict, args, int8: bool, device):
     """(fps from the fastest of three repeats, {min, mean, max} fps of the
-    repeats)."""
+    repeats). ``args``: ``batch``, ``height``, ``width``, ``iters``,
+    ``warmup`` and ``int8_mode``. A single-stream model gets its visible
+    frames only."""
     from .serving import capture
     t = time.perf_counter()
     fwd = make_forward(ir, variables, args, int8, device)
@@ -152,6 +229,8 @@ def measure_fps(ir: GraphIR, variables: dict, args, int8: bool, device):
         device, torch.bfloat16)
     xl = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(
         device, torch.bfloat16)
+    if not ir.dual_stream:          # a visible-only model takes one stream
+        xl = None
     if device.type == "cuda":
         cuda_graph, io, _ = capture(lambda: fwd(xv, xl), device)
         run = cuda_graph.replay

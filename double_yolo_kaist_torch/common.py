@@ -53,3 +53,45 @@ def build_model(cfg: str, weights: str = "", seed: int = 0,
     else:
         raise ValueError(f"unrecognized weights format: {weights}")
     return ir, W.merge_variables(variables, loaded)
+
+
+def card_label(device) -> str:
+    """What a printed time or rate was measured on: the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (with ``torch.cuda.
+    get_device_name`` where nvidia-smi cannot be read), or ``cpu``."""
+    import subprocess
+
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    name = torch.cuda.get_device_name(index)
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}",
+             "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+        line = out.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        line = ""
+    return line if line else f"{name}, power limit not read"
+
+
+def pyplot(tool: str):
+    """matplotlib's pyplot on the Agg backend for the PNG-writing tools;
+    SystemExit naming matplotlib where it is not installed (they never
+    write something else in a plot's place)."""
+    try:
+        import matplotlib
+    except ImportError:
+        raise SystemExit(f"{tool} writes its PNG with matplotlib, which is "
+                         f"not installed here; install matplotlib to run "
+                         f"it") from None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt

@@ -43,6 +43,15 @@ def capture(fn, device, pool=None):
     return cuda_graph, out, held
 
 
+def replay(cuda_graph, held: dict) -> None:
+    """Replay ``cuda_graph`` on the current device and count the launches
+    it holds (``held``, as :func:`capture` returns them): the wrappers do
+    not run on a replay, so this is where its launches are counted."""
+    cuda_graph.replay()
+    for name, n in held.items():
+        _build.launches[name] += n
+
+
 class Stage:
     """The static uint8 inputs of one (bucket, source size): device tensors
     that the graphs of that bucket read, and, on CUDA, pinned host staging
@@ -105,10 +114,8 @@ class Graph:
         output to the host; :meth:`fetch` waits for it. A mesh launches
         every replica before it fetches any."""
         with torch.cuda.device(self.out.device):
-            self.graph.replay()
+            replay(self.graph, self.launches)
             self.host.copy_(self.out, non_blocking=True)
-        for name, n in self.launches.items():
-            _build.launches[name] += n
         self.replays += 1
 
     def fetch(self, real: int) -> np.ndarray:

@@ -159,7 +159,8 @@ def main(argv=None):
     p.add_argument("--max-queue", type=int, default=256,
                    help="answer 503 once this many requests wait for the "
                         "device; 0 = unbounded")
-    p.add_argument("--port", type=int, default=8321)
+    p.add_argument("--port", type=int, default=8321,
+                   help="0: a free port, named in the 'serving on' line")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the startup warmup (the first request of each "
@@ -209,8 +210,7 @@ def main(argv=None):
         predictor = MicroBatcher(predictor, max_batch=opt.microbatch,
                                  max_wait_ms=opt.microbatch_wait_ms,
                                  max_queue=opt.max_queue or None)
-    _serve(opt, predictor, os.path.basename(str(opt.cfg)),
-           f"serving on http://{opt.host}:{opt.port}")
+    _serve(opt, predictor, os.path.basename(str(opt.cfg)), "serving on")
 
 
 def make_serving_mesh(dp: int, device: str):
@@ -236,11 +236,14 @@ def make_serving_mesh(dp: int, device: str):
 
 
 def _serve(opt, predictor, name: str, banner: str):
+    """Serve until stopped; the banner names the port that was bound (the
+    system's choice for ``--port 0``)."""
     from .microbatch import MicroBatcher
 
     server = ThreadingHTTPServer((opt.host, opt.port),
                                  make_handler(predictor, name))
-    print(banner, flush=True)
+    print(f"{banner} http://{opt.host}:{server.server_address[1]}",
+          flush=True)
     try:
         server.serve_forever()
     finally:
@@ -292,7 +295,7 @@ def serve_exported(opt):
                                  max_wait_ms=opt.microbatch_wait_ms,
                                  max_queue=opt.max_queue or None)
     _serve(opt, predictor, os.path.basename(opt.exported),
-           f"serving exported artifact on http://{opt.host}:{opt.port}")
+           "serving exported artifact on")
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from .. import resolve_device
+from ..cuda_graphs import replay
 from ..ops import _build
 from ..models import graph
 from ..parallel import multihost as MH
@@ -287,9 +288,7 @@ class CapturedSteps:
             batch = first if i == 0 else batch_at(i)
             for name, buf in g.batch.items():
                 buf.copy_(batch[name], non_blocking=True)
-            g.graph.replay()
-            for name, n in g.launches.items():
-                _build.launches[name] += n
+            replay(g.graph, g.launches)
             self.replays += 1
             out[i].copy_(g.metrics)
         st = g.state

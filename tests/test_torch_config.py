@@ -1,4 +1,5 @@
-"""The port's compile_cfg gives the same GraphIR as the JAX package's."""
+"""The port's compile_cfg gives the same GraphIR as the JAX package's, on
+the tiny test cfg and on all 25 detection cfgs of ``configs/``."""
 
 import dataclasses
 import os
@@ -15,6 +16,12 @@ CASES = [
     ("configs/kaist_dyolov4_mobilenetv3_fshare_global_cse3.cfg", None),
     ("configs/kaist_dyolov4_fshare_global_concat_se3.cfg", None),
 ]
+# every other detection cfg of configs/ (the 16 zoo models' among them),
+# strides from the filename as the entry points derive them
+CASES += [(f"configs/{f}", None)
+          for f in sorted(os.listdir(os.path.join(REPO, "configs")))
+          if f.startswith("kaist_") and f.endswith(".cfg")
+          and (f"configs/{f}", None) not in CASES]
 
 
 @pytest.mark.parametrize("cfg,strides", CASES, ids=[c[0] for c in CASES])

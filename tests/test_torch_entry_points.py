@@ -373,7 +373,7 @@ def _serve_built(monkeypatch, argv):
 
     class NoServer:
         def __init__(self, addr, handler):
-            pass
+            self.server_address = addr      # the banner names its port
 
         def serve_forever(self):
             pass

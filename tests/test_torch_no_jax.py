@@ -37,7 +37,10 @@ def test_port_imports_no_jax():
                  "export", "export_model", "cuda_graphs", "microbatch",
                  "overfit_check", "models.builder", "utils.general",
                  "utils.npz", "parallel", "parallel.mesh",
-                 "parallel.multihost", "parallel.spatial", "dryrun"):
+                 "parallel.multihost", "parallel.spatial", "dryrun",
+                 "zoo_bench", "serving_bench", "serve_loadtest",
+                 "train_wallclock", "int8_ab", "real_model_overfit",
+                 "dataset_preview", "compare_clahe", "plot_activations"):
         assert f"double_yolo_kaist_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
