@@ -116,16 +116,19 @@ result line):
      differ, the CPU test's bound against JAX; labels within 1e-5, masks
      equal) and its data ms; the flagship at full width in int8 edge,
      spine and spineall: each Predictor calibrates on two requests of 8,
-     quantizes and saves its artifact, serves 1 and 8 frames from CUDA
-     graphs with K4 launched as its plan says (106, 10, 56 a forward), and
-     a Predictor from the artifact must serve the same detections bit for
-     bit; spine plans as chain does, and its artifact must be chain's
-     quantization of the same stats, so it is not timed; edge and
-     spineall: every K4 call of an eager forward at bs 8 and bs 1 against
-     ``qgemm_plain`` on the same operands, median / min / max request ms
-     and the device busy share beside phase 8's bf16 and chain, the
-     startup from the artifact against calibrate + quantize, and the int8
-     path on the card against the CPU at 64x96 as phase 8 holds chain;
+     quantizes for its size (640x640; the JAX package's defaults: the s2d
+     plan sets spine's 6 int8 adds and 88 targets and edge's 156 targets
+     and 233 int8 edges, checked) and saves its artifact (the s2d kernels
+     of the 32 planned convs, checked on load), serves 1 and 8 frames
+     from CUDA graphs with K4 launched as its plan says (84, 16, 56 a
+     forward), and a Predictor from the artifact must serve the same
+     detections bit for bit; every K4 call of an eager forward at bs 8
+     and bs 1 against ``qgemm_plain`` on the same operands, median / min
+     / max request ms and the device busy share beside phase 8's bf16 and
+     chain, the startup from the artifact against calibrate + quantize,
+     and the int8 path on the card against the CPU at 64x96 as phase 8
+     holds chain; chain and edge with int8 stem pairs, each from an
+     artifact: K3 launched 0 times, the stem pairs card against CPU;
      then ``python -m double_yolo_kaist_torch.calibrate --quantized-out``
      (MNv3, edge) and ``evaluate --int8 --int8-mode edge --int8-qvars`` on
      its artifact as subprocesses, whose VOC-AP line must be
@@ -1526,17 +1529,21 @@ def phase_flagship(torch, dev, launches):
 
 
 def phase_flagship_int8_vs_cpu(torch, ir, variables, qpred, dev,
-                               mode="chain"):
+                               mode="chain", int8_stems=False):
     """The int8 path of ``mode`` on the card against the port's int8 path on
-    the CPU: the same quantized weights, fp32 compute, TF32 off, 2 frames
-    of 64x96.
+    the CPU: the same quantized weights (for the Predictor's size, as it
+    quantizes; with ``int8_stems``, the int8 stem pairs too), fp32
+    compute, TF32 off, 2 frames of 64x96.
 
     1. Every quantized conv (K4 for the 1x1s, im2col + ``_int_mm`` for the
        3x3s) on the same input, its input in the CPU fp32 forward, and, for
        a conv fed s8 codes (after a spine add; a folded-in edge conv), on
        those codes too: fp outputs within 1e-5 relative + 1e-5,
        requantized s8 outputs within one step on under 1% of the
-       elements.
+       elements. With ``int8_stems``, each int8 stem pair on its image
+       too: s8 outputs (edge) by that rule, fp outputs within 1e-5
+       relative + 1e-5 on 99% of the elements and within one mid step's
+       worth (an ulp of mish can move a mid code by a step) on the rest.
     2. The whole int8 forward: finite, and its mean raw-head difference at
        most twice the mean int8 error (int8 against fp32 on the card). An
        ulp on an int8 rounding boundary moves a value by one step, and at
@@ -1550,14 +1557,18 @@ def phase_flagship_int8_vs_cpu(torch, ir, variables, qpred, dev,
         torch.rand((2, 64, 96, 3), device=dev),
         torch.rand((2, 64, 96, 3), device=dev))],
         compute_dtype=torch.bfloat16)
-    qv = Q.quantize(ir, qpred._folded_cpu, stats, mode=mode)
-    targets, emits = Q.plan_quantization(ir, mode)
-    s8_fed = {}                       # conv -> the inverse scale of its codes
-    if mode == "edge":
-        s8_fed = {i: "in_inv" for i in Q.plan_edges(ir)[2]}
-        emits = {i for i in targets if "out_inv" in qv["params"][f"l{i}"]["q"]}
-    elif mode in ("spine", "spineall"):
-        s8_fed = {si + 1: si for si in Q._plan_with_spine(ir, mode)[2]}
+    qv = Q.quantize(ir, qpred._folded_cpu, stats, mode=mode,
+                    hw=(qpred.img_size, qpred.img_size),
+                    int8_stems=int8_stems)
+    ents = qv["params"]
+    targets = {n.index for n in ir.nodes
+               if "q" in ents.get(f"l{n.index}", {})}
+    emits = {i for i in targets if {"out_inv_s", "out_inv"}
+             & set(ents[f"l{i}"]["q"])}
+    # conv -> the inverse scale of the codes its producer emits
+    s8_fed = {i: "in_inv" for i in targets if "in_s" in ents[f"l{i}"]["q"]}
+    s8_fed.update({int(k[1:]) + 1: int(k[1:]) for k, e in ents.items()
+                   if "spine" in e})
     rng = np.random.default_rng(SEED + 2)
     xv = torch.from_numpy(rng.random((2, 64, 96, 3), dtype=np.float32))
     xl = torch.from_numpy(rng.random((2, 64, 96, 3), dtype=np.float32))
@@ -1615,6 +1626,8 @@ def phase_flagship_int8_vs_cpu(torch, ir, variables, qpred, dev,
               f"({n_s8} also from s8 codes), card vs CPU on the same "
               f"input: max abs err {worst[0]:.3e} (fp outputs), largest "
               f"share of s8 codes one step off {worst[1]:.2e}", flush=True)
+        if int8_stems:
+            _stems_card_vs_cpu(torch, ir, ents, qp, dev, xv, xl, mode)
 
         raws = {}
         for where in ("cpu", dev):
@@ -1636,6 +1649,48 @@ def phase_flagship_int8_vs_cpu(torch, ir, variables, qpred, dev,
               flush=True)
         if not (torch.isfinite(mine).all() and float(d.mean()) <= 2 * q_err):
             raise AssertionError("int8 card run disagrees with the CPU path")
+
+
+def _stems_card_vs_cpu(torch, ir, ents, qp, dev, xv, xl, mode):
+    """Each int8 stem pair (``quantize._stem8``) on its image, card
+    against CPU, fp32: s8 outputs (edge's re-emission) within one step on
+    under 1%; fp outputs within 1e-5 relative + 1e-5 on 99% of the
+    elements and within one mid step's worth (1.1 x 127 x the second
+    conv's weight scale x the mid activation's scale) on all."""
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.models import quantize as Q
+    pairs = graph.stem_fusion_pairs(ir)
+    for i, j in pairs.items():
+        img = (xl if ir.nodes[i].takes_second_input else xv).permute(
+            0, 3, 1, 2)
+        outs = []
+        for where in ("cpu", dev):
+            fused = set()
+            y = Q._stem8(ir, ir.nodes[i], img.to(where),
+                         qp[str(where)]["params"][f"l{i}"], torch.float32,
+                         fused)
+            if y is None or fused != {j}:
+                raise AssertionError(f"int8 {mode}: stem pair l{i} did not "
+                                     f"run int8")
+            outs.append((y.q if isinstance(y, Q.QVal) else y).cpu())
+        ref, got = outs
+        if ref.dtype == torch.int8:
+            d = (got.int() - ref.int()).abs()
+            share = float((d != 0).float().mean())
+            ok, what = int(d.max()) <= 1 and share < 0.01, f"{share:.2e} s8"
+        else:
+            d = (got - ref).abs()
+            e = ents[f"l{i}"]
+            step = 1.1 * 127 * float(e["stem_q"]["sw2"].max()) * float(
+                Q._inv_scale(e["amax_mid"])[0])
+            share = float((d > 1e-5 * ref.abs() + 1e-5).float().mean())
+            ok = share < 0.01 and float(d.max()) <= step
+            what = f"{share:.2e} fp beyond 1e-5, max {float(d.max()):.3e}"
+        print(f"int8 {mode} stem pair l{i}-l{j}, card vs CPU: {what}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"int8 {mode}: stem pair l{i} on the card "
+                                 f"disagrees with the CPU path")
 
 
 # ------------------------------------------------------------------ phase 9
@@ -2411,9 +2466,34 @@ def _alone(pred, v, l, buckets):
     return out
 
 
+def _placed(pred, frames, buckets):
+    """Each of ``frames`` served at every position of each bucket:
+    [{(bucket, position): detections}] a frame. cuDNN's kxk convs may
+    round a frame's output differently at some positions of a batch (the
+    MicroBatcher check prints where), so a micro-batched answer equals its
+    frame's answer at the position it was served at, not at position 0.
+    Each call holds up to ``bucket`` frames, rotated one position a call,
+    zero frames filling the rest."""
+    out = [{} for _ in frames]
+    for b in buckets:
+        for c0 in range(0, len(frames), b):
+            chunk = list(range(c0, min(c0 + b, len(frames))))
+            for r in range(b):
+                fv = np.zeros((b,) + frames[0][0].shape, np.uint8)
+                fl = np.zeros_like(fv)
+                at = {(k + r) % b: i for k, i in enumerate(chunk)}
+                for p, i in at.items():
+                    fv[p], fl[p] = frames[i]
+                dets = pred(fv, fl)
+                for p, i in at.items():
+                    out[i][(b, p)] = dets[p]
+    return out
+
+
 def _matching_bucket(got, alone):
-    """The buckets whose lone-frame detections equal ``got`` (boxes,
-    scores, classes as lists or arrays)."""
+    """The keys of ``alone`` (buckets, or (bucket, position) pairs) whose
+    detections equal ``got`` (boxes, scores, classes as lists or
+    arrays)."""
     def equal(x, y):
         y = np.asarray(y)
         x = np.asarray(x, dtype=y.dtype)
@@ -2436,8 +2516,9 @@ def _serve_frames():
 def _entry_refs(torch, dev, mnv3_ir, mnv3_vars, root):
     """What phase 11's subprocesses (and phase 16's ``serve --dp 1``) are
     held against, made in process on the card: each of
-    :func:`_serve_frames` (and :func:`_dp_frame`) served alone in each of
-    serve's buckets (``serve_alone.npz``), and the detections of every
+    :func:`_serve_frames` served at every position of each of serve's
+    buckets (:func:`_placed`) and :func:`_dp_frame` alone in each
+    (``serve_alone.npz``), and the detections of every
     pair of the split as ``detect``'s Predictor serves it
     (``detect_counts.json``)."""
     import cv2
@@ -2447,10 +2528,11 @@ def _entry_refs(torch, dev, mnv3_ir, mnv3_vars, root):
     pred = Predictor(mnv3_ir, mnv3_vars, img_size=640,
                      batch_buckets=SERVE_BUCKETS, device=dev)
     out = {}
-    for i, (v, l) in enumerate(_serve_frames()):
-        for b, dets in _alone(pred, v, l, SERVE_BUCKETS).items():
+    for i, placed in enumerate(_placed(pred, _serve_frames(),
+                                       SERVE_BUCKETS)):
+        for (b, p), dets in placed.items():
             for k, x in zip(("boxes", "scores", "classes"), dets):
-                out[f"{i}/{b}/{k}"] = np.asarray(x)
+                out[f"{i}/{b}/{p}/{k}"] = np.asarray(x)
     v, l = _dp_frame()
     for b, dets in _alone(pred, v, l, SERVE_BUCKETS).items():
         for k, x in zip(("boxes", "scores", "classes"), dets):
@@ -2469,15 +2551,16 @@ def _entry_refs(torch, dev, mnv3_ir, mnv3_vars, root):
             counts[name] = len(pred(v, l)[0][0])
     with open(os.path.join(root, "detect_counts.json"), "w") as f:
         json.dump(counts, f)
-    print(f"entry refs: 32 frames alone in buckets {SERVE_BUCKETS}, "
+    print(f"entry refs: 32 frames at each position of buckets "
+          f"{SERVE_BUCKETS}, "
           f"detect's counts of {len(counts)} pairs", flush=True)
 
 
 def _serve_check(root):
     """``serve`` on MNv3 by its zoo name and phase 9's checkpoint: 32
     concurrent raw requests, each answer the detections of its frame served
-    alone in one of the buckets (:func:`_entry_refs`), and a mean micro-
-    batch above 1 in ``/healthz``."""
+    at one position of one of the buckets (:func:`_entry_refs`), and a
+    mean micro-batch above 1 in ``/healthz``."""
     import base64
     cmd = [sys.executable, "-m", "double_yolo_kaist_torch.serve", "--cfg",
            MNV3_NAME, "--weights", os.path.join(root, "mnv3_ckpt"),
@@ -2507,12 +2590,12 @@ def _serve_check(root):
     matched = []
     for i, a in enumerate(answers):
         got = (a["boxes"], a["scores"], a["classes"])
-        alone = {b: tuple(ref[f"{i}/{b}/{k}"] for k in
-                          ("boxes", "scores", "classes"))
-                 for b in SERVE_BUCKETS}
+        alone = {(b, p): tuple(ref[f"{i}/{b}/{p}/{k}"] for k in
+                               ("boxes", "scores", "classes"))
+                 for b in SERVE_BUCKETS for p in range(b)}
         matched.append(_matching_bucket(got, alone))
-    print(f"serve: answers equal to the frame served alone in process, "
-          f"buckets matched per request {matched}; detections "
+    print(f"serve: answers equal to the frame served in process, (bucket, "
+          f"position) matched per request {matched}; detections "
           f"{[len(a['boxes']) for a in answers]}", flush=True)
     if not all(matched):
         raise AssertionError("serve answered other detections than the "
@@ -2579,7 +2662,8 @@ def _bench_subprocess(leg):
 
 def _microbatch(torch, launches, pred, counts):
     """A MicroBatcher over the flagship bf16 graph Predictor, 16 submitter
-    threads, against the frames served alone."""
+    threads, against each frame served at every position of each bucket
+    (:func:`_placed`)."""
     import threading
 
     from double_yolo_kaist_torch.microbatch import MicroBatcher
@@ -2608,12 +2692,17 @@ def _microbatch(torch, launches, pred, counts):
         stats = mb.stats
     finally:
         mb.close()
-    alone = [_alone(pred, v, l, pred.batch_buckets) for v, l in frames]
+    alone = _placed(pred, frames, pred.batch_buckets)
     matched = [_matching_bucket(g, a) for g, a in zip(got, alone)]
+    moved = {b: [p for p in range(1, b) if any(
+        _matching_bucket(a[(b, p)], {0: a[(b, 0)]}) == [] for a in alone)]
+        for b in pred.batch_buckets if b > 1}
+    print(f"MicroBatcher references: positions whose answers differ from "
+          f"position 0's for some frame, per bucket: {moved}", flush=True)
     print(f"MicroBatcher, flagship bf16 graphs, 16 threads: {dt:.1f} ms, "
           f"stats {stats}, launches {counts['microbatch flagship bf16']}; "
-          f"buckets whose lone-frame detections each answer equals "
-          f"{matched}", flush=True)
+          f"(bucket, position) whose detections of the frame each answer "
+          f"equals {matched}", flush=True)
     if not all(matched):
         raise AssertionError("the MicroBatcher's answers differ from "
                              "unbatched requests")
@@ -2623,7 +2712,7 @@ def _microbatch(torch, launches, pred, counts):
     # to the nearest box of the other answer, scores in sorted order.
     same_n = d_box = d_score = 0
     for g, a in zip(got, alone):
-        want = a[1]
+        want = a[(1, 0)]
         if len(g[0]) == len(want[0]):
             same_n += 1
             if len(g[0]):
@@ -2632,7 +2721,8 @@ def _microbatch(torch, launches, pred, counts):
                 d_score = max(d_score, float(np.abs(
                     np.sort(g[1]) - np.sort(want[1])).max()))
     print(f"MicroBatcher answers against bucket 1 (unbatched): "
-          f"{sum(1 in m for m in matched)} of 16 bit-identical, {same_n} "
+          f"{sum((1, 0) in m for m in matched)} of 16 bit-identical, "
+          f"{same_n} "
           f"with the same count; every box within {d_box:.4f} px of one in "
           f"the other answer, sorted scores within {d_score:.6f}", flush=True)
 
@@ -3221,18 +3311,26 @@ def _augment_snow_clahe(torch, dev):
     return {"data_ms": ms, "share": max(out["v"][0], out["l"][0])}
 
 
-def _k4_per_forward(ir, mode):
+def _k4_per_forward(ir, mode, hw=None):
+    """K4 launches a forward of ``mode`` quantized for ``hw``: its quantized
+    1x1 convs (the s2d plan at ``hw`` sets spine's and edge's plans)."""
+    from double_yolo_kaist_torch.models import graph
     from double_yolo_kaist_torch.models import quantize as Q
-    targets = Q.plan_quantization(ir, mode)[0]
+    plan = graph.s2d_plan(ir, *hw) if hw and graph._S2D_REGION else {}
+    if mode == "edge":
+        targets = Q.plan_edges(ir, hw)[0]
+    else:
+        targets = Q.plan_quantization(ir, mode, plan)[0]
     return sum(Q._gemm_conv(ir.nodes[i]) for i in targets)
 
 
-def _k4_hold_forward(torch, ir, qvars, mode, xv, xl, what):
+def _k4_hold_forward(torch, ir, qvars, mode, xv, xl, what, hw=None):
     """Every K4 call of one eager int8 forward of ``mode`` on the card, at
     the main path's operands (its M, weights, scales, activations and bf16
     output), against ``qgemm_plain`` on the same tensors, by
     :func:`_k4_hold`'s bounds: bf16 outputs equal, s8 within one step on
-    under 5%. Returns the number of calls held."""
+    under 5%; as many calls as the plan of ``mode`` at ``hw`` quantizes
+    1x1 convs. Returns the number of calls held."""
     from double_yolo_kaist_torch.models import quantize as Q
     from double_yolo_kaist_torch.ops import qgemm as K4
     kernel, held = K4.qgemm, []
@@ -3265,7 +3363,7 @@ def _k4_hold_forward(torch, ir, qvars, mode, xv, xl, what):
         torch.cuda.synchronize()
     finally:
         K4.qgemm = kernel
-    n_k4 = _k4_per_forward(ir, mode)
+    n_k4 = _k4_per_forward(ir, mode, hw)
     shapes = sorted({(m, k, n) for m, k, n, _, _, _ in held})
     print(f"K4 in one eager {what} forward: {len(held)} calls (want "
           f"{n_k4}), each against qgemm_plain on the same card tensors: "
@@ -3279,19 +3377,18 @@ def _k4_hold_forward(torch, ir, qvars, mode, xv, xl, what):
     return len(held)
 
 
-def _int8_mode(torch, dev, launches, ir, variables, frames, mode, path,
-               timed=True):
+def _int8_mode(torch, dev, launches, ir, variables, frames, mode, path):
     """The flagship in int8 ``mode``: a Predictor calibrates on two requests
-    of 8 (its stats saved beside ``path``), quantizes and saves ``path``;
-    requests of 1 and 8 from its CUDA graphs; then a Predictor from
-    ``path`` must serve the same detections bit for bit from its own
-    graphs; every K4 call of an eager bs-8 and bs-1 forward is held
-    against its plain version. ``timed``: the request times and busy
-    shares of the artifact's Predictor. Returns (launch counts of the two
-    runs, timings or None, startup seconds, the in-process Predictor)."""
+    of 8 (its stats saved beside ``path``), quantizes for its size
+    (``SERVED_HW``) and saves ``path``; requests of 1 and 8 from its CUDA
+    graphs; then a Predictor from ``path`` must serve the same detections
+    bit for bit from its own graphs; every K4 call of an eager bs-8 and
+    bs-1 forward is held against its plain version; the request times and
+    busy shares of the artifact's Predictor. Returns (launch counts of the
+    two runs, timings, startup seconds, the in-process Predictor)."""
     from double_yolo_kaist_torch.serving import Predictor
     n_heads = len(ir.yolo_indices)
-    n_k4 = _k4_per_forward(ir, mode)
+    n_k4 = _k4_per_forward(ir, mode, SERVED_HW)
     fwd = {"stem_conv_s2": 2, "qgemm": 0, "decode_head": 1,
            "nms_indices": 1}
     q_fwd = dict(fwd, qgemm=n_k4)
@@ -3340,50 +3437,99 @@ def _int8_mode(torch, dev, launches, ir, variables, frames, mode, path,
     if not same:
         raise AssertionError(f"int8 {mode}: the artifact's Predictor "
                              f"serves other detections")
-    if timed:
-        for n in (8, 1):
-            with torch.inference_mode():
-                fn, _, _ = pred._preprocess((512, 640))
-                xv, xl = fn(*(torch.from_numpy(f).to(dev)
-                              for f in frames[n]))
-            _k4_hold_forward(torch, ir, pred.qvars, mode, xv, xl,
-                             f"flagship int8 {mode} bs {n}, 512x640")
-    times = (_medians(torch, loaded, frames, f"flagship int8 {mode}")
-             if timed else None)
+    for n in (8, 1):
+        with torch.inference_mode():
+            fn, _, _ = pred._preprocess((512, 640))
+            xv, xl = fn(*(torch.from_numpy(f).to(dev) for f in frames[n]))
+        _k4_hold_forward(torch, ir, pred.qvars, mode, xv, xl,
+                         f"flagship int8 {mode} bs {n}, 512x640", SERVED_HW)
+    times = _medians(torch, loaded, frames, f"flagship int8 {mode}")
     del loaded
     return counts, times, {"load_s": t_load, "quantize_s": t_quant,
                            "k4_per_forward": n_k4}, pred
 
 
-def _spine_is_chain(torch, ir, pred, path):
-    """``spine`` plans no int8 add without the JAX package's s2d regions:
-    its plan must be chain's, and its artifact the chain quantization of
-    the same stats, leaf for leaf (so its serving is chain's, which phase
-    8 times and holds against the CPU)."""
+# the Predictors' size (img_size 640): what they quantize for; at 512x640
+# the flagship's s2d plan and int8 plans are the same
+SERVED_HW = (640, 640)
+# the flagship's plans at JAX's defaults (tests/test_torch_s2d.py holds
+# them against JAX): spine's int8 adds and targets, edge's targets and
+# int8 edges; the s2d plan's convs
+SERVED_PLANS = {"spine": (6, 88), "edge": (156, 233)}
+SERVED_S2D_CONVS = 32
+
+
+def _served_plan(torch, ir, mode, path):
+    """F8's repair on the card's path: the plan of ``mode`` at the served
+    size (spine: 6 int8 adds and 88 targets; edge: 156 targets and 233
+    int8 edges), and its artifact (loaded, so checked by
+    ``load_quantized``: every s2d kernel the transform of its plain one)
+    holds the s2d kernels of all 32 planned convs, and spine's its 6
+    adds."""
+    from double_yolo_kaist_torch.models import graph
     from double_yolo_kaist_torch.models import quantize as Q
-    if Q.plan_quantization(ir, "spine") != Q.plan_quantization(ir, "chain") \
-            or Q._plan_with_spine(ir, "spine")[2]:
-        raise AssertionError("spine plans otherwise than chain")
-    stats, _ = Q.load_calibration(path[:-4] + "_cal.npz")
-    got, _, _ = Q.load_quantized(path)
-    want = Q.quantize(ir, pred._folded_cpu, stats, mode="chain")
+    qv, _, hw = Q.load_quantized(path)
+    plan = graph.s2d_plan(ir, *hw)
+    if mode == "spine":
+        targets, _, adds = Q._plan_with_spine(ir, mode, plan)
+        got = (len(adds), len(targets))
+    else:
+        targets, int8_out, _ = Q.plan_edges(ir, hw)
+        got = (len(targets), sum(int8_out.values()))
+    ents = qv["params"].values()
+    n_s2d = sum("wq_t" in e.get("q", {}) or "wt" in e.get("fp", {})
+                for e in ents)
+    n_adds = sum("spine" in e for e in ents)
+    print(f"flagship int8 {mode} at {hw}: plan {got} (want "
+          f"{SERVED_PLANS[mode]}); its artifact holds the s2d kernels of "
+          f"{n_s2d} of {len(plan)} planned convs (checked on load) and "
+          f"{n_adds} int8 adds", flush=True)
+    if (got != SERVED_PLANS[mode] or len(plan) != SERVED_S2D_CONVS
+            or n_s2d != len(plan)
+            or n_adds != (got[0] if mode == "spine" else 0)):
+        raise AssertionError(f"int8 {mode}: the served plan or its "
+                             f"artifact is not JAX's default")
 
-    def leaves(t, pre=""):
-        for k, v in t.items():
-            if isinstance(v, dict):
-                yield from leaves(v, f"{pre}{k}/")
-            else:
-                yield pre + k, (v if isinstance(v, torch.Tensor)
-                                else torch.as_tensor(np.asarray(v)))
 
-    a, b = dict(leaves(got)), dict(leaves(want))
-    same = sorted(a) == sorted(b) and all(
-        torch.equal(a[k], b[k].to(a[k].dtype)) for k in a)
-    print(f"flagship int8 spine: plan = chain's; its artifact ({len(a)} "
-          f"leaves) equals chain's quantization of the same stats: {same}",
-          flush=True)
-    if not same:
-        raise AssertionError("spine's artifact differs from chain's")
+def _int8_stems(torch, dev, launches, ir, variables, frames, root):
+    """The flagship in chain and in edge with int8 stem pairs
+    (``quantize(int8_stems=True)``, JAX's ``_q_fused_stem``): each
+    quantized for the served size from the stats of phase 14's edge run,
+    saved as an artifact and served by a Predictor from it: requests of
+    1 and 8, captured then replayed, with K3 launched 0 times (both stem
+    pairs run int8) and K4 as the plan says; then the int8 path, stems
+    included, on the card against the CPU
+    (:func:`phase_flagship_int8_vs_cpu`). Returns the launch counts."""
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.models import quantize as Q
+    from double_yolo_kaist_torch.serving import Predictor
+    stats, _ = Q.load_calibration(os.path.join(root,
+                                               "flagship_edge_cal.npz"))
+    folded = graph.fold_batchnorm(ir, variables)
+    n_heads, counts = len(ir.yolo_indices), {}
+    for mode in ("chain", "edge"):
+        path = os.path.join(root, f"flagship_{mode}_int8stems.npz")
+        Q.save_quantized(path, Q.quantize(ir, folded, stats, mode=mode,
+                                          hw=SERVED_HW, int8_stems=True),
+                         mode=mode, hw=SERVED_HW)
+        launches.clear()
+        pred = Predictor(ir, variables, img_size=SERVED_HW[0], device=dev,
+                         int8=True, int8_mode=mode, quantized=path)
+        q_fwd = {"stem_conv_s2": 0, "qgemm": _k4_per_forward(ir, mode,
+                                                             SERVED_HW),
+                 "decode_head": 1, "nms_indices": 1}
+        print(f"flagship int8 {mode} with int8 stems, from its artifact: "
+              f"{q_fwd['qgemm']} K4 convs and no K3 a forward", flush=True)
+        for k, n in enumerate((1, 8, 1, 8)):     # capture, then replay
+            _serve(torch, pred, frames, launches, n,
+                   {k2: (2 if k < 2 else 1) * v for k2, v in q_fwd.items()},
+                   n_heads)
+        counts[f"int8 {mode} int8 stems"] = dict(launches)
+        phase_flagship_int8_vs_cpu(torch, ir, variables, pred, dev,
+                                   mode=mode, int8_stems=True)
+        del pred
+        torch.cuda.empty_cache()
+    return counts
 
 
 def _int8_entry_points(torch, dev, launches, root):
@@ -3470,8 +3616,10 @@ def _snow_train(root):
 def phase_int8aug(torch, dev, launches, root, flagship_times):
     """Phase 14: CLAHE and the cutout on the card, the train augment with
     both, the flagship in int8 edge, spine and spineall (artifacts,
-    graphs, K4 at the served operands, card vs CPU), timed beside phase
-    8's bf16 and chain (``flagship_times``), and the calibrate / evaluate
+    graphs, K4 at the served operands, card vs CPU, spine's and edge's
+    plans at the served size), timed beside phase 8's bf16 and chain
+    (``flagship_times``), chain and edge with int8 stem pairs
+    (:func:`_int8_stems`), and the calibrate / evaluate
     --int8-qvars entry points (``train --snow --clahe`` is a task of the
     script: :func:`_snow_train`). Needs phase 9's
     labelled split and MNv3 checkpoint under ``root``. Returns the launch
@@ -3492,18 +3640,17 @@ def phase_int8aug(torch, dev, launches, root, flagship_times):
     times = {"bf16": flagship_times["bf16"], "chain": flagship_times["int8"]}
     for mode in INT8_NEW_MODES:
         path = os.path.join(root, f"flagship_{mode}.npz")
-        c, t, startup[mode], pred = _int8_mode(
-            torch, dev, launches, ir, variables, frames, mode, path,
-            timed=mode != "spine")
+        c, times[mode], startup[mode], pred = _int8_mode(
+            torch, dev, launches, ir, variables, frames, mode, path)
         counts.update(c)
-        if mode == "spine":
-            _spine_is_chain(torch, ir, pred, path)
-        else:
-            times[mode] = t
-            phase_flagship_int8_vs_cpu(torch, ir, variables, pred, dev,
-                                       mode=mode)
+        if mode in SERVED_PLANS:
+            _served_plan(torch, ir, mode, path)
+        phase_flagship_int8_vs_cpu(torch, ir, variables, pred, dev,
+                                   mode=mode)
         del pred
         torch.cuda.empty_cache()
+    counts.update(_int8_stems(torch, dev, launches, ir, variables, frames,
+                              root))
     summary = {m: {"median_ms": {n: round(t[n], 4) for n in (1, 8)},
                    "busy_ms": {n: round(t["busy"][n][0], 4) for n in (1, 8)},
                    "busy_share": {n: round(t["busy"][n][1], 4)
@@ -3511,11 +3658,10 @@ def phase_int8aug(torch, dev, launches, root, flagship_times):
                    **({k: round(v, 4) for k, v in startup[m].items()}
                       if m in startup else {})}
                for m, t in times.items()}
-    summary["spine"] = {k: round(v, 4) for k, v in startup["spine"].items()}
     numbers["flagship"] = summary
     counts.update(_int8_entry_points(torch, dev, launches, root))
-    print("int8aug numbers (bf16 and chain: phase 8's Predictors; spine "
-          "serves chain's program): " + json.dumps(numbers), flush=True)
+    print("int8aug numbers (bf16 and chain: phase 8's Predictors): "
+          + json.dumps(numbers), flush=True)
     print(f"phase 14 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts
 

@@ -169,14 +169,28 @@ def calibration_stats(ir: GraphIR, placed: dict, args, device) -> dict:
                        compute_dtype=bf16)
 
 
-def int8_forward(ir: GraphIR, folded: dict, stats: dict, mode: str, device):
-    """Quantize the fp32 fold ``folded`` with ``stats`` in ``mode`` and
-    place it on ``device``; returns forward(xv, xl) -> the decoded heads,
-    bf16 compute."""
+def strip_int8_stems(qvars: dict) -> dict:
+    """Quantized variables without the int8 stem pairs' leaves
+    (``amax_in``, ``amax_mid``, ``stem_q``): the stems then run in the
+    compute dtype (JAX tools/int8_ab.py:42-46)."""
+    return {"params": {k: {kk: vv for kk, vv in v.items()
+                           if kk not in ("amax_in", "amax_mid", "stem_q")}
+                       for k, v in qvars["params"].items()}}
+
+
+def int8_forward(ir: GraphIR, folded: dict, stats: dict, mode: str, device,
+                 hw: tuple, strip_stems: bool = False):
+    """Quantize the fp32 fold ``folded`` with ``stats`` in ``mode`` for the
+    deployment size ``hw`` (as JAX bench.py:99-106 does) and place it on
+    ``device``; ``strip_stems`` drops the int8 stem pairs' leaves
+    (``int8_ab``'s ``+fpstem``). Returns forward(xv, xl) -> the decoded
+    heads, bf16 compute."""
     from .models import quantize as Q
     bf16 = torch.bfloat16
-    qvars = Q.place_quantized(
-        ir, Q.quantize(ir, folded, stats, mode=mode), device, bf16)
+    qvars = Q.quantize(ir, folded, stats, mode=mode, hw=hw)
+    if strip_stems:
+        qvars = strip_int8_stems(qvars)
+    qvars = Q.place_quantized(ir, qvars, device, bf16)
     return lambda xv, xl: Q.apply_quantized(
         ir, qvars, xv, xl, compute_dtype=bf16, mode=mode)[0]
 
@@ -193,7 +207,8 @@ def make_forward(ir: GraphIR, variables: dict, args, int8: bool, device):
         return lambda xv, xl: graph.apply_folded(ir, placed, xv, xl,
                                                  compute_dtype=bf16)[0]
     stats = calibration_stats(ir, placed, args, device)
-    return int8_forward(ir, folded, stats, args.int8_mode, device)
+    return int8_forward(ir, folded, stats, args.int8_mode, device,
+                        (args.height, args.width))
 
 
 def _seconds(run, iters: int, device) -> float:

@@ -90,7 +90,7 @@ def main(argv=None):
 
     if opt.quantized_out:
         hw = (opt.img_size, opt.img_size)
-        qvars = Q.quantize(ir, folded, stats, mode=opt.int8_mode)
+        qvars = Q.quantize(ir, folded, stats, mode=opt.int8_mode, hw=hw)
         Q.save_quantized(opt.quantized_out, qvars, mode=opt.int8_mode,
                          hw=hw)
         print(f"quantized variables (mode={opt.int8_mode}, hw={hw}) -> "

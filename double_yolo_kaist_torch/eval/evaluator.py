@@ -43,6 +43,17 @@ def _undo_letterbox(boxes: np.ndarray, ratio, pad, orig_hw):
                         ratio_pad=(ratio, pad)).numpy()
 
 
+def _prepare_hw(dataset) -> tuple:
+    """The size the int8 weights are quantized for (JAX
+    evaluator.py:108-117): a rect dataset's first batch shape (e.g.
+    416x512), else (img_size, img_size). Its s2d plan sets ``spine``'s and
+    ``edge``'s plans."""
+    if getattr(dataset, "rect", False):
+        return tuple(int(x) for x in dataset.batch_shapes[0])
+    s = int(getattr(dataset, "img_size", 512))
+    return (s, s)
+
+
 def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
                      conf_thres: float = 0.01, iou_thres: float = 0.6,
                      multi_label: bool = False,
@@ -66,7 +77,8 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
     calibrated on the first ``calibration_batches`` eval batches, or with
     the stats of ``calibration`` (a :func:`..models.quantize.
     save_calibration` file) when that file exists; when it does not, this
-    run's stats are saved there. ``quantized``: a quantized-variables
+    run's stats are saved there, and the weights are quantized for the
+    batches' size (:func:`_prepare_hw`). ``quantized``: a quantized-variables
     artifact (:func:`..models.quantize.save_quantized`); when it exists the
     literal int8 model a deployment serves is evaluated (its mode must be
     ``int8_mode``), with no fold, calibration or quantization; when it does
@@ -150,7 +162,7 @@ def evaluate_dataset(ir, variables, dataset, *, batch_size: int = 32,
         # arrays, and the int8 model of live weights on the card must be
         # the one their checkpoint gives
         qv = Q.quantize(ir, TR.map_leaves(lambda t: t.cpu(), fold), stats,
-                        mode=int8_mode)
+                        mode=int8_mode, hw=_prepare_hw(dataset))
         del placed
         reps = place(lambda d: Q.place_quantized(ir, qv, d, compute_dtype))
     if int8:

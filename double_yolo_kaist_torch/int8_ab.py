@@ -15,11 +15,13 @@ round prints every mode's fps, and the end the fps of each mode's fastest
 round. On the CPU (``--device cpu``) the forwards run eagerly on the host
 clock.
 
-JAX's mode suffixes do not apply to the port and are refused: ``+fpstem``
-strips the int8 fused stem, a TPU-only rewrite that the port does not have
-(ROADMAP.md item 14), and ``+qgemm`` / ``-qgemm`` flip the Pallas 1x1-GEMM
-gate, while on the card kernel K4 (``ops/qgemm.py``) always runs the int8
-1x1 convs and has no plain version on the device.
+A mode may carry JAX's ``+fpstem`` suffix: quantize as the base mode,
+then drop the int8 stem pairs' leaves (``amax_in``, ``amax_mid``,
+``stem_q``), so that the stems run in bf16 (JAX ``tools/int8_ab.py``:
+every mode is quantized for ``--height`` x ``--width``, without int8
+stems). ``+qgemm`` / ``-qgemm`` flip the JAX package's Pallas 1x1-GEMM
+gate and are refused: on the card kernel K4 (``ops/qgemm.py``) always runs
+the int8 1x1 convs and has no plain version on the device.
 """
 
 from __future__ import annotations
@@ -32,22 +34,19 @@ import torch
 
 
 def check_mode(mode: str) -> str:
-    """``mode`` if the port runs it, else SystemExit naming why not."""
+    """``mode`` if the port runs it (a mode of ``quantize``, or one with
+    ``+fpstem``), else SystemExit naming why not."""
     from .models import quantize as Q
 
-    if mode.endswith("+fpstem"):
-        raise SystemExit(
-            f"{mode}: '+fpstem' strips the int8 fused stem pair, a TPU-only "
-            f"rewrite the port does not have (ROADMAP.md item 14); A/B the "
-            f"base mode")
     if "qgemm" in mode:
         raise SystemExit(
             f"{mode}: '+qgemm' / '-qgemm' flip the JAX package's Pallas "
             f"1x1-GEMM gate; on the card kernel K4 (ops/qgemm.py) always "
             f"runs the int8 1x1 convs and has no plain version on the "
             f"device, so there is nothing to flip")
-    if mode not in Q.MODES:
-        raise SystemExit(f"unknown int8 mode {mode!r}; known: {Q.MODES}")
+    if mode.removesuffix("+fpstem") not in Q.MODES:
+        raise SystemExit(f"unknown int8 mode {mode!r}; known: {Q.MODES}, "
+                         f"each also with '+fpstem'")
     return mode
 
 
@@ -124,8 +123,10 @@ def main(argv=None) -> dict:
     runs = {}
     for m in modes:
         t = time.perf_counter()
-        runs[m] = _Leg(m, int8_forward(ir, folded, stats, m, device), xv,
-                       xl, device)
+        fwd = int8_forward(ir, folded, stats, m.removesuffix("+fpstem"),
+                           device, (args.height, args.width),
+                           strip_stems=m.endswith("+fpstem"))
+        runs[m] = _Leg(m, fwd, xv, xl, device)
         print(f"# build[{m}] {time.perf_counter() - t:.1f}s", flush=True)
 
     frames = args.batch * args.iters

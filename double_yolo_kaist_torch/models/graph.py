@@ -6,11 +6,16 @@ and the new BN state; eval mode: decoded boxes) with ``remat_segments``,
 :func:`count_params`, and the BN-folded inference path
 :func:`fold_batchnorm` and :func:`apply_folded`, with :func:`reshape_head`
 and :func:`decode_head` (the plain version of kernel K1,
-:mod:`..ops.decode`), and :func:`stem_fusion_pairs` (a pure IR analysis the
-int8 planner needs). The JAX package's stem-fusion, s2d-region and
-split-concat rewrites are left out: they are exact rewrites for the TPU's
-128 lanes, and the plain path computes the same function. The stem convs
-(3x3, stride 2, C_in 32) run through kernel K3 (:mod:`..ops.stem`).
+:mod:`..ops.decode`), and the pure IR analyses of the JAX package's
+inference rewrites: :func:`stem_fusion_pairs`, :func:`s2d_candidates`,
+:func:`s2d_plan` and :func:`s2d_basis`, under its switches ``_FUSE_STEM``
+and ``_S2D_REGION`` (env ``DYK_FUSE_STEM``, ``DYK_S2D_REGION``, both on by
+default). They give the same dicts as the JAX package's for any cfg and
+size, and they set the int8 plans (``models/quantize.py``). The rewrites
+themselves (the fused stem, the s2d basis, split-concat) are exact
+rewrites for the TPU's 128 lanes; the port computes the same function in
+the plain basis, which the H100 A/B kept (PERF.md). The stem convs (3x3,
+stride 2, C_in 32) run through kernel K3 (:mod:`..ops.stem`).
 
 Activations are NCHW in shape and channels-last in memory, so the convs run
 on cuDNN's NHWC kernels and the NHWC images the caller passes in are read
@@ -26,11 +31,12 @@ what is done with the values (:func:`run_graph`'s hooks).
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config.ir import GraphIR
+from ..config.ir import GraphIR, infer_shapes
 from ..ops import decode as K1
 from ..ops import stem as K3
 from ..ops.act import activate
@@ -294,13 +300,26 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
 
 # ----------------------------------------------------------- inference folding
 
+# The JAX package's two switches of its inference rewrites, read as it
+# reads them (JAX graph.py:278, 303), with its defaults: ``DYK_FUSE_STEM``
+# (the stem pairs, default on) and ``DYK_S2D_REGION`` (the thin-channel
+# s2d regions, default on). They set which convs the int8 plans quantize
+# (``models/quantize.py``) and which s2d kernels an int8 artifact holds.
+# The port computes every conv in the plain basis (PERF.md: the H100 A/B
+# of the s2d basis), the stem pair as two convs (the second through K3),
+# or as the int8 pair of an artifact quantized with ``int8_stems``.
+_FUSE_STEM = os.environ.get("DYK_FUSE_STEM", "1") != "0"
+_S2D_REGION = os.environ.get("DYK_S2D_REGION", "1") != "0"
+
+
 def stem_fusion_pairs(ir: GraphIR) -> dict:
     """Map {first conv index -> second conv index} of the stem pairs: each
     stream's 3x3 s1 conv on the image followed by a 3x3 s2 conv (JAX
-    graph.py:281-296). The port runs such a pair as two convs; the int8
-    planner keeps both out of its targets, as the JAX package does with its
-    default fused stem."""
+    graph.py:281-296); empty when ``_FUSE_STEM`` is off, as the JAX
+    package's callers see it."""
     pairs = {}
+    if not _FUSE_STEM:
+        return pairs
     for n1 in ir.nodes:
         if not (n1.kind == "conv" and n1.kernel == 3 and n1.stride == (1, 1)
                 and n1.pad == 1 and n1.groups == 1
@@ -314,6 +333,174 @@ def stem_fusion_pairs(ir: GraphIR) -> dict:
                 and not n2.takes_second_input and n2.in_ch == n1.out_ch):
             pairs[n1.index] = n2.index
     return pairs
+
+
+def s2d_candidates(ir: GraphIR) -> set:
+    """Every conv that some s2d_plan(ir, h, w) may hold (JAX
+    graph.py:318-337): standard 1x1 s1, 3x3 s1 p1 and 3x3 s2 p1 convs. The
+    int8 quantizer keeps their fp kernels beside the int8 ones."""
+    out = set()
+    for n in ir.nodes:
+        if n.kind != "conv" or n.groups != 1:
+            continue
+        k1 = n.kernel == 1 and n.stride == (1, 1)
+        k3s1 = n.kernel == 3 and n.stride == (1, 1) and n.pad == 1
+        k3s2 = n.kernel == 3 and n.stride == (2, 2) and n.pad == 1
+        if k1 or k3s1 or k3s2:
+            out.add(n.index)
+    return out
+
+
+def s2d_plan(ir: GraphIR, h: int, w: int,
+             exclude_stems: bool = True) -> dict:
+    """{conv index -> role} of the thin-channel stages the JAX package runs
+    in the s2d basis at input (h, w) (JAX graph.py:339-479; roles as
+    :func:`.layers._s2d_w`). A region opens at a conv whose output is thin
+    (out_ch < 128), spatially even and at least 32 x 32, and closes at an
+    x3 exit; anything the basis cannot carry unwinds the open region, and
+    regions read from outside themselves are dropped to a fixpoint. The
+    plan sets the int8 plans of ``spine`` and ``edge``."""
+    shapes = infer_shapes(ir, h, w)
+    stem_nodes = set()
+    if exclude_stems:
+        sp = stem_fusion_pairs(ir)
+        stem_nodes = set(sp) | set(sp.values())
+
+    plan: dict = {}
+    basis: dict = {}                    # node index -> output basis p | s
+    regions: list = []
+    open_nodes: list = []               # nodes marked s in the open region
+    cur = "p"
+
+    def unwind():
+        nonlocal cur
+        for j in open_nodes:
+            basis[j] = "p"
+            plan.pop(j, None)
+        open_nodes.clear()
+        cur = "p"
+
+    def want_s2d(node) -> bool:
+        c, hh, ww = shapes[node.index]
+        if node.index == 0 or node.takes_second_input:
+            ih, iw = h, w               # reads the image, not node i - 1
+        else:
+            ih, iw = shapes[node.index - 1][1:]
+        return (c < 128 and ih % 2 == 0 and iw % 2 == 0
+                and hh * ww >= 32 * 32)
+
+    for node in ir.nodes:
+        i, kind = node.index, node.kind
+        if kind == "conv":
+            inb = "p" if node.takes_second_input else cur
+            simple = node.groups == 1 and i not in stem_nodes
+            k1 = simple and node.kernel == 1 and node.stride == (1, 1)
+            k3s1 = (simple and node.kernel == 3 and node.stride == (1, 1)
+                    and node.pad == 1)
+            k3s2 = (simple and node.kernel == 3 and node.stride == (2, 2)
+                    and node.pad == 1)
+            if inb == "s":
+                if k3s2:                      # exit back to plain
+                    plan[i] = "x3"
+                    basis[i] = "p"
+                    cur = "p"
+                    regions.append(set(open_nodes) | {i})
+                    open_nodes.clear()
+                elif k1 or k3s1:              # stay in the basis
+                    plan[i] = "i1" if k1 else "i3"
+                    basis[i] = "s"
+                    open_nodes.append(i)
+                else:                         # the basis cannot carry it
+                    unwind()
+                    basis[i] = "p"
+            elif (k1 or k3s1) and want_s2d(node):
+                plan[i] = "e1" if k1 else "e3"  # open a region
+                basis[i] = "s"
+                cur = "s"
+                open_nodes.append(i)
+            else:
+                basis[i] = "p"
+                cur = "p"
+        elif kind == "route":
+            bs = {basis.get(j, "p") for j in node.inputs}
+            if len(bs) == 1:
+                basis[i] = bs.pop()
+                cur = basis[i]
+                if cur == "s":
+                    open_nodes.append(i)
+            else:                             # a mixed-basis concat
+                unwind()
+                basis[i] = "p"
+        elif kind == "shortcut":
+            bs = {cur} | {basis.get(j, "p") for j in node.inputs}
+            if len(bs) == 1:
+                basis[i] = cur
+                if cur == "s":
+                    open_nodes.append(i)
+            else:
+                unwind()
+                basis[i] = "p"
+        elif kind == "dropout":
+            basis[i] = cur
+            if cur == "s":
+                open_nodes.append(i)
+        else:                                 # pools, SE, upsample, yolo
+            if cur == "s":
+                unwind()
+            basis[i] = "p"
+            cur = "p"
+    if open_nodes:
+        unwind()
+
+    # fixpoint: drop the regions read from outside themselves, and those
+    # whose routes or adds read an s output of a dropped region
+    consumers: dict = {}
+    for n in ir.nodes:
+        for j in n.inputs:
+            consumers.setdefault(j, set()).add(n.index)
+    dropped_s: set = set()
+    changed = True
+    while changed:
+        changed = False
+        for r in regions:
+            if not r:
+                continue
+            sset = {j for j in r if basis.get(j) == "s"}
+            outside = any(c not in r
+                          for j in sset for c in consumers.get(j, ()))
+            reads_dropped = any(j in dropped_s
+                                for m in r for j in ir.nodes[m].inputs)
+            if outside or reads_dropped:
+                dropped_s |= sset
+                for j in r:
+                    basis[j] = "p"
+                    plan.pop(j, None)
+                r.clear()
+                changed = True
+    return plan
+
+
+def s2d_basis(ir: GraphIR, plan: dict) -> dict:
+    """{node index -> 'p' | 's'}: each node's output basis under ``plan``
+    (JAX graph.py:481-500)."""
+    basis: dict = {}
+    cur = "p"
+    for n in ir.nodes:
+        i, k = n.index, n.kind
+        if k == "conv":
+            cur = "s" if plan.get(i) in ("e1", "e3", "i1", "i3") else "p"
+        elif k == "route":
+            bs = {basis.get(j, "p") for j in n.inputs}
+            cur = bs.pop() if len(bs) == 1 else "p"
+        elif k not in ("shortcut", "dropout", "yolo"):
+            cur = "p"
+        basis[i] = cur
+    return basis
+
+
+# kernel height of each role's s2d kernel (JAX graph.py:529): what the JAX
+# executor checks an artifact's precomputed kernel by
+_S2D_KSHAPE = {"e1": 2, "e3": 4, "i1": 1, "i3": 3, "x3": 2}
 
 
 def fold_batchnorm(ir: GraphIR, variables: dict) -> dict:

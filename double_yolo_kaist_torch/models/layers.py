@@ -244,6 +244,99 @@ def dropout(x, p: float, generator: torch.Generator, u=None):
                                                     device=x.device)).to(x.dtype)
 
 
+# ------------------------------------------------- space-to-depth rewrites
+#
+# The kernels of the JAX package's exact rewrites for the TPU's 128 lanes
+# (JAX layers.py:143-265), on OIHW kernels. A tensor in the phase-minor
+# space-to-depth basis is (B, 4C, H/2, W/2) with channel 4c + (2p + q), p and
+# q the row and column phase. A planned conv (graph.s2d_plan) transforms by
+# role: e1 / e3 enter the basis from a plain input (a 2x2 / 4x4 stride-2
+# conv), i1 / i3 stay inside (a 1x1 with kron(w, I4) / a 3x3 on 4C), x3 (a
+# 3x3 stride-2 conv) exits to plain (a 2x2 stride-1 conv). Each transformed
+# kernel scatters the plain one among zeros, so every output channel holds
+# all of its plain channel's weights: quantizing either per output channel
+# gives the same scale and the same codes. The int8 artifacts hold these
+# kernels (``models/quantize.py`` writes them and checks them on load). The
+# port executes every conv in the plain basis: on the H100 the s2d basis
+# lost its A/B (PERF.md, Findings).
+
+def stem_pair_weights(w1, w2):
+    """(O1, C, 3, 3) + (O2, O1, 3, 3) -> the fused stem pair's kernels (JAX
+    layers.py:143-161): ``wb`` (4 O1, C, 4, 4), a 4x4 stride-2 conv whose
+    output channels are phase-major ((2p + q) O1 + o), and ``w2s`` (O2,
+    4 O1, 2, 2), a 2x2 stride-1 conv reading that basis."""
+    o1, o2 = w1.shape[0], w2.shape[0]
+    wb = w1.new_zeros((4 * o1, w1.shape[1], 4, 4))
+    for p in range(2):
+        for q in range(2):
+            k = 2 * p + q
+            wb[k * o1:(k + 1) * o1, :, p:p + 3, q:q + 3] = w1
+    w2s = w2.new_zeros((o2, 4 * o1, 2, 2))
+    for di in range(3):
+        for dj in range(3):
+            u, p = divmod(di - 1, 2)
+            v, q = divmod(dj - 1, 2)
+            k = 2 * p + q
+            w2s[:, k * o1:(k + 1) * o1, u + 1, v + 1] = w2[:, :, di, dj]
+    return wb, w2s
+
+
+def _s2d_w(w, role: str):
+    """An OIHW kernel -> its s2d-basis kernel for ``role`` (JAX
+    layers.py:220-256), in ``w``'s dtype (int8 kernels too)."""
+    o, c = w.shape[0], w.shape[1]
+    if role == "i1":
+        m = w.new_zeros((4 * o, 4 * c, 1, 1))
+        for a in range(4):
+            m[a::4, a::4] = w
+        return m
+    if role in ("e1", "e3"):
+        k = 2 if role == "e1" else 4
+        m = w.new_zeros((4 * o, c, k, k))
+        for p in range(2):
+            for q in range(2):
+                if role == "e1":
+                    m[2 * p + q::4, :, p, q] = w[:, :, 0, 0]
+                else:
+                    m[2 * p + q::4, :, p:p + 3, q:q + 3] = w
+        return m
+    if role == "i3":
+        m = w.new_zeros((4 * o, 4 * c, 3, 3))
+        for p in range(2):
+            for q in range(2):
+                for di in range(3):
+                    for dj in range(3):
+                        u, pp = divmod(p + di - 1, 2)
+                        v, qq = divmod(q + dj - 1, 2)
+                        m[2 * p + q::4, 2 * pp + qq::4, u + 1, v + 1] = \
+                            w[:, :, di, dj]
+        return m
+    if role == "x3":
+        m = w.new_zeros((o, 4 * c, 2, 2))
+        for di in range(3):
+            for dj in range(3):
+                u, p = divmod(di - 1, 2)
+                v, q = divmod(dj - 1, 2)
+                m[:, 2 * p + q::4, u + 1, v + 1] = w[:, :, di, dj]
+        return m
+    raise ValueError(f"unknown s2d role {role!r}")
+
+
+_S2D_GEOM = {                      # role -> (stride, ((pt, pb), (pl, pr)))
+    "e1": (2, ((0, 0), (0, 0))),
+    "e3": (2, ((1, 1), (1, 1))),
+    "i1": (1, ((0, 0), (0, 0))),
+    "i3": (1, ((1, 1), (1, 1))),
+    "x3": (1, ((1, 0), (1, 0))),
+}
+
+
+def s2d_bias(b, role: str):
+    """A planned conv's bias in its output basis: each channel's bias on
+    its four phases (``jnp.repeat(b, 4)``); an x3 exit's bias unchanged."""
+    return b if role == "x3" else b.repeat_interleave(4)
+
+
 # ------------------------------------------------------------ initialization
 
 def _kaiming_uniform(generator, shape, fan_in):

@@ -6,8 +6,9 @@ Scheme: symmetric int8; weights per output channel from the BN-folded
 kernels, activations per tensor with scales from a calibration pass
 (max-abs over sample batches). Quantized convs run int8 x int8 -> int32 and
 dequantize into the bias add; a chain-emitting conv requantizes its output
-straight to int8 for the next conv. SE blocks, head predictors, the stem
-pairs and decode stay full precision.
+straight to int8 for the next conv. SE blocks, head predictors and decode
+stay full precision, and so do the stem pairs unless quantized with
+``int8_stems``.
 
   * ``spine`` / ``spineall``: the chain plan plus the residual adds whose
     output can carry int8 (:func:`_plan_spine`). Such an add emits s8 with
@@ -33,14 +34,25 @@ Calibration stats (:func:`save_calibration`) and quantized variables
 (:func:`save_quantized`) are saved and loaded in the JAX package's
 ``.npz`` formats, so that either package reads the other's files.
 
-The port plans as the JAX package does by default (the stem pairs kept out
-of the int8 targets, as under its fused stem) and runs each stem pair as
-two fp convs, the second through K3. It has none of the JAX package's
-TPU-only rewrites: no space-to-depth regions and no int8 fused stem
-(``_q_fused_stem``, ROADMAP.md queue 1 item 14). So it computes what the
-JAX package computes with ``graph._S2D_REGION = False`` and its default
-``int8_stems=False``; in particular ``spine`` places no int8 add (the JAX
-plan confines them to s2d regions) and equals ``chain``.
+The port plans as the JAX package does at its defaults. Its stem pairs
+(``graph._FUSE_STEM``) stay out of the int8 targets, and the s2d plan of
+the deployment size ``hw`` (``graph._S2D_REGION``, :func:`.graph.s2d_plan`)
+sets two plans: ``spine``'s int8 adds are the ones inside the s2d regions
+(:func:`_plan_spine`), and ``edge`` keeps the edges inside the regions in
+the compute dtype, with the region convs quantized as ``chain`` quantizes
+them (:func:`plan_edges`). :func:`quantize` writes every leaf the JAX
+package writes: the planned convs' s2d kernels (``wq_t`` / ``sw_t`` /
+``bt`` on int8 ones, ``wt`` / ``bt`` on fp ones) and, with
+``int8_stems``, the int8 stem pair's scales and kernels (``amax_in``,
+``amax_mid``, ``stem_q``, in ``edge`` mode ``stem_out_s`` /
+``stem_out_inv``). The executors compute every conv in the plain basis
+(the H100 A/B of the s2d basis, PERF.md): the int32 sums are the integers
+the s2d kernels give, and :func:`load_quantized` checks that an
+artifact's s2d and stem kernels are the transforms of its plain ones.
+Where an entry holds the int8 stem's scales, the pair runs int8 (two int8
+im2col convs, the image quantized with ``amax_in``, the mid activation
+requantized with ``amax_mid``); otherwise as two fp convs, the second
+through K3.
 """
 
 from __future__ import annotations
@@ -117,14 +129,14 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"unknown quantization mode {mode!r}")
 
 
-def _plan_spine(ir: GraphIR, targets: set, everywhere: bool) -> list:
+def _plan_spine(ir: GraphIR, targets: set, plan: dict,
+                everywhere: bool = False) -> list:
     """The residual adds whose output can carry int8 (JAX quantize.py:86-127):
     an unweighted single-partner add whose producing conv (node s - 1) is
     quantized and whose next node is a thick standard conv reading the
-    running stream. ``spine`` keeps those inside s2d regions, of which the
-    port has none; ``spineall`` (``everywhere``) takes them all."""
-    if not everywhere:
-        return []
+    running stream. ``spine`` keeps those inside the s2d regions of
+    ``plan`` (both neighbours planned); ``spineall`` (``everywhere``) takes
+    them all."""
     standard = _thick(ir)
     out = []
     for node in ir.nodes:
@@ -135,24 +147,29 @@ def _plan_spine(ir: GraphIR, targets: set, everywhere: bool) -> list:
         if nxt >= len(ir.nodes) or (node.index - 1) not in targets:
             continue
         nn = ir.nodes[nxt]
-        if (nn.kind == "conv" and nn.index in standard
-                and not nn.takes_second_input):
+        if (nn.kind != "conv" or nn.index not in standard
+                or nn.takes_second_input):
+            continue
+        if everywhere or ((node.index - 1) in plan and nxt in plan):
             out.append(node.index)
     return out
 
 
-def _plan_with_spine(ir: GraphIR, mode: str):
-    """spine / spineall: the chain plan plus the spine adds, the convs after
-    them joining the targets and the chains re-grown over the enlarged set
-    (JAX quantize.py:180-198) -> (targets, emits, spine indices)."""
+def _plan_with_spine(ir: GraphIR, mode: str, s2d_plan: dict | None = None):
+    """spine / spineall: the chain plan plus the spine adds (``spine``'s
+    those inside the regions of ``s2d_plan``), the convs after them joining
+    the targets and the chains re-grown over the enlarged set (JAX
+    quantize.py:180-198) -> (targets, emits, spine indices)."""
     targets, _ = plan_quantization(ir, "chain")
-    spine = _plan_spine(ir, targets, everywhere=(mode == "spineall"))
+    spine = _plan_spine(ir, targets, s2d_plan or {},
+                        everywhere=(mode == "spineall"))
     targets = _grow_chains(ir, targets | {si + 1 for si in spine})
     emits = {i for i in targets if _chain_edge(ir, i, targets)}
     return targets, emits, spine
 
 
-def plan_quantization(ir: GraphIR, mode: str = "chain"):
+def plan_quantization(ir: GraphIR, mode: str = "chain",
+                      s2d_plan: dict | None = None):
     """-> (targets: set of quantized conv indices, emits: set of targets
     whose output is requantized to int8 for the next conv; in ``edge``
     mode, the targets stored int8).
@@ -161,14 +178,16 @@ def plan_quantization(ir: GraphIR, mode: str = "chain"):
     ``chain``: the seed set grown to a fixpoint by the 1x1 convs whose input
     arrives as int8 from a sole-consumer predecessor; ``all``: every
     standard conv; ``spine`` / ``spineall``: chain plus the int8 residual
-    adds (:func:`_plan_with_spine`); ``edge``: :func:`plan_edges`. The
-    thin-input rule (in_ch >= 16) holds in every mode."""
+    adds (:func:`_plan_with_spine`, ``spine``'s inside the regions of
+    ``s2d_plan``); ``edge``: :func:`plan_edges` with no deployment size, as
+    the JAX package's. The thin-input rule (in_ch >= 16) holds in every
+    mode."""
     _check_mode(mode)
     if mode == "edge":
         targets, int8_out, _ = plan_edges(ir)
         return targets, {i for i, v in int8_out.items() if v}
     if mode in ("spine", "spineall"):
-        targets, emits, _ = _plan_with_spine(ir, mode)
+        targets, emits, _ = _plan_with_spine(ir, mode, s2d_plan)
         return targets, emits
     if mode == "seed":
         return _quantizable(ir), set()
@@ -239,12 +258,12 @@ def plan_edges(ir: GraphIR, hw: tuple | None = None):
         weights are quantized with the input's per-channel scales folded
         in).
 
-    ``hw``: the deployment size. The JAX package vetoes int8 edges inside
-    its space-to-depth regions at that size; the port has no such regions,
-    so the plan is the same at every size, as the JAX package's is with
-    ``graph._S2D_REGION = False``. The argument keeps its meaning in the
-    artifacts (:func:`save_quantized`)."""
-    del hw
+    ``hw``: the deployment size. With ``graph._S2D_REGION`` on, the nodes
+    whose output lies in the s2d basis at that size keep edges in the
+    compute dtype, and the planned convs and those in the basis are
+    quantized only where ``chain`` quantizes them (the JAX package measured
+    int8 edges to lose inside its regions); the regions' x3 exits emit int8
+    as any conv does."""
     targets = _thick(ir)
     head_pred = {ir.nodes[yi - 1].index for yi in ir.yolo_indices}
     stem_seconds = set(G.stem_fusion_pairs(ir).values())
@@ -270,11 +289,21 @@ def plan_edges(ir: GraphIR, hw: tuple | None = None):
                 fh = fh or feeds_head.get(c, False)
         feeds_head[i] = fh
 
+    in_basis: dict = {}
+    if hw is not None and G._S2D_REGION:
+        plan = G.s2d_plan(ir, *hw)
+        in_basis = {i: b == "s" for i, b in G.s2d_basis(ir, plan).items()}
+        chain_targets, _ = plan_quantization(ir, "chain")
+        targets = {i for i in targets
+                   if not (in_basis.get(i, False) or i in plan)
+                   or i in chain_targets}
+
     int8_out: dict = {}
     cur = False                       # int8ness of the running stream
     for n in ir.nodes:
         i, k = n.index, n.kind
-        can = bool(out_consumers(i)) and not feeds_head[i]
+        can = (bool(out_consumers(i)) and not feeds_head[i]
+               and not in_basis.get(i, False))
         if k == "conv":
             cur = can and (i in targets or i in stem_seconds)
         elif k in ("shortcut", "se"):
@@ -448,12 +477,14 @@ def load_calibration(path: str) -> tuple[dict, float]:
 
 # ---------------------------------------------------------- quantized files
 
-# keys that only the JAX package's TPU rewrites write: the s2d kernels of
-# DYK_S2D_REGION and the int8 fused stem of DYK_FUSE_STEM (int8_stems)
-_TPU_ONLY_KEYS = frozenset({"wq_t", "sw_t", "bt", "wt", "stem_q", "amax_in",
-                            "amax_mid", "stem_out_s", "stem_out_inv"})
 # 4-D leaves under these names are conv kernels: OIHW here, HWIO on disk
-_KERNEL_KEYS = ("w", "wq")
+_KERNEL_KEYS = ("w", "wq", "wq_t", "wt", "wbq", "w2q")
+# (plain kernel size, s2d kernel size) -> the role that makes one from the
+# other (layers._s2d_w): an artifact's s2d kernels name no role
+_ROLE_OF = {(1, 2): "e1", (1, 1): "i1", (3, 4): "e3", (3, 3): "i3",
+            (3, 2): "x3"}
+# fp32 rounding of a weight scale rebuilt from a conv's scale and inv_sx
+_SCALE_RTOL = 2.0 ** -21
 
 
 def _to_numpy_tree(tree, key=None):
@@ -496,28 +527,74 @@ def save_quantized(path: str, qvars: dict, *, mode: str,
     np.savez(path, **flat)
 
 
+def _check_rewrites(params: dict, path: str) -> None:
+    """Refuse an artifact whose s2d or int8-stem leaves are not what the
+    port makes from the plain leaves beside them, naming the leaf: an int8
+    conv's ``wq_t`` must be its ``wq`` transformed (bit for bit), ``sw_t``
+    its weight scale (``scale``, times ``inv_sx`` without ``in_s``) on the
+    output basis (to fp32 rounding) and ``bt`` its bias on that basis; an
+    fp conv's ``wt`` / ``bt`` its kernel and bias transformed; ``stem_q``
+    the pair's kernels (this conv's and the next one's) transformed and
+    quantized, int8 leaves bit for bit and scales to fp32 rounding. The
+    executors compute the plain basis, so an artifact whose s2d kernels
+    say otherwise is not served."""
+    def refuse(leaf, what):
+        raise ValueError(f"quantized artifact {path}: {leaf} is not {what}; "
+                         f"refused")
+
+    def hold(leaf, got, want, exact=True):
+        ok = got is not None and got.shape == want.shape and (
+            torch.equal(got.float(), want.float()) if exact else
+            torch.allclose(got.float(), want.float(), rtol=_SCALE_RTOL,
+                           atol=0.0))
+        if not ok:
+            refuse(leaf, "what the port computes from the plain leaves")
+
+    def role(leaf, w, wt):
+        r = _ROLE_OF.get((w.shape[-1], wt.shape[-1]))
+        if r is None:
+            refuse(leaf, "an s2d kernel of this conv's kernel")
+        return r
+
+    for key, ent in params.items():
+        q, fp = ent.get("q", {}), ent.get("fp", {})
+        if any(k in q for k in ("wq_t", "sw_t", "bt")):
+            r = role(f"{key}/q/wq_t", q["wq"], q.get("wq_t", q["wq"]))
+            hold(f"{key}/q/wq_t", q.get("wq_t"), L._s2d_w(q["wq"], r))
+            sw = (q["scale"] if "in_s" in q
+                  else q["scale"] * torch.tensor(np.float32(q["inv_sx"])))
+            hold(f"{key}/q/sw_t", q.get("sw_t"), L.s2d_bias(sw, r),
+                 exact=False)
+            hold(f"{key}/q/bt", q.get("bt"), L.s2d_bias(q["b"], r))
+        if any(k in fp for k in ("wt", "bt")):
+            r = role(f"{key}/fp/wt", fp["w"], fp.get("wt", fp["w"]))
+            hold(f"{key}/fp/wt", fp.get("wt"), L._s2d_w(fp["w"], r))
+            hold(f"{key}/fp/bt", fp.get("bt"), L.s2d_bias(fp["b"], r))
+        if "stem_q" in ent:
+            nxt = params.get(f"l{int(key[1:]) + 1}", {}).get("fp", {})
+            if "w" not in fp or "w" not in nxt:
+                refuse(f"{key}/stem_q", "beside the stem pair's fp kernels")
+            wb, w2s = L.stem_pair_weights(fp["w"], nxt["w"])
+            sq = ent["stem_q"]
+            for name, w in (("b", wb), ("2", w2s)):
+                wq, sw = _quant_weight(w)
+                hold(f"{key}/stem_q/w{name}q", sq.get(f"w{name}q"), wq)
+                hold(f"{key}/stem_q/sw{name}", sq.get(f"sw{name}"), sw,
+                     exact=False)
+
+
 def load_quantized(path: str) -> tuple[dict, str, tuple | None]:
     """Load a :func:`save_quantized` artifact, the port's or the JAX
     package's -> (qvars in the port's layout, mode, hw). bf16 leaves come
-    back bit-exact. An artifact holding keys of the JAX package's TPU-only
-    rewrites (s2d kernels, the int8 fused stem) is refused: the port cannot
-    run them and must not drop them silently."""
+    back bit-exact. The s2d and int8-stem leaves must be the transforms of
+    the plain leaves beside them (:func:`_check_rewrites`), or the
+    artifact is refused."""
     meta = ("__mode__", "__hw__", NPZ.BF16)
     with np.load(path) as z:
         mode = str(z["__mode__"])
         hw_arr = z["__hw__"]
         hw = tuple(int(x) for x in hw_arr) if hw_arr.size else None
         bf16 = NPZ.bf16_keys(z)
-        tpu_only = sorted(k for k in z.files if k not in meta
-                          and _TPU_ONLY_KEYS & set(k.split("/")))
-        if tpu_only:
-            raise ValueError(
-                f"quantized artifact {path} holds keys of the JAX package's "
-                f"TPU-only rewrites (space-to-depth kernels or the int8 "
-                f"fused stem, e.g. {tpu_only[0]}), which the port does not "
-                f"run (ROADMAP.md, queue 1 item 14); export it with "
-                f"DYK_S2D_REGION=0 and without int8 stems, or quantize with "
-                f"the port")
         tree: dict = {}
         for key in z.files:
             if key in meta:
@@ -532,6 +609,7 @@ def load_quantized(path: str) -> tuple[dict, str, tuple | None]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = t
     _check_mode(mode)
+    _check_rewrites(tree["q"]["params"], path)
     return tree["q"], mode, hw
 
 
@@ -540,12 +618,12 @@ def load_quantized(path: str) -> tuple[dict, str, tuple | None]:
 def _quant_weight(w):
     """OIHW fp kernel -> (int8 kernel, per-output-channel scale fp32):
     amax over (I, H, W) / 127, at least 1e-12; round half to even, clip to
-    [-127, 127]."""
-    w = w.float()
+    [-127, 127]; in ``w``'s dtype, as the JAX package computes it (the
+    bf16 kernels of its bf16 artifacts in bf16)."""
     sw = torch.clamp_min(torch.amax(torch.abs(w), dim=(1, 2, 3)) / 127.0,
                          1e-12)
     wq = torch.clamp(torch.round(w / sw.reshape(-1, 1, 1, 1)), -127, 127)
-    return wq.to(torch.int8), sw
+    return wq.to(torch.int8), sw.float()
 
 
 def _qconv_params(p, amax: float) -> dict:
@@ -556,12 +634,56 @@ def _qconv_params(p, amax: float) -> dict:
             "inv_sx": np.float32(1.0 / sx), "b": p["b"].float()}
 
 
-def _quantize_edge(ir: GraphIR, folded: dict, stats: dict) -> dict:
+def _s2d_int8(qp: dict, w, b, role: str) -> None:
+    """A planned int8 conv's s2d leaves (JAX quantize.py:748-753): its fp
+    kernel ``w`` (in ``edge`` mode with the input scales folded in: fold,
+    then s2d) transformed and quantized, and its bias on the output
+    basis."""
+    qp["wq_t"], qp["sw_t"] = _quant_weight(L._s2d_w(w, role))
+    qp["bt"] = L.s2d_bias(b, role)
+
+
+def _s2d_fp(p: dict, role: str) -> dict:
+    """A planned fp conv's params with its s2d kernel and bias beside
+    them (JAX quantize.py:756-761)."""
+    return {**p, "wt": L._s2d_w(p["w"], role), "bt": L.s2d_bias(p["b"], role)}
+
+
+def _int8_stem(params: dict, stats: dict, i: int, j: int) -> dict:
+    """The int8 stem pair's leaves on its first conv l<i> (JAX
+    quantize.py:762-774): the image's amax ``amax_in`` and, where the
+    second conv l<j>'s input was calibrated, its ``amax_mid`` and the
+    pair's transformed kernels quantized (``stem_q``)."""
+    ent = {"amax_in": np.float32(stats[f"l{i}"])}
+    mid = stats.get(f"l{j}")
+    if mid is not None:
+        ent["amax_mid"] = np.float32(mid)
+        wb, w2s = L.stem_pair_weights(params[f"l{i}"]["w"],
+                                      params[f"l{j}"]["w"])
+        wbq, swb = _quant_weight(wb)
+        w2q, sw2 = _quant_weight(w2s)
+        ent["stem_q"] = {"wbq": wbq, "swb": swb, "w2q": w2q, "sw2": sw2}
+    return ent
+
+
+def _s2d_setup(ir: GraphIR, hw):
+    """(s2d candidates, stem pairs, s2d plan at ``hw``) as the quantizer
+    reads them under the switches."""
+    cands = G.s2d_candidates(ir) if G._S2D_REGION else set()
+    plan = G.s2d_plan(ir, *hw) if (hw and G._S2D_REGION) else {}
+    return cands, G.stem_fusion_pairs(ir), plan
+
+
+def _quantize_edge(ir: GraphIR, folded: dict, stats: dict,
+                   hw: tuple | None = None, int8_stems: bool = False) -> dict:
     """mode ``edge`` variables (JAX quantize.py:610-693): the weights of a
     ``folded_in`` conv carry its input edge's per-channel scales (``in_s``,
-    ``in_inv``); every int8-emitting node carries ``out_s`` / ``out_inv``."""
+    ``in_inv``); every int8-emitting node carries ``out_s`` / ``out_inv``;
+    the s2d and int8-stem leaves as :func:`quantize` writes them, an int8
+    stem emitting ``stem_out_s`` / ``stem_out_inv`` where its second
+    conv's output edge is int8."""
     params = folded["params"]
-    targets, int8_out, folded_in = plan_edges(ir)
+    targets, int8_out, folded_in = plan_edges(ir, hw)
     missing = sorted(f"l{i}.out" for i, v in int8_out.items()
                      if v and ir.nodes[i].kind in ("conv", "shortcut", "se")
                      and f"l{i}.out" not in stats)
@@ -572,11 +694,12 @@ def _quantize_edge(ir: GraphIR, folded: dict, stats: dict) -> dict:
             f"were recorded; re-calibrate (python -m "
             f"double_yolo_kaist_torch.calibrate)")
     svec = edge_scale_vectors(ir, stats, int8_out)
+    s2d_cands, stem, plan = _s2d_setup(ir, hw)
 
-    def out_scales(i):
+    def out_scales(i, prefix=""):
         v = np.asarray(svec[i], np.float32)
-        return {"out_s": torch.from_numpy(v.copy()),
-                "out_inv": torch.from_numpy(1.0 / v)}
+        return {f"{prefix}out_s": torch.from_numpy(v.copy()),
+                f"{prefix}out_inv": torch.from_numpy(1.0 / v)}
 
     q: dict = {}
     for node in ir.nodes:
@@ -604,9 +727,20 @@ def _quantize_edge(ir: GraphIR, folded: dict, stats: dict) -> dict:
             if int8_out.get(i) and svec[i] is not None:
                 qp.update(out_scales(i))
             ent["q"] = qp
+            if i in s2d_cands:
+                ent["fp"] = p
+            if i in plan:
+                _s2d_int8(qp, w, p["b"], plan[i])
         else:
             if p is not None:
                 ent["fp"] = p
+            if node.kind == "conv" and i in plan and p is not None:
+                ent["fp"] = _s2d_fp(p, plan[i])
+            if (node.kind == "conv" and i in stem and key in stats
+                    and int8_stems):
+                ent.update(_int8_stem(params, stats, i, stem[i]))
+                if int8_out.get(stem[i]) and svec.get(stem[i]) is not None:
+                    ent.update(out_scales(stem[i], "stem_"))
             if (node.kind in ("shortcut", "se") and int8_out.get(i)
                     and svec.get(i) is not None):
                 ent.update(out_scales(i))
@@ -616,7 +750,8 @@ def _quantize_edge(ir: GraphIR, folded: dict, stats: dict) -> dict:
 
 
 def quantize(ir: GraphIR, folded: dict, stats: dict,
-             mode: str = "chain") -> dict:
+             mode: str = "chain", hw: tuple | None = None,
+             int8_stems: bool = False) -> dict:
     """BN-folded params (CPU, fp32, OIHW; :func:`.graph.fold_batchnorm`) +
     calibration stats -> quantized variables ``{"params": {"l<i>": ...}}``
     (JAX quantize.py:696-784), each entry one of
@@ -629,15 +764,20 @@ def quantize(ir: GraphIR, folded: dict, stats: dict,
       * in ``edge`` mode (:func:`_quantize_edge`) also ``in_s`` / ``in_inv``
         on the quantized convs and ``out_s`` / ``out_inv`` on every node
         stored int8.
-    The JAX package's ``hw`` (the size its s2d kernels are prepared for)
-    has no counterpart: the port's plans do not depend on the size;
-    :func:`save_quantized` records it."""
+    ``hw``: the deployment size, whose s2d plan (with ``graph._S2D_REGION``
+    on) sets ``spine``'s and ``edge``'s plans and gives each planned conv
+    its s2d leaves (``wq_t`` / ``sw_t`` / ``bt`` on an int8 one, ``wt`` /
+    ``bt`` beside an fp one's kernel); every conv an s2d plan may hold
+    keeps its fp kernel beside its int8 one (``fp``). ``int8_stems``: the
+    stem pairs' first convs carry the int8 pair's leaves
+    (:func:`_int8_stem`), and the executors run the pair int8."""
     _check_mode(mode)
     if mode == "edge":
-        return _quantize_edge(ir, folded, stats)
+        return _quantize_edge(ir, folded, stats, hw, int8_stems)
     params = folded["params"]
+    s2d_cands, stem, plan = _s2d_setup(ir, hw)
     if mode in ("spine", "spineall"):
-        targets, emits, spine = _plan_with_spine(ir, mode)
+        targets, emits, spine = _plan_with_spine(ir, mode, plan)
     else:
         targets, emits = plan_quantization(ir, mode)
         spine = []
@@ -653,8 +793,16 @@ def quantize(ir: GraphIR, folded: dict, stats: dict,
                 nxt = float(stats[f"l{node.index + 1}"])
                 qp["out_inv_s"] = np.float32(127.0 / max(nxt, 1e-12))
             q[key] = {"q": qp}
+            if node.index in s2d_cands:
+                q[key]["fp"] = p
+            if node.index in plan:
+                _s2d_int8(qp, p["w"], p["b"], plan[node.index])
         else:
-            q[key] = {"fp": p}
+            q[key] = {"fp": (_s2d_fp(p, plan[node.index])
+                             if node.index in plan else p)}
+            if node.index in stem and key in stats and int8_stems:
+                q[key].update(_int8_stem(params, stats, node.index,
+                                         stem[node.index]))
     for si in spine:
         # the next conv's entry-quantize scale: it reads the codes unchanged
         sx = max(float(stats[f"l{si + 1}"]), 1e-12) / 127.0
@@ -682,6 +830,44 @@ def _vec(t, device, dtype):
     return torch.as_tensor(t).to(device, dtype).reshape(1, -1, 1, 1)
 
 
+def _place_kxk(wq, device):
+    """An int8 OIHW kernel as the im2col product's (N, kh*kw*C) matrix in
+    (kh, kw, c) order, zero-padded to multiples of 16 in N and K."""
+    w = wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1)
+    n, k = w.shape
+    return F.pad(w, (0, _pad16(k) - k, 0, _pad16(n) - n)).contiguous().to(
+        device)
+
+
+def _inv_scale(amax) -> tuple:
+    """(sx, 1 / sx) of a calibrated amax in fp32, as the JAX package's
+    int8 stem computes them: max(amax, 1e-12) / 127, then its inverse."""
+    sx = np.maximum(np.float32(amax), np.float32(1e-12)) / np.float32(127.0)
+    return sx, np.float32(1.0) / sx
+
+
+def _place_stem(first: dict, second: dict, device, compute_dtype) -> dict:
+    """The int8 stem pair of a first conv's entry ``first`` and its second
+    conv's ``second`` (JAX quantize._q_fused_stem), placed for the plain
+    basis: each conv's int8 kernel (its plain form, which ``stem_q``
+    scatters) as an im2col matrix with the epilogue scale weight scale x
+    sx of its input; the image's and the mid activation's inverse scales
+    as Python floats; ``stem_out_*`` as (1, C, 1, 1) vectors."""
+    out = {}
+    for name, ent, amax in (("q1", first, first["amax_in"]),
+                            ("q2", second, first["amax_mid"])):
+        wq, sw = _quant_weight(ent["fp"]["w"])
+        sx, inv = _inv_scale(amax)
+        out[name] = {"w_nk": _place_kxk(wq, device),
+                     "scale": (sw * torch.tensor(sx)).to(device).contiguous(),
+                     "b": ent["fp"]["b"].to(device, torch.float32)}
+        out["inv_in" if name == "q1" else "inv_mid"] = float(inv)
+    for name in ("out_s", "out_inv"):
+        if f"stem_{name}" in first:
+            out[name] = _vec(first[f"stem_{name}"], device, compute_dtype)
+    return out
+
+
 def place_quantized(ir: GraphIR, qvars: dict, device,
                     compute_dtype) -> dict:
     """Move :func:`quantize`'s output (or :func:`load_quantized`'s) to
@@ -693,14 +879,20 @@ def place_quantized(ir: GraphIR, qvars: dict, device,
     contiguous; per-tensor
     scales as Python floats (read here once, so that a captured forward
     never syncs on one); the per-channel edge scales in ``compute_dtype``
-    as (1, C, 1, 1); fp entries as :func:`.graph.place_folded` places them.
+    as (1, C, 1, 1); fp entries as :func:`.graph.place_folded` places them;
+    the s2d leaves are not placed (the executors compute the plain basis).
     Returns ``{"params": {"l<i>": {"q": ...}, {"spine": ...} or fp params
-    (with ``out_s`` / ``out_inv`` beside them in edge mode)}}``."""
+    (with ``out_s`` / ``out_inv`` beside them in edge mode, and the int8
+    stem pair as ``"stem8"`` (:func:`_place_stem`) on the first conv of
+    each :func:`.graph.stem_fusion_pairs` pair, as the JAX executors gate
+    on ``stem_pairs``: with ``_FUSE_STEM`` off an int8-stem artifact's
+    stems run as fp convs)}}``."""
     entries = qvars["params"]
     fp = {k: e["fp"] for k, e in entries.items()
           if "fp" in e and "q" not in e}
     placed = G.place_folded(ir, {"params": fp}, device,
                             compute_dtype)["params"]
+    pairs = G.stem_fusion_pairs(ir)     # empty with the stem switch off
     params = {}
     for node in ir.nodes:
         key = f"l{node.index}"
@@ -716,6 +908,10 @@ def place_quantized(ir: GraphIR, qvars: dict, device,
             for name in ("out_s", "out_inv"):
                 if name in e:
                     params[key][name] = _vec(e[name], device, compute_dtype)
+            if node.index in pairs and "amax_in" in e and "amax_mid" in e:
+                params[key]["stem8"] = _place_stem(
+                    e, entries[f"l{pairs[node.index]}"], device,
+                    compute_dtype)
             continue
         qp, wq = e["q"], e["q"]["wq"]
         ent = {"scale": qp["scale"].to(device, torch.float32).contiguous(),
@@ -729,10 +925,7 @@ def place_quantized(ir: GraphIR, qvars: dict, device,
         if _gemm_conv(node):
             ent["k4"] = K4.pack_weights(wq[:, :, 0, 0].t().to(device))
         else:
-            w = wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1)
-            n, k = w.shape
-            ent["w_nk"] = F.pad(w, (0, _pad16(k) - k, 0, _pad16(n) - n)
-                                ).contiguous().to(device)
+            ent["w_nk"] = _place_kxk(wq, device)
         params[key] = {"q": ent}
     return {"params": params}
 
@@ -791,6 +984,28 @@ def qconv(node, x, qp, out_dtype):
     return _int8_conv(node, xq, qp, qp.get("out_inv_s"), out_dtype)
 
 
+def _stem8(ir: GraphIR, node, x, p, dtype, fused: set):
+    """The int8 stem pair starting at ``node`` (JAX quantize._q_fused_stem,
+    in the plain basis) when its entry holds it (``"stem8"``) and ``x`` is
+    even in H and W, else None. The image quantized with its inverse scale,
+    conv 1 as an int8 im2col product whose epilogue requantizes the mid
+    activation to s8, conv 2 likewise to ``dtype``; in ``edge`` mode
+    re-emitted per channel as a :class:`QVal` where ``stem_out_*`` are
+    given. Adds the second conv to ``fused``: its hook passes the pair's
+    output on."""
+    st = p.get("stem8")
+    if st is None or x.shape[2] % 2 or x.shape[3] % 2:
+        return None
+    n2 = ir.nodes[node.index + 1]
+    fused.add(n2.index)
+    y = _int8_conv(node, _quantize_input(x, st["inv_in"]), st["q1"],
+                   st["inv_mid"], dtype)
+    y = _int8_conv(n2, y, st["q2"], None, dtype)
+    if "out_inv" in st:
+        return QVal(_req(y, st["out_inv"]), st["out_s"])
+    return y
+
+
 class QVal:
     """An int8 activation on the running stream or in the cache: the s8
     codes and their scale. A spine add's scale is one Python float (JAX
@@ -820,12 +1035,18 @@ def _apply_chain(ir: GraphIR, params: dict, xv, xl, dtype):
     quantize._apply_q_chain): :func:`.graph.run_graph` with quantized convs
     and spine adds that emit s8 with a per-tensor scale."""
     read = _reader(dtype)
+    fused: set = set()
 
     def conv(node, inp, p):
+        if node.index in fused:         # the int8 stem pair's second conv
+            return inp
         if isinstance(inp, QVal):
             # quantized consumers read the codes: the spine scale is their
             # entry-quantize scale (_plan_spine)
             inp = inp.q if "q" in p else inp.deq(dtype)
+        y = _stem8(ir, node, inp, p, dtype, fused)
+        if y is not None:
+            return y
         if "q" in p:
             return qconv(node, inp, p["q"], dtype)
         return G.conv_folded(node, inp, p)
@@ -874,10 +1095,16 @@ def _apply_edge(ir: GraphIR, params: dict, xv, xl, dtype):
     carry the codes (the max of codes is the code of the max, the scales
     being positive); SE blocks and adds re-emit int8."""
     read = _reader(dtype)
+    fused: set = set()
 
     def conv(node, inp, p):
+        if node.index in fused:         # the int8 stem pair's second conv
+            return inp
         if "q" in p:
             return qconv_edge(node, inp, p["q"], dtype)
+        y = _stem8(ir, node, read(inp), p, dtype, fused)
+        if y is not None:
+            return y
         return G.conv_folded(node, read(inp), p)
 
     def carry(node, vals):
@@ -915,7 +1142,8 @@ def apply_quantized(ir: GraphIR, qvars: dict, xv, xl=None, *,
     ``qvars`` from :func:`place_quantized`; ``mode`` must match the
     :func:`quantize` call that built them (``edge`` has its own hooks of
     :func:`.graph.run_graph`, the other five share one set). The stem pairs
-    run as two fp convs (the second through K3), the heads through K1."""
+    run as the int8 pair where their entries hold it, else as two fp convs
+    (the second through K3); the heads go through K1."""
     _check_mode(mode)
     run = _apply_edge if mode == "edge" else _apply_chain
     heads = run(ir, qvars["params"], xv, xl, compute_dtype)

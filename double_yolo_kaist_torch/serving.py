@@ -186,31 +186,44 @@ class Predictor:
 
     def _load_quantized(self, path: str) -> None:
         """The int8 weights from a quantized-variables artifact, with the
-        JAX package's checks (serving.py:123-160) but its s2d-plan check,
-        the port having no s2d plan."""
+        JAX package's checks (serving.py:163-187): the mode must match;
+        with ``graph._S2D_REGION`` on, an artifact prepared for another
+        size than the server's (img_size, img_size) is refused in edge
+        mode (its plan is derived from that size) and, in the other modes,
+        where its s2d plan differs from the server's."""
         qv, qmode, qhw = Q.load_quantized(path)
         if qmode != self._int8_mode:
             raise ValueError(
                 f"quantized artifact {path} was built for mode={qmode!r}, "
                 f"server requested {self._int8_mode!r}")
         size = (self.img_size, self.img_size)
-        if self._int8_mode == "edge" and qhw is not None and qhw != size:
-            raise ValueError(
-                f"quantized artifact {path} prepared for hw={qhw}, server "
-                f"img_size={self.img_size}: edge-mode plans are derived "
-                f"from the prepare size, so edge artifacts require an exact "
-                f"match — re-export with python -m "
-                f"double_yolo_kaist_torch.calibrate")
+        if qhw is not None and qhw != size and graph._S2D_REGION:
+            if self._int8_mode == "edge":
+                raise ValueError(
+                    f"quantized artifact {path} prepared for hw={qhw}, "
+                    f"server img_size={self.img_size}: edge-mode plans are "
+                    f"derived from the prepare size, so edge artifacts "
+                    f"require an exact match — re-export with python -m "
+                    f"double_yolo_kaist_torch.calibrate")
+            if graph.s2d_plan(self.ir, *qhw) != graph.s2d_plan(self.ir,
+                                                                *size):
+                raise ValueError(
+                    f"quantized artifact {path} prepared for hw={qhw}, "
+                    f"server img_size={self.img_size}, and the s2d plans "
+                    f"differ — it quantizes another model than the "
+                    f"server's; re-export with python -m "
+                    f"double_yolo_kaist_torch.calibrate")
         self._set_qvars(qv)
 
     def _quantize_from_stats(self, stats: dict) -> None:
-        """Quantize the folded weights with calibration ``stats`` (CPU) and
-        place them on the device; int8 serves from then on. Graphs captured
-        on earlier int8 weights are dropped. With a ``quantized`` path that
-        does not exist yet, the variables are saved there."""
+        """Quantize the folded weights with calibration ``stats`` (CPU) for
+        the server's (img_size, img_size) and place them on the device;
+        int8 serves from then on. Graphs captured on earlier int8 weights
+        are dropped. With a ``quantized`` path that does not exist yet, the
+        variables are saved there."""
         hw = (self.img_size, self.img_size)
         qv = Q.quantize(self.ir, self._folded_cpu, stats,
-                        mode=self._int8_mode)
+                        mode=self._int8_mode, hw=hw)
         if self._q_path and not os.path.exists(self._q_path):
             Q.save_quantized(self._q_path, qv, mode=self._int8_mode, hw=hw)
         self._set_qvars(qv)

@@ -38,6 +38,7 @@ from double_yolo_kaist_torch.bench import seeded_variables
 from double_yolo_kaist_torch.config.ir import compile_cfg
 from double_yolo_kaist_torch.data.dataset import KaistDataset
 from double_yolo_kaist_torch.eval import evaluator as TE
+from double_yolo_kaist_torch.models import graph as TG
 from double_yolo_kaist_torch.models import quantize as TQ
 from double_yolo_kaist_torch.models import weights as TW
 from double_yolo_kaist_torch.utils import checkpoint as TCK
@@ -179,6 +180,7 @@ def test_int8_evaluate_matches_jax(flagship, tmp_path, monkeypatch):
     statistically (module docstring)."""
     jir, jv, tir, tv, path = flagship
     monkeypatch.setattr(JG, "_S2D_REGION", False)
+    monkeypatch.setattr(TG, "_S2D_REGION", False)
     cal = str(tmp_path / "cal.npz")
     kw = dict(batch_size=4, conf_thres=0.01, int8=True, calibration=cal)
     ref = JE.evaluate_dataset(jir, jv, JaxDataset(path, IMG, 4, rect=True),
@@ -418,7 +420,6 @@ def test_evaluate_from_quantized_artifact(model, tmp_path, mode):
     ds = KaistDataset(path, IMG, 4, rect=True)
     first = TE.evaluate_dataset(tir, tv, ds, calibration=cal, **kw)
     stats, _ = TQ.load_calibration(cal)
-    from double_yolo_kaist_torch.models import graph as TG
     qv = TQ.quantize(tir, TG.fold_batchnorm(tir, tv), stats, mode=mode)
     TQ.save_quantized(qpath, qv, mode=mode, hw=(IMG, IMG))
     again = TE.evaluate_dataset(tir, None, ds, quantized=qpath, **kw)

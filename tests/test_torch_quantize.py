@@ -22,9 +22,10 @@ What is held, and to what:
     quantized convs, so these two hold the result statistically.
 
 The JAX int8 executor runs its convs in a space-to-depth basis by default,
-re-quantizing the transformed kernels; the comparisons of the int8 forward
-switch that off (``graph._S2D_REGION = False``, read by the JAX functions
-at call time) so that both sides run the same int8 codes.
+re-quantizing the transformed kernels; the comparisons here switch the s2d
+regions off in both packages (``graph._S2D_REGION = False``, read at call
+time) so that both sides quantize and run the same plan in the same basis.
+JAX's defaults are held in tests/test_torch_s2d.py.
 """
 
 import os
@@ -194,6 +195,7 @@ def _quantized_pair(flagship, monkeypatch, mode="chain"):
     same stats and the same folded params."""
     jir, jfold, tir, tfold, _, jstats, _ = flagship
     monkeypatch.setattr(JG, "_S2D_REGION", False)
+    monkeypatch.setattr(TG, "_S2D_REGION", False)
     jq = JQ.quantize(jir, jfold, jstats, mode=mode)["params"]
     tq = TQ.quantize(tir, tfold, jstats, mode=mode)["params"]
     return jq, tq
@@ -382,6 +384,7 @@ def test_int8_predictor_matches_jax(flagship, monkeypatch):
     (fp32, before quantization) matches exactly as in test_torch_slice."""
     jir, _, tir, _, _, _, jv = flagship
     monkeypatch.setattr(JG, "_S2D_REGION", False)
+    monkeypatch.setattr(TG, "_S2D_REGION", False)
     kw = dict(img_size=96, conf_thres=0.01, batch_buckets=(4,), int8=True)
     rng = np.random.default_rng(7)
     reqs = [tuple(rng.integers(0, 256, (3, 64, 96, 3), dtype=np.uint8)

@@ -14,12 +14,13 @@ What is held, and to what:
     fp32 input and the s8 codes its producer emits: to an ulp, or one int8
     step on under 1% of requantized values;
   * the artifacts: written by either package, read by the other bit for
-    bit (bf16 leaves too); TPU-only keys refused; the Predictor served
+    bit (bf16 leaves too); the Predictor served
     from an artifact equal to the one that quantized, and refusing a wrong
     mode or size.
 
-The JAX comparisons switch off its space-to-depth regions
-(``graph._S2D_REGION = False``), as tests/test_torch_quantize.py does.
+The JAX comparisons switch off the space-to-depth regions in both
+packages (``graph._S2D_REGION = False``), as tests/test_torch_quantize.py
+does; tests/test_torch_s2d.py holds them at JAX's defaults.
 """
 
 import dataclasses
@@ -86,8 +87,9 @@ def _out_stats(ir, seed):
 @pytest.mark.parametrize("name", sorted(PLAN_CFGS))
 def test_plan_edges_and_scales_equal_jax(name, monkeypatch):
     """plan_edges at a deployment size and edge_scale_vectors, as JAX's
-    without its s2d regions (the port has none), exactly."""
+    with the s2d regions off in both packages, exactly."""
     monkeypatch.setattr(JG, "_S2D_REGION", False)
+    monkeypatch.setattr(TG, "_S2D_REGION", False)
     path, kw = PLAN_CFGS[name]
     jir, tir = jax_compile_cfg(path, **kw), compile_cfg(path, **kw)
     jt, jo, jf = JQ.plan_edges(jir, (512, 640))
@@ -137,203 +139,7 @@ def test_calibration_files_cross_load(flagship, monkeypatch, tmp_path,
     jstats = {k: (np.asarray(v) if np.ndim(v) else v)
               for k, v in port_stats.items()}
     monkeypatch.setattr(JG, "_S2D_REGION", False)
-    jpath, tpath = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
-    JQ.save_calibration(jpath, jstats)
-    TQ.save_calibration(tpath, port_stats)
-    loaded, _ = TQ.load_calibration(jpath)
-    a = _flat(TQ._to_numpy_tree(TQ.quantize(tir, tfold, loaded, mode=mode)))
-    b = _flat(TQ._to_numpy_tree(TQ.quantize(tir, tfold, jstats, mode=mode)))
-    assert sorted(a) == sorted(b)
-    for k in b:
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    jloaded, _ = JQ.load_calibration(tpath)
-    want = _flat(jax.device_get(JQ.quantize(jir, jfold, jloaded,
-                                            mode=mode)))
-    got = _flat(TQ._to_numpy_tree(TQ.quantize(tir, tfold, port_stats,
-                                              mode=mode)))
-    assert sorted(got) == sorted(want)
-    for k, w in want.items():
-        np.testing.assert_array_equal(got[k], w, err_msg=k)
-
-
-def test_edge_needs_per_channel_stats(flagship):
-    """A calibration made without the ``l<i>.out`` vectors (the port's
-    files before edge mode) is refused in edge mode, never re-calibrated
-    on the quiet; the other modes take it."""
-    _, _, tir, tfold, _, jstats, _ = flagship
-    old = {k: v for k, v in jstats.items() if "." not in k}
-    with pytest.raises(ValueError, match="re-calibrate"):
-        TQ.quantize(tir, tfold, old, mode="edge")
-    assert TQ.quantize(tir, tfold, old, mode="spineall")["params"]
-
-
-def _conv_inputs(flagship, targets):
-    """Each target conv's input in the port's fp32 forward of batch 0."""
-    _, _, tir, tfold, batches, _, _ = flagship
-    inputs = {}
-
-    def record(node, inp, p):
-        if node.index in targets:
-            inputs[node.index] = inp
-        return TG.conv_folded(node, inp, p)
-
-    TG.run_graph(tir, TG.place_folded(tir, tfold, "cpu",
-                                      torch.float32)["params"],
-                 *_port_batches(batches)[0], dtype=torch.float32,
-                 conv=record)
-    assert sorted(inputs) == sorted(targets)
-    return inputs
-
-
-def _hold_conv(got, ref, s8: bool, what):
-    if s8:
-        assert got.dtype == np.int8 and ref.dtype == np.int8, what
-        diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
-        assert diff.max() <= 1 and (diff != 0).mean() < 0.01, what
-    else:
-        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6,
-                                   err_msg=what)
-
-
-def test_every_spineall_conv_matches_jax(flagship, monkeypatch):
-    """Each quantized conv of the spineall plan (the spine-fed 1x1s among
-    them), port vs JAX ``_qconv``, on the same fp32 input and on the s8
-    codes a spine add would hand it: the bounds of
-    test_every_qconv_matches_jax."""
-    tir = flagship[2]
-    jq, tq = _quantized_pair(flagship, monkeypatch, "spineall")
-    qp = TQ.place_quantized(tir, {"params": tq}, "cpu",
-                            torch.float32)["params"]
-    targets, emits, spine = TQ._plan_with_spine(tir, "spineall")
-    inputs = _conv_inputs(flagship, targets)
-    fed = {si + 1 for si in spine}
-    assert fed <= targets and len(fed) == 44
-    for i in sorted(targets):
-        node, x = tir.nodes[i], inputs[i]
-        cases = [x]
-        if i in fed:        # the codes the add before it emits
-            cases.append(TQ._quantize_input(
-                x, tq[f"l{i - 1}"]["spine"]["inv_sy"]))
-        for inp in cases:
-            jin = jnp.asarray(inp.permute(0, 2, 3, 1).numpy())
-            ref = np.asarray(JQ._qconv(
-                jin, jq[f"l{i}"]["q"], stride=node.stride, pad=node.pad,
-                groups=node.groups, act=node.act, out_dtype=jnp.float32))
-            got = TQ.qconv(node, inp, qp[f"l{i}"]["q"], torch.float32)
-            _hold_conv(got.permute(0, 2, 3, 1).numpy(), ref, i in emits,
-                       f"l{i} {inp.dtype}")
-
-
-def test_every_edge_conv_matches_jax(flagship, monkeypatch):
-    """Each quantized conv of the edge plan, port ``qconv_edge`` vs JAX
-    ``_qconv_e``: from the fp32 input (a folded-in conv then quantizes it
-    per channel) and, for the folded-in convs, from the s8 codes of its
-    input edge with their scales. Outputs re-emitted as s8 within one step
-    on under 1%, with the same scale vectors; fp outputs within 1e-6."""
-    tir = flagship[2]
-    jq, tq = _quantized_pair(flagship, monkeypatch, "edge")
-    qp = TQ.place_quantized(tir, {"params": tq}, "cpu",
-                            torch.float32)["params"]
-    targets, _, folded_in = TQ.plan_edges(tir)
-    inputs = _conv_inputs(flagship, targets)
-    n_s8_in = 0
-    for i in sorted(targets):
-        node, x = tir.nodes[i], inputs[i]
-        jqp, tqp = jq[f"l{i}"]["q"], qp[f"l{i}"]["q"]
-        cases = [(x, None)]
-        if i in folded_in:
-            cases.append((TQ._quantize_input(x, tqp["in_inv"]),
-                          _vec(tq[f"l{i}"]["q"]["in_s"])))
-            n_s8_in += 1
-        for inp, xs in cases:
-            jin = jnp.asarray(inp.permute(0, 2, 3, 1).numpy())
-            jxs = None if xs is None else jnp.asarray(xs.reshape(-1).numpy())
-            ref, rs = JQ._qconv_e(jin, jxs, jqp, stride=node.stride,
-                                  pad=node.pad, act=node.act,
-                                  out_dtype=jnp.float32)
-            got = TQ.qconv_edge(node, inp if xs is None else TQ.QVal(inp, xs),
-                                tqp, torch.float32)
-            got, gs = (got.q, got.s) if isinstance(got, TQ.QVal) else (got,
-                                                                       None)
-            _hold_conv(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref),
-                       "out_inv" in jqp, f"l{i} {inp.dtype}")
-            assert (gs is None) == (rs is None)
-            if rs is not None:
-                np.testing.assert_array_equal(gs.reshape(-1).numpy(),
-                                              np.asarray(rs))
-    assert n_s8_in == len(folded_in) > 0
-
-
-def _vec(t):
-    return torch.as_tensor(t).reshape(1, -1, 1, 1)
-
-
-def test_edge_convs_before_activation_bit_equal_jax(flagship, monkeypatch):
-    """Each quantized conv of the edge plan up to its activation (input
-    quantize, int8 product, dequant by the input-folded scales, bias),
-    port against JAX's ``_qconv_e`` run op by op: bit for bit, from the
-    fp32 input; and with its activation too where that is leaky. What the
-    two packages then differ by is mish: torch's and XLA's round an ulp
-    apart on part of each output."""
-    tir = flagship[2]
-    jq, tq = _quantized_pair(flagship, monkeypatch, "edge")
-    qp = TQ.place_quantized(tir, {"params": tq}, "cpu",
-                            torch.float32)["params"]
-    targets = TQ.plan_edges(tir)[0]
-    inputs = _conv_inputs(flagship, targets)
-    drop = ("out_inv", "out_s")
-    acts = set()
-    for i in sorted(targets):
-        jqp = {k: v for k, v in jq[f"l{i}"]["q"].items() if k not in drop}
-        tqp = {k: v for k, v in qp[f"l{i}"]["q"].items() if k not in drop}
-        jin = jnp.asarray(inputs[i].permute(0, 2, 3, 1).numpy())
-        node = tir.nodes[i]
-        acts.add(node.act)
-        for act in {"linear", node.act} - {"mish"}:
-            n = dataclasses.replace(node, act=act)
-            with jax.disable_jit():
-                ref, _ = JQ._qconv_e(jin, None, jqp, stride=n.stride,
-                                     pad=n.pad, act=act,
-                                     out_dtype=jnp.float32)
-            got = TQ.qconv_edge(n, inputs[i], tqp, torch.float32)
-            np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(),
-                                          np.asarray(ref),
-                                          err_msg=f"l{i} {act}")
-    assert acts == {"leaky", "mish"}
-
-
-@pytest.mark.parametrize("mode", ["spine", "spineall", "edge"])
-def test_quantize_new_modes_match_jax(flagship, monkeypatch, mode):
-    """Every leaf of quantize() in the JAX layout, bit for bit: int8
-    kernels (edge: with the input scales folded in), scales, the spine
-    adds' scales, the edge scale vectors and the fp tails."""
-    jq, tq = _quantized_pair(flagship, monkeypatch, mode)
-    want = _flat(jax.device_get(jq))
-    got = _flat(TQ._to_numpy_tree(tq))
-    assert sorted(got) == sorted(want)
-    for k, w in want.items():
-        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
-        np.testing.assert_array_equal(got[k], w, err_msg=k)
-    n_spine = sum("spine" in e for e in tq.values())
-    n_in = sum("in_s" in e.get("q", {}) for e in tq.values())
-    n_out = sum("out_s" in e.get("q", e) for e in tq.values())
-    assert (n_spine, n_in > 0, n_out > 0) == {
-        "spine": (0, False, False), "spineall": (44, False, False),
-        "edge": (0, True, True)}[mode]
-
-
-@pytest.mark.parametrize("mode", ["spine", "spineall", "edge"])
-def test_calibration_files_cross_load(flagship, monkeypatch, tmp_path,
-                                      mode):
-    """A calibration file either package writes loads in the other and
-    quantizes there in each new mode: the JAX package's file gives the
-    port the variables of the stats it was given, and the port's file
-    gives JAX's quantize the port's variables of the same stats, bit for
-    bit."""
-    jir, jfold, tir, tfold, _, port_stats, _ = flagship
-    jstats = {k: (np.asarray(v) if np.ndim(v) else v)
-              for k, v in port_stats.items()}
-    monkeypatch.setattr(JG, "_S2D_REGION", False)
+    monkeypatch.setattr(TG, "_S2D_REGION", False)
     jpath, tpath = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
     JQ.save_calibration(jpath, jstats)
     TQ.save_calibration(tpath, port_stats)
@@ -534,6 +340,7 @@ def _bf16_pair(flagship, monkeypatch, mode):
     it (bf16 biases and fp tails), and the port's quantize of the same."""
     jir, jfold, tir, _, _, jstats, _ = flagship
     monkeypatch.setattr(JG, "_S2D_REGION", False)
+    monkeypatch.setattr(TG, "_S2D_REGION", False)
     bf = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), jfold)
     return jax.device_get(JQ.quantize(jir, bf, jstats, mode=mode))
 
@@ -580,22 +387,6 @@ def test_quantized_artifacts_cross_load(flagship, monkeypatch, tmp_path,
     assert sorted(a) == sorted(b)
     for k in b:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-
-
-@pytest.mark.parametrize("what", ["s2d", "int8_stems"])
-def test_tpu_only_artifact_refused(flagship, tmp_path, what):
-    """An artifact with the JAX package's TPU-only rewrites (s2d kernels
-    prepared for a size, or the int8 fused stem) is refused, naming queue
-    1 item 14, not served without them."""
-    jir, jfold, _, _, _, jstats, _ = flagship
-    path = str(tmp_path / "q.npz")
-    if what == "s2d":                       # JAX's default, with an hw
-        q = JQ.quantize(jir, jfold, jstats, mode="chain", hw=(64, 96))
-    else:
-        q = JQ.quantize(jir, jfold, jstats, mode="edge", int8_stems=True)
-    JQ.save_quantized(path, jax.device_get(q), mode="chain", hw=(64, 96))
-    with pytest.raises(ValueError, match="item 14"):
-        TQ.load_quantized(path)
 
 
 def _frames(seed, n=2):

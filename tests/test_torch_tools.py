@@ -16,7 +16,11 @@ from double_yolo_kaist_torch import compare_clahe, dataset_preview, int8_ab
 from double_yolo_kaist_torch import plot_activations, real_model_overfit
 from double_yolo_kaist_torch import serve_loadtest, serving_bench
 from double_yolo_kaist_torch import train_wallclock, zoo_bench
+from double_yolo_kaist_torch.bench import strip_int8_stems
+from double_yolo_kaist_torch.config.ir import compile_cfg
 from double_yolo_kaist_torch.export_model import main as export_main
+from double_yolo_kaist_torch.models import graph
+from double_yolo_kaist_torch.models import quantize as Q
 from tests.test_torch_quantize import one_thread
 from tests.test_torch_slice import MNV3, TINY
 
@@ -178,11 +182,46 @@ def test_int8_ab_two_modes(capsys):
 
 
 @pytest.mark.parametrize("mode, names", [
-    ("chain+fpstem", "item 14"), ("chain-qgemm", "K4"),
-    ("edge+qgemm", "K4")])
+    ("chain-qgemm", "K4"), ("edge+qgemm", "K4")])
 def test_int8_ab_refuses_jax_suffixes(mode, names):
     with pytest.raises(SystemExit, match=names):
         int8_ab.main(["--modes", "chain", mode, *CPU])
+
+
+def test_int8_ab_fpstem(capsys):
+    """``+fpstem`` runs as in JAX's tools/int8_ab.py: the base mode,
+    quantized for the run's size, less the int8 stems' leaves."""
+    best = int8_ab.main(["--model", TINY, "--modes", "chain",
+                         "chain+fpstem", "--rounds", "1", "--batch", "1",
+                         "--height", "64", "--width", "96", "--iters", "1",
+                         *CPU])
+    assert set(best) == {"chain", "chain+fpstem"}
+    assert "chain+fpstem: " in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mode", ["chain", "edge"])
+def test_strip_int8_stems(mode):
+    """What ``+fpstem`` serves: quantize with int8 stems, less the stems'
+    leaves, is the quantization without them, leaf for leaf (edge keeps
+    the stems' ``stem_out_*``, as JAX's strip does)."""
+    ir = compile_cfg(TINY, yolo_strides=[8, 4])
+    folded = graph.fold_batchnorm(ir, graph.init(ir, 0))
+    rng = np.random.default_rng(0)
+    stats = {}
+    for n in ir.nodes:
+        if n.kind == "conv":
+            stats[f"l{n.index}"] = float(rng.uniform(0.5, 8.0))
+        if n.kind in ("conv", "shortcut", "se"):
+            stats[f"l{n.index}.out"] = rng.uniform(0.1, 6.0, n.out_ch)
+    with_stems = Q.quantize(ir, folded, stats, mode=mode, hw=(64, 96),
+                            int8_stems=True)
+    assert any("stem_q" in e for e in with_stems["params"].values())
+    got = strip_int8_stems(with_stems)["params"]
+    want = Q.quantize(ir, folded, stats, mode=mode, hw=(64, 96))["params"]
+    assert sorted(got) == sorted(want)
+    for k, e in got.items():
+        extra = {"stem_out_s", "stem_out_inv"} if mode == "edge" else set()
+        assert set(e) - extra == set(want[k]), k
 
 
 def test_real_model_overfit(capsys):
