@@ -112,7 +112,7 @@ result line):
      and the snowflake cutout of 8 canvases of 1024x1024 from the same
      uniforms, byte for byte the CPU's, with device ms; one
      make_train_augment_fn(snowflake=True, clahe=True) batch of 8 at 512
-     from the same randoms on the card and the CPU (at most 0.5% of pixels
+     on the gather route from the same randoms on the card and the CPU (at most 0.5% of pixels
      differ, the CPU test's bound against JAX; labels within 1e-5, masks
      equal) and its data ms; the flagship at full width in int8 edge,
      spine and spineall: each Predictor calibrates on two requests of 8,
@@ -225,18 +225,47 @@ result line):
      margin printed; (h) ``dataset_preview``, ``compare_clahe`` and
      ``plot_activations`` (both panels): their PNGs, or, where matplotlib
      is absent (the card's machine), a refusal naming it.
+ 19. slice 15, the training half of item 14 (``--only slice15``): (a) the
+     train augment's matmul route (the default, as JAX's) on the card
+     against the CPU, a batch of 8 at 512 from 512x640 frames with
+     KAIST's hyp, from the same randoms, in fp32 (pixels within 1e-3 of
+     255) and bf16 (within two bf16 ulps: an order of the two taps' sum
+     may tip the resample's rounding by one, which the HSV stage's gains
+     carry into its own), labels within 1e-5 and masks
+     equal; chunked (chunk 3) against unchunked on the card within the
+     same bounds; with the cutout and CLAHE, card against CPU: at most
+     0.5% of the pixels beyond 1e-3 of 255 (as phase 14 holds the gather
+     route), none by 2 levels; the data ms of each route and pixel dtype. (b) The
+     flagship at full width, bf16, bs 8 at 512, K = 4 fused augment +
+     train steps with ``double_buffer`` against without, under
+     deterministic algorithms: metrics and every state leaf bit for bit,
+     the ms of a dispatch of each. (c) A process started with
+     ``DYK_SPLIT_CONCAT_CONV=1``: the flagship (seeded weights) served in
+     bf16, a request of 8 frames launching K1 and K2 once and K3 twice;
+     its forward with the rewrite (18 concats left unbuilt) and without
+     it: in fp32 (TF32 off) their decoded outputs within 1e-4 relative by
+     norm (an exact rewrite), and in bf16, replayed from captured graphs,
+     the rewrite's output no further from the fp32 one than twice the
+     plain bf16 output's distance from it (the partial convs round in
+     bf16 where one conv rounded once). (d) A process started with ``DYK_S2D_TRAIN=1``: one fp32
+     SGD step of the flagship (graph.init, bs 2 at 512x512, TF32 off,
+     deterministic algorithms) eager and captured, in the s2d basis (the
+     stem pair as an e3 entry and an x3 exit) and in the plain basis:
+     losses within 1e-4 relative.
 
 How the script runs. The process started as ``python3 chip_smoke.py``
 never creates a context on the card: it builds the kernels, then starts
 each group of phases as a job, ``chip_smoke.py --job NAME``, a process
 of its own running groups of phases one after another (core: phases
 3-10 and the references of 11's subprocesses, then int8aug: 14, train:
-12-13, tools: 18 (a) and (c) in process; and slice9: 15, then dp: 16;
-then spatial: 17 but (c), and dryrun: 17 (c)), runs every subprocess
+12-13, tools: 18 (a) and (c) in process, slice15: 19 (a) and (b); and
+slice9: 15, then dp: 16; then spatial: 17 but (c), and dryrun: 17
+(c)), runs every subprocess
 whose check needs no card as a task (a thread of the script: phase 11's
 entry points, 13's and 15's train runs, 14's snow train, 15's check-ap,
-16's torchrun train and serve --dp, and 18's tools), and reads what each
-wrote. At most four processes hold a context on the card at once, a rank
+16's torchrun train and serve --dp, 18's tools, and 19 (c) and (d),
+each a ``chip_smoke.py --check NAME`` process with its switch set), and
+reads what each wrote. At most four processes hold a context on the card at once, a rank
 counted as one: each holds one of four slots (flock'd files) from its
 start to its end, taken by whoever starts it; two jobs run at once, a
 job's subprocesses go before the tasks and the tasks go in TASKS' order;
@@ -3262,8 +3291,9 @@ def _clahe_and_cutout(torch, dev):
 
 def _augment_snow_clahe(torch, dev):
     """One make_train_augment_fn(snowflake=True, clahe=True) batch of 8 at
-    512, from the same drawn randoms on the card and on the CPU, and the
-    card's data ms a step (host clock, the call synchronised)."""
+    512 on the gather route (the matmul route's is phase 19 (a)), from the
+    same drawn randoms on the card and on the CPU, and the card's data ms
+    a step (host clock, the call synchronised)."""
     from double_yolo_kaist_torch.config.parser import load_hyp
     from double_yolo_kaist_torch.data import pipeline as P
     hyp = load_hyp(os.path.join(ROOT, "configs", "hyp.scratch.4.yaml"))
@@ -3278,7 +3308,8 @@ def _augment_snow_clahe(torch, dev):
     lab[..., 3:] = rng.uniform(0.05, 0.3, (4 * nb, 6, 2))
     m = torch.from_numpy(rng.random((4 * nb, 6)) < 0.6)
     lab = torch.from_numpy(lab)
-    fn = P.make_train_augment_fn(src, 512, hyp, snowflake=True, clahe=True)
+    fn = P.make_train_augment_fn(src, 512, hyp, snowflake=True, clahe=True,
+                                 resample="gather")
     draws = fn.draw(torch.Generator().manual_seed(SEED), nb)
     want = fn.heavy(v, l, lab, m, **draws)
     args = [t.to(dev) for t in (v, l, lab, m)]
@@ -5688,6 +5719,395 @@ def _labelled_split(torch, dev, mnv3_ir, root):
                     bn_state=jx["state"])
 
 
+# ---------------------------------------------------------------- phase 19
+
+S15_BS = 8                   # the train batch of every slice-15 check
+S15_SIZE = 512               # the train size
+S15_POOL = 32                # pairs of the double buffer's device pool
+S15_K = 4                    # steps a dispatch of the double buffer
+S15_STEP_BS = 2              # the fp32 s2d-train step's batch
+S15_S2D_REL = 1e-4           # s2d against plain: relative loss bound
+S15_CHECKS = ("split_concat", "s2d_train")
+
+
+def _s15_hyp():
+    from double_yolo_kaist_torch.config.parser import load_hyp
+    return load_hyp(os.path.join(ROOT, "configs", "hyp.scratch.4.yaml"))
+
+
+def _s15_far(torch, got, want, pix):
+    """Share of the pixels of ``got`` (on the 0-255 scale) beyond 1e-3 of
+    ``want``'s (fp32) or two bf16 ulps of the value (bf16: the card and
+    the CPU may sum a row's two taps in another order, which can tip the
+    resample's one rounding to bf16 by an ulp, and the HSV stage's gains
+    carry that ulp into its own rounding), and the largest
+    |difference|."""
+    g, w = got.double().cpu(), want.double().cpu()
+    d = (g - w).abs() * 255
+    bound = 1e-3
+    if pix == torch.bfloat16:
+        m = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+        bound = 2 * torch.exp2(torch.floor(torch.log2(m)) - 7) * 255
+    return float((d > bound).double().mean()), float(d.max())
+
+
+def _s15_augment(torch, dev):
+    """(a) The matmul route (JAX's default) on the card against the CPU, a
+    batch of 8 at 512 from 512x640 frames, from the same randoms, in fp32
+    and bf16 pixels; chunked (chunk 3: chunks of 2) against unchunked on
+    the card; the data ms of each route and pixel dtype on the card."""
+    from double_yolo_kaist_torch.data import pipeline as P
+    hyp = _s15_hyp()
+    rng = np.random.default_rng(SEED + 19)
+    nb, src = S15_BS, EVAL_HW
+    v, l = (torch.from_numpy(rng.integers(0, 256, (4 * nb,) + src + (3,),
+                                          dtype=np.uint8)) for _ in "vl")
+    lab = np.zeros((4 * nb, 6, 5), np.float32)
+    lab[..., 1:3] = rng.uniform(0.2, 0.8, (4 * nb, 6, 2))
+    lab[..., 3:] = rng.uniform(0.05, 0.3, (4 * nb, 6, 2))
+    lab = torch.from_numpy(lab)
+    m = torch.from_numpy(rng.random((4 * nb, 6)) < 0.6)
+    args = [t.to(dev) for t in (v, l, lab, m)]
+    numbers, bad = {}, []
+    for pix in (torch.float32, torch.bfloat16):
+        name = "bf16" if pix == torch.bfloat16 else "fp32"
+        fn = P.make_train_augment_fn(src, S15_SIZE, hyp, pix_dtype=pix)
+        if fn.resample != "matmul":
+            raise AssertionError(f"the default route is {fn.resample}")
+        draws = fn.draw(torch.Generator().manual_seed(SEED), nb)
+        want = fn.heavy(v, l, lab, m, **draws)
+        got = fn.heavy(*args, **draws)
+        chunked = P.make_train_augment_fn(src, S15_SIZE, hyp, pix_dtype=pix,
+                                          chunk=3)
+        chunked.draw = lambda g, n: draws
+        parts = chunked(None, *args)
+        for what, a, b in (("card vs CPU", got, want),
+                           ("chunked vs unchunked", parts, got)):
+            far = {k: _s15_far(torch, a[k], b[k], pix) for k in ("v", "l")}
+            t_err = float((a["targets"].cpu() - b["targets"].cpu())
+                          .abs().max())
+            same_m = torch.equal(a["tmask"].cpu(), b["tmask"].cpu())
+            print(f"slice15 augment matmul {name} bs {nb} at {S15_SIZE}, "
+                  f"{what}: pixels beyond the bound v {far['v'][0]:.2e} l "
+                  f"{far['l'][0]:.2e} (largest |diff| {far['v'][1]:.2e} / "
+                  f"{far['l'][1]:.2e} of 255); targets max err {t_err:.2e}, "
+                  f"masks equal {same_m}", flush=True)
+            if (max(far["v"][0], far["l"][0]) > 0 or t_err > 1e-5
+                    or not same_m or a["v"].dtype != pix):
+                bad.append(f"{name} {what}")
+        if pix == torch.float32:
+            # with the cutout and CLAHE: a value on .5 may round to uint8
+            # the other way, and CLAHE carries that level across its
+            # tile: a share of the pixels beyond 1e-3, held as phase 14
+            # holds the gather route, and none by 2 levels or more
+            fc = P.make_train_augment_fn(src, S15_SIZE, hyp, snowflake=True,
+                                         clahe=True)
+            dc = fc.draw(torch.Generator().manual_seed(SEED + 1), nb)
+            a, b = fc.heavy(*args, **dc), fc.heavy(v, l, lab, m, **dc)
+            for k in ("v", "l"):
+                share, big = _s15_far(torch, a[k], b[k], pix)
+                print(f"slice15 augment matmul fp32 snow+clahe, card vs "
+                      f"CPU, {k}: share of pixels beyond 1e-3 {share:.2e} "
+                      f"(bound {AUG_CLAHE_SHARE}), largest |diff| {big:.3f}"
+                      f" (bound 2) of 255", flush=True)
+                if share > AUG_CLAHE_SHARE or big >= 2:
+                    bad.append(f"snow+clahe {k}")
+            if not torch.equal(a["tmask"].cpu(), b["tmask"]):
+                bad.append("snow+clahe masks")
+        for route in ("matmul", "gather"):
+            f = P.make_train_augment_fn(src, S15_SIZE, hyp, pix_dtype=pix,
+                                        resample=route)
+            times = []
+            for i in range(6):
+                t0 = time.perf_counter()
+                f(torch.Generator().manual_seed(SEED + i), *args)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            numbers[f"{route} {name}"] = statistics.median(times[1:])
+    print("slice15 augment data ms a step on the card (host clock, median "
+          "of 5 after 1): " + json.dumps(
+              {k: round(x, 3) for k, x in numbers.items()}), flush=True)
+    if bad:
+        raise AssertionError(f"the matmul augment differs beyond its bound: "
+                             f"{bad}")
+    return numbers
+
+
+def _s15_double_buffer(torch, dev, fir):
+    """(b) The flagship at full width, bf16, bs 8 at 512: K = 4 fused
+    augment + train steps with ``double_buffer`` against without, from the
+    same variables, pool and plan, under deterministic algorithms: the
+    metrics and every leaf of the state equal bit for bit; the ms of a
+    dispatch of each, in turns."""
+    from double_yolo_kaist_torch.data import pipeline as P
+    from double_yolo_kaist_torch.models import graph
+    from double_yolo_kaist_torch.train import optim as OPT
+    from double_yolo_kaist_torch.train import step as ST
+    from double_yolo_kaist_torch.utils.general import deterministic
+    hyp = dict(_s15_hyp(), **{k: TRAIN_HYP[k] for k in ("obj", "cls")})
+    variables = graph.init(fir, SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    pool = [torch.randint(0, 256, (S15_POOL,) + EVAL_HW + (3,),
+                          dtype=torch.uint8, device=dev, generator=gen)
+            for _ in "vl"]
+    rng = np.random.default_rng(SEED + 20)
+    t = np.zeros((S15_K, 4 * S15_BS, 4, 5), np.float32)
+    t[..., 0, 1:3] = rng.uniform(0.3, 0.7, (S15_K, 4 * S15_BS, 2))
+    t[..., 0, 3:] = rng.uniform(0.05, 0.3, (S15_K, 4 * S15_BS, 2))
+    mk = np.zeros((S15_K, 4 * S15_BS, 4), bool)
+    mk[..., 0] = True
+    xs = {"b0": torch.arange(S15_K) * S15_BS,
+          "load": torch.from_numpy(rng.integers(
+              0, S15_POOL, (S15_K, 4 * S15_BS))).long().to(dev),
+          "targets": torch.from_numpy(t).to(dev),
+          "tmask": torch.from_numpy(mk).to(dev)}
+    aug = P.make_train_augment_fn(EVAL_HW, S15_SIZE, hyp, from_pool=True)
+    tx = OPT.make_optimizer(hyp, lambda c: torch.tensor(TRAIN_LR), sgd=True)
+    multi = ST.make_multi_step(fir, hyp, tx)
+    fused = {db: ST.make_fused_multi_step(fir, hyp, tx, aug,
+                                          multi_step=multi, double_buffer=db)
+             for db in (False, True)}
+    out, ms = {}, {False: [], True: []}
+    with deterministic():
+        for db in (False, True):
+            st = ST.create_train_state(fir, SEED, tx, variables=variables,
+                                       device=dev)
+            st, met = fused[db](st, *pool, xs, SEED)
+            out[db] = ([x.detach().clone() for x in ST._state_leaves(st)],
+                       {k: v.clone() for k, v in met.items()})
+        st = ST.create_train_state(fir, SEED, tx, variables=variables,
+                                   device=dev)
+        for _ in range(2):                    # in turns: plain, double, ...
+            for db in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, met = fused[db](st, *pool, xs, SEED)
+                torch.cuda.synchronize()
+                ms[db].append((time.perf_counter() - t0) * 1e3)
+    (s0, m0), (s1, m1) = out[False], out[True]
+    same_m = all(torch.equal(m0[k], m1[k]) for k in ST.METRICS)
+    n_diff = sum(not torch.equal(a, b) for a, b in zip(s0, s1))
+    losses = m0["loss"].float().cpu().tolist()
+    print(f"slice15 double buffer, flagship bf16 bs {S15_BS} at {S15_SIZE}, "
+          f"K={S15_K} fused: metrics equal {same_m}, state leaves differing "
+          f"{n_diff} of {len(s0)}; losses {[round(x, 4) for x in losses]}; "
+          f"ms a dispatch (host clock, in turns) plain "
+          f"{[round(x, 1) for x in ms[False]]}, double "
+          f"{[round(x, 1) for x in ms[True]]}", flush=True)
+    if not same_m or n_diff or not all(np.isfinite(losses)):
+        raise AssertionError("the double-buffered fused steps differ from "
+                             "the plain ones")
+    return {"plain_ms": min(ms[False]), "double_ms": min(ms[True])}
+
+
+def phase_slice15(torch, dev, launches, ir, fir, root):
+    """Phase 19 (a), (b) in the job's process; (c) and (d) are the tasks
+    ``slice15 split-concat`` and ``slice15 s2d-train``."""
+    numbers = {"augment": _s15_augment(torch, dev)}
+    torch.cuda.empty_cache()
+    numbers["double buffer"] = _s15_double_buffer(torch, dev, fir)
+    torch.cuda.empty_cache()
+    print("slice15 numbers: " + json.dumps(numbers), flush=True)
+    return {}, numbers
+
+
+def _s15_check(root, name: str, env: str) -> dict:
+    """Run ``chip_smoke.py --check NAME`` with ``env``=1 set (the switch
+    is read when the port is imported) and read what it wrote."""
+    r = _sub([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--check",
+              name, root], timeout=600,
+             env=dict(os.environ, PYTHONPATH=ROOT, **{env: "1"}))
+    sys.stdout.write(r.stdout)
+    if r.returncode != 0:
+        raise AssertionError(f"--check {name} exited {r.returncode}:\n"
+                             f"{(r.stdout + r.stderr)[-3000:]}")
+    with open(os.path.join(root, f"{name}.json")) as f:
+        return json.load(f)
+
+
+def _nrel(torch, a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _check_split_concat(torch, dev, root):
+    """(c), in a process started with DYK_SPLIT_CONCAT_CONV=1: the flagship
+    (seeded weights) served in bf16 by a Predictor, 8 frames of 512x640:
+    K1 and K2 once and K3 twice in the request's replay. Its forward with
+    the rewrite (18 route concats left unbuilt) and, the switch turned
+    off, without it: fp32 (TF32 off) eagerly, and bf16 replayed from
+    captured graphs, with each replay's ms."""
+    from double_yolo_kaist_torch.bench import seeded_variables
+    from double_yolo_kaist_torch.config.ir import compile_cfg
+    from double_yolo_kaist_torch.cuda_graphs import capture
+    from double_yolo_kaist_torch.models import graph as G
+    from double_yolo_kaist_torch.ops import _build
+    from double_yolo_kaist_torch.serving import Predictor
+    if not G._SPLIT_CONCAT_CONV:
+        raise AssertionError("DYK_SPLIT_CONCAT_CONV=1 did not turn the "
+                             "rewrite on")
+    ir = compile_cfg(FLAGSHIP_CFG)
+    deferred = [n.index for n in ir.nodes
+                if n.kind == "route" and G._defer_concat(ir, n)]
+    variables = seeded_variables(ir, SEED)
+    rng = np.random.default_rng(SEED + 1)
+    v, l = (rng.integers(0, 256, (8, 512, 640, 3), dtype=np.uint8)
+            for _ in "vl")
+    pred = Predictor(ir, variables, img_size=640, device=dev)
+    pred.warmup((512, 640), batch=8)
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    dets = pred(v, l)
+    counts = dict(_build.launches)
+    fn, _, _ = pred._preprocess((512, 640))
+    xv, xl = fn(torch.from_numpy(v).to(dev), torch.from_numpy(l).to(dev))
+    pool = torch.cuda.graph_pool_handle()
+    f32 = G.place_folded(ir, G.fold_batchnorm(ir, variables), dev,
+                         torch.float32)
+    outs, ref, ms = {}, {}, {}
+    with torch.inference_mode():
+        for on in (True, False):
+            G._SPLIT_CONCAT_CONV = on
+            g, out, _ = capture(lambda: G.apply_folded(
+                ir, pred.folded, xv, xl, compute_dtype=torch.bfloat16)[0],
+                dev, pool)
+            g.replay()
+            torch.cuda.synchronize()
+            outs[on] = out.clone()
+            ms[on] = _time_ms(torch, g.replay, iters=10, reps=3, warmup=2)
+            with _NoTF32(torch):
+                ref[on] = G.apply_folded(ir, f32, xv, xl,
+                                         compute_dtype=torch.float32)[0]
+    G._SPLIT_CONCAT_CONV = True
+    exact = _nrel(torch, ref[True], ref[False])
+    split = _nrel(torch, outs[True], ref[False])
+    bf16 = _nrel(torch, outs[False], ref[False])
+    conf = _nrel(torch, outs[True][..., 4], outs[False][..., 4])
+    finite = bool(torch.isfinite(outs[True]).all())
+    n_det = [len(d[1]) for d in dets]
+    res = {"deferred": len(deferred), "counts": counts, "fp32_rel": exact,
+           "split_rel": split, "bf16_rel": bf16, "conf_rel": conf,
+           "finite": finite, "ms_split": ms[True], "ms_plain": ms[False],
+           "dets": n_det}
+    print(f"slice15 split-concat, flagship bs 8 at 512x640 (letterboxed "
+          f"to 640): {len(deferred)} concats left unbuilt; the bf16 "
+          f"request's launches {counts}, detections a frame {n_det}; "
+          f"decoded rows relative by norm: fp32 with vs without "
+          f"{exact:.3e} (bound 1e-4); bf16 with the rewrite vs fp32 "
+          f"{split:.3e}, without it vs fp32 {bf16:.3e} (bound: twice "
+          f"that); bf16 with vs without, objectness {conf:.3e}; bf16 "
+          f"replay ms {ms[True]:.3f} with, {ms[False]:.3f} without",
+          flush=True)
+    return res
+
+
+def _check_s2d_train(torch, dev, root):
+    """(d), in a process started with DYK_S2D_TRAIN=1: the flagship from
+    graph.init, fp32 (TF32 off, deterministic algorithms), bs 2 at
+    512x512: one SGD step eager and one captured (make_multi_step, a CUDA
+    graph), in the s2d basis and, the switch turned off, in the plain
+    basis; each step's loss (computed before the update) within 1e-4
+    relative of the plain one's; the step ms of each."""
+    from double_yolo_kaist_torch.config.ir import compile_cfg
+    from double_yolo_kaist_torch.models import graph as G
+    from double_yolo_kaist_torch.train import optim as OPT
+    from double_yolo_kaist_torch.train import step as ST
+    from double_yolo_kaist_torch.utils.general import deterministic
+    if not G._S2D_TRAIN:
+        raise AssertionError("DYK_S2D_TRAIN=1 did not turn the basis on")
+    ir = compile_cfg(FLAGSHIP_CFG)
+    plan = G.s2d_plan(ir, S15_SIZE, S15_SIZE, exclude_stems=False)
+    variables = G.init(ir, SEED)
+    batch = _train_batch(torch, np.random.default_rng(SEED + 21),
+                         S15_STEP_BS, (S15_SIZE, S15_SIZE), dev)
+    losses, ms = {}, {}
+    with deterministic():
+        for on in (True, False):
+            G._S2D_TRAIN = on
+            for how in ("eager", "captured"):
+                tx = OPT.make_optimizer(TRAIN_HYP,
+                                        lambda c: torch.tensor(TRAIN_LR),
+                                        sgd=True)
+                st = ST.create_train_state(ir, SEED, tx,
+                                           variables=variables, device=dev)
+                multi = ST.make_multi_step(ir, TRAIN_HYP, tx,
+                                           compute_dtype=torch.float32)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if how == "eager":
+                    st, m = multi.step_fn(st, batch)
+                else:
+                    st, m = multi(st, {k: x[None] for k, x in batch.items()})
+                loss = ST.metrics_to_host(m)["loss"]
+                ms[(on, how)] = (time.perf_counter() - t0) * 1e3
+                losses[(on, how)] = loss
+    rel = {how: abs(losses[(True, how)] - losses[(False, how)])
+           / abs(losses[(False, how)]) for how in ("eager", "captured")}
+    res = {"plan": len(plan), "roles": sorted(set(plan.values())),
+           "losses": {f"{'s2d' if on else 'plain'} {how}": x
+                      for (on, how), x in losses.items()},
+           "rel": rel, "ms": {f"{'s2d' if on else 'plain'} {how}": x
+                              for (on, how), x in ms.items()}}
+    print(f"slice15 s2d-train, flagship fp32 bs {S15_STEP_BS} at "
+          f"{S15_SIZE}x{S15_SIZE}: {len(plan)} convs in the s2d basis "
+          f"(roles {res['roles']}); losses {res['losses']}; s2d vs plain "
+          f"relative {rel} (bound {S15_S2D_REL}); step ms (host clock, a "
+          f"captured one with its capture) {res['ms']}", flush=True)
+    return res
+
+
+def _check_main(name: str, root: str) -> int:
+    """``--check NAME ROOT``: one slice-15 check in a process of its own
+    (its switch set by the caller's environment); writes
+    ``ROOT/NAME.json``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    sys.path.insert(0, ROOT)
+    from double_yolo_kaist_torch.ops import _build
+    _build.build_all()
+    fn = {"split_concat": _check_split_concat,
+          "s2d_train": _check_s2d_train}[name]
+    res = fn(torch, torch.device("cuda", 0), root)
+    with open(os.path.join(root, f"{name}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _s15_split_task(root):
+    """The task of (c): its launch counts are the main path's (a request
+    of the flagship bf16 with the rewrite)."""
+    res = _s15_check(root, "split_concat", "DYK_SPLIT_CONCAT_CONV")
+    want = {"decode_head": 1, "nms_indices": 1, "stem_conv_s2": 2}
+    got = {k: res["counts"].get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"split-concat request launches {got}, want "
+                             f"{want}")
+    if not res["finite"] or res["deferred"] < 1:
+        raise AssertionError("split-concat: non-finite output or nothing "
+                             "deferred")
+    if not res["fp32_rel"] <= 1e-4:
+        raise AssertionError(f"split-concat in fp32: {res['fp32_rel']:.3e} "
+                             f"from the forward without it")
+    if not res["split_rel"] <= 2 * res["bf16_rel"]:
+        raise AssertionError(
+            f"split-concat's bf16 forward is {res['split_rel']:.3e} from "
+            f"fp32, more than twice the plain one's {res['bf16_rel']:.3e}")
+    return {"split-concat request": res["counts"]}
+
+
+def _s15_s2d_task(root):
+    res = _s15_check(root, "s2d_train", "DYK_S2D_TRAIN")
+    if not {"e3", "x3"} <= set(res["roles"]):
+        raise AssertionError(f"s2d-train: the stem pair is not planned "
+                             f"(roles {res['roles']})")
+    losses = list(res["losses"].values())
+    if not all(np.isfinite(losses)) or max(res["rel"].values()) > \
+            S15_S2D_REL:
+        raise AssertionError(f"s2d-train: losses {res['losses']} beyond "
+                             f"{S15_S2D_REL} relative")
+    return {}
+
+
 # ------------------------------------------------------------------ the jobs
 #
 # The script runs as one process that never touches the card (it builds
@@ -5878,16 +6298,19 @@ JOBS = {
     "tools": (_job_phase("tools", lambda torch, dev, L, ir, fir, root:
                          phase_tools(torch, dev, L)), False, False),
     "spatial": (_job_phase("spatial", phase_spatial), False, True),
+    "slice15": (_job_phase("slice15", phase_slice15), False, False),
     "dryrun": (None, False, True),      # run by the script itself
 }
 # the whole run's jobs: two lanes, each a process that runs its groups
 # one after another, then the two that have the card to themselves
-RUN = ("core+int8aug+train+tools", "slice9+dp", "spatial", "dryrun")
+RUN = ("core+int8aug+train+tools+slice15", "slice9+dp", "spatial",
+       "dryrun")
 PRODUCERS = ("core", "split")    # the jobs that write the markers
 MAX_MAINS = 2            # jobs at once (two slots are left for subprocesses)
+# a job of several groups: the sum of theirs
 JOB_LIMIT_S = {"core": 300, "slice9": 420, "train": 360, "int8aug": 300,
                "dp": 300, "tools": 180, "spatial": 300, "dryrun": 240,
-               "split": 300}     # a job of several groups: their sum
+               "split": 300, "slice15": 180}
 
 # the subprocess runs whose checks need no card (what they are held
 # against, if anything, a job wrote first): run by the script itself, in
@@ -5921,6 +6344,8 @@ TASKS = {
         lambda root: _serving_bench("Double-YOLOv4-Fshare-Global-CSE3", True),
         "kernels.timed"),
     "tools visual": (_visual, "kernels.timed"),
+    "slice15 split-concat": (_s15_split_task, "kernels.timed"),
+    "slice15 s2d-train": (_s15_s2d_task, "kernels.timed"),
 }
 # the jobs and tasks of each --only name
 ONLY = {name: [name] + [t for t in TASKS if t.split()[0] == name]
@@ -6256,7 +6681,8 @@ def _kernels_line(records):
         its K-step train runs' evaluations; the mesh Predictors, the mesh
         evaluation and the ranks' Trainer fits of dp; the 2-D forwards and
         the 2-D mesh Predictor of spatial; the zoo's card forwards of
-        tools, and the tools' runs."""
+        tools, and the tools' runs; the split-concat request of
+        slice15."""
         return sum(c.get(kernel, 0) for r in records.values()
                    for c in r["counts"].values())
 
@@ -6380,6 +6806,8 @@ def main(argv) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--job"]:
         sys.exit(_job_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--check"]:
+        sys.exit(_check_main(sys.argv[2], sys.argv[3]))
     _become_subreaper()
     try:
         rc = main(sys.argv[1:])

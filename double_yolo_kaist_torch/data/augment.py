@@ -15,9 +15,15 @@ that ``make_train_augment_fn`` takes (reference kaist_dataset.py:213-506):
   * 50% horizontal flip (:func:`flip_lr`);
   * the batched letterbox and its labels (:func:`letterbox_batch`,
     :func:`letterbox_labels`, :func:`letterbox_params`).
-The JAX package's ``matmul`` resample, its ``chunk`` route and its bf16
-pixels exist for the TPU's MXU and arena; the port runs the gathers
-(ROADMAP.md, queue 1 item 14).
+Both of the JAX package's routes for the resampling stages: the
+``gather`` route (row and column takes, then lerps) and the ``matmul``
+route, its default (``random_affine_batch(resample="matmul")``,
+``letterbox.resize_bilinear_mm``: the same taps, clips and borders as
+products with interpolation matrices, JAX augment.py:40-109). The mosaic
+paste is :func:`mosaic_place` on both: JAX's ``mosaic_place_mm`` moves
+pixels by 0 / 1 matrices, so its canvas is this take's, bit for bit.
+Pixels may be fp32 or bf16 (the matmul route accumulates in fp32 and
+rounds once).
 
 Images are NHWC, uint8 or float in [0, 255]; labels are fixed-shape (B, T,
 5) [cls, ...] blocks with a (B, T) mask, carried in absolute xyxy pixels
@@ -33,7 +39,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .letterbox import letterbox_params, pad_sides, resize_bilinear
+from .letterbox import (_matmul_resample, letterbox_params, pad_sides,
+                        resize_bilinear,
+                        resize_bilinear_mm)  # noqa: F401 (JAX's name here)
 
 
 def letterbox_batch(imgs, dst_hw, scale_up: bool = True,
@@ -127,8 +135,9 @@ def _warp_bilinear(img, minv, out_h: int, out_w: int,
     the caller asserts the affine is axis-aligned, so the sample point
     factors into a row and a column coordinate (one row gather, one column
     gather; the same taps, clips, masks and lerp order as the full warp).
-    Returns fp32."""
-    x = img.float()
+    Floating pixels keep their dtype (bf16 for the reduced-precision
+    pixel path), uint8 ones become fp32; coordinates stay fp32."""
+    x = img if img.is_floating_point() else img.float()
     B, h, w, C = x.shape
     dev = x.device
     ys = torch.arange(out_h, dtype=torch.float32, device=dev)
@@ -139,8 +148,8 @@ def _warp_bilinear(img, minv, out_h: int, out_w: int,
         src_x = minv[:, 0, 0, None] * xs + minv[:, 0, 2, None]    # (B, W')
         src_y = minv[:, 1, 1, None] * ys + minv[:, 1, 2, None]    # (B, H')
         x0, y0 = torch.floor(src_x), torch.floor(src_y)
-        wx = (src_x - x0)[:, None, :, None]
-        wy = (src_y - y0)[:, :, None, None]
+        wx = (src_x - x0)[:, None, :, None].to(x.dtype)
+        wy = (src_y - y0)[:, :, None, None].to(x.dtype)
 
         def take_rows(yi):
             inb = (yi >= 0) & (yi < h)
@@ -173,15 +182,16 @@ def _warp_bilinear(img, minv, out_h: int, out_w: int,
     src_x = m[:, 0, 0] * gx + m[:, 0, 1] * gy + m[:, 0, 2]
     src_y = m[:, 1, 0] * gx + m[:, 1, 1] * gy + m[:, 1, 2]
     x0, y0 = torch.floor(src_x), torch.floor(src_y)
-    wx = (src_x - x0)[..., None]
-    wy = (src_y - y0)[..., None]
+    wx = (src_x - x0)[..., None].to(x.dtype)
+    wy = (src_y - y0)[..., None].to(x.dtype)
 
     def gather(yi, xi):
         inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
         yc = yi.clamp(0, h - 1).long()
         xc = xi.clamp(0, w - 1).long()
         v = x[bidx[:, None, None], yc, xc]
-        return torch.where(inb[..., None], v, torch.zeros((), device=dev))
+        return torch.where(inb[..., None], v,
+                           torch.zeros((), dtype=x.dtype, device=dev))
 
     v00 = gather(y0, x0)
     v01 = gather(y0, x0 + 1)
@@ -192,16 +202,41 @@ def _warp_bilinear(img, minv, out_h: int, out_w: int,
     return top * (1 - wy) + bot * wy
 
 
+def _lerp_matrix_warp(src_pos, in_n: int, dtype):
+    """(..., n_out) sample positions -> (..., n_out, in_n) interpolation
+    matrices: exactly the separable warp's taps (floor base, weight not
+    clipped, taps at clip(i, 0, n - 1), each masked by its own in-bounds
+    test: a zero border; JAX augment.py:94-109)."""
+    i0 = torch.floor(src_pos)
+    w = (src_pos - i0).to(dtype)
+    ar = torch.arange(in_n, dtype=torch.float32, device=src_pos.device)
+    zero = torch.zeros((), dtype=dtype, device=src_pos.device)
+
+    def tap(i, tw):
+        inb = (i >= 0) & (i < in_n)
+        ic = i.clamp(0, in_n - 1)
+        return torch.where(inb[..., None],
+                           (ar == ic[..., None]).to(dtype) * tw[..., None],
+                           zero)
+
+    return tap(i0, 1.0 - w) + tap(i0 + 1, w)
+
+
 def random_affine_batch(generator, v_imgs, l_imgs, labels, lmask, *,
                         degrees=0.0, translate=0.0, scale=0.0, shear=0.0,
-                        border: int = 0, Ms=None, separable=None):
+                        border: int = 0, Ms=None, separable=None,
+                        resample: str = "gather"):
     """Random affine of both modalities and their labels (JAX
     augment.py:313-391). labels: (B, T, 5) [cls, x1, y1, x2, y2] absolute
     in the source frame; the output frame is (H + 2 border, W + 2 border).
     ``Ms``: pre-drawn (M, s) (:func:`affine_from_draws`), else drawn from
     ``generator``; with ``Ms`` pass ``separable`` explicitly (whether the
     matrices are axis-aligned cannot be told from the degrees / shear
-    defaults). Returns (v, l, labels, mask)."""
+    defaults). ``resample``: ``"gather"`` (:func:`_warp_bilinear`) or
+    ``"matmul"``, which applies only to a separable affine: per-image
+    interpolation matrices in the pixels' dtype (fp32 for uint8), the
+    products accumulated in fp32 (:func:`_matmul_resample`). Returns (v,
+    l, labels, mask)."""
     B, H, W = v_imgs.shape[:3]
     out_h, out_w = H + border * 2, W + border * 2
     dev = v_imgs.device
@@ -215,8 +250,20 @@ def random_affine_batch(generator, v_imgs, l_imgs, labels, lmask, *,
                               scale, shear, border)
     M, s = (t.to(dev, torch.float32) for t in Ms)
     Minv = torch.linalg.inv(M)
-    v_out = _warp_bilinear(v_imgs, Minv, out_h, out_w, separable)
-    l_out = _warp_bilinear(l_imgs, Minv, out_h, out_w, separable)
+    if resample == "matmul" and separable:
+        dtype = (v_imgs.dtype if v_imgs.is_floating_point()
+                 else torch.float32)
+        xs = torch.arange(out_w, dtype=torch.float32, device=dev)
+        ys = torch.arange(out_h, dtype=torch.float32, device=dev)
+        src_x = Minv[:, 0, 0, None] * xs + Minv[:, 0, 2, None]   # (B, W')
+        src_y = Minv[:, 1, 1, None] * ys + Minv[:, 1, 2, None]   # (B, H')
+        rm = _lerp_matrix_warp(src_y, H, dtype)                  # (B, H', H)
+        cm = _lerp_matrix_warp(src_x, W, dtype)                  # (B, W', W)
+        v_out = _matmul_resample(v_imgs.to(dtype), rm, cm)
+        l_out = _matmul_resample(l_imgs.to(dtype), rm, cm)
+    else:
+        v_out = _warp_bilinear(v_imgs, Minv, out_h, out_w, separable)
+        l_out = _warp_bilinear(l_imgs, Minv, out_h, out_w, separable)
 
     # the 4 corners of every box (reference kaist_dataset.py:452-462)
     x1, y1 = labels[..., 1], labels[..., 2]

@@ -36,18 +36,51 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..train.loss import pad_labels
 from . import augment as A
-from .letterbox import clahe_u8, resize_bilinear
+from .letterbox import clahe_u8, resize_bilinear, resize_bilinear_mm
 
 # the quadra path's cutout settings (reference kaist_dataset.py:276)
 N_SNOW, N_THR, CUT_STEP = 80, 24, 32
 
 
+def aug_defaults(chunk=None, pix_dtype=None, resample=None):
+    """``make_train_augment_fn``'s (chunk, pix_dtype, resample), each
+    given or read from the environment as the JAX package reads it when
+    the function is made (pipeline.py:108-122): ``DYK_AUG_CHUNK`` (default
+    8; 0 turns chunking off), ``DYK_AUG_DTYPE`` (``bf16`` / ``bfloat16``
+    selects bf16, anything else fp32), ``DYK_AUG_RESAMPLE`` (default
+    ``matmul``; else ``gather``)."""
+    if pix_dtype is None:
+        pix_dtype = (torch.bfloat16
+                     if os.environ.get("DYK_AUG_DTYPE", "") in
+                     ("bf16", "bfloat16") else torch.float32)
+    if resample is None:
+        resample = os.environ.get("DYK_AUG_RESAMPLE", "matmul")
+    if resample not in ("matmul", "gather"):
+        raise ValueError(f"resample must be 'matmul' or 'gather', "
+                         f"got {resample!r}")
+    if chunk is None:
+        chunk = int(os.environ.get("DYK_AUG_CHUNK", "8"))
+    return chunk, pix_dtype, resample
+
+
+def chunk_size(nb: int, chunk: int) -> int:
+    """The canvases a chunk of a batch of ``nb``: the largest divisor of
+    ``nb`` that is at most ``chunk`` (JAX pipeline.py:207-208); ``nb``
+    when ``chunk`` is 0."""
+    if not chunk:
+        return nb
+    return max((d for d in range(1, nb + 1) if nb % d == 0 and d <= chunk),
+               default=nb)
+
+
 def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
                           snowflake: bool = False, clahe: bool = False,
                           epoch_partners: bool = True,
-                          from_pool: bool = False, shard=None):
-    """The train-time augmentation program (JAX pipeline.py:45-222, its
-    ``gather`` route, unchunked, fp32 pixels).
+                          chunk: int | None = None,
+                          from_pool: bool = False, shard=None,
+                          pix_dtype=None, resample: str | None = None):
+    """The train-time augmentation program (JAX pipeline.py:45-222), on
+    either route, chunked or not, in fp32 or bf16 pixels.
 
     Returns ``fn(generator, v_u8, l_u8, labels, lmask)`` -> batch dict for
     the train step ({"v", "l"}: (B, s, s, 3) fp32 in [0, 1]; "targets":
@@ -69,12 +102,31 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
     deviation from the reference, whose mosaic path never CLAHEs: eval
     always CLAHEs under ``clahe``, so training does too.
 
+    ``resample``: how the resampling stages move pixels: ``"matmul"``
+    (the default, JAX's: the resize and the axis-aligned affine as
+    products with interpolation matrices, accumulated in fp32;
+    :func:`.letterbox.resize_bilinear_mm`) or ``"gather"`` (the takes and
+    lerps; also what a rotating or shearing affine runs on either route).
+    The mosaic paste is :func:`.augment.mosaic_place` on both (JAX's
+    ``mosaic_place_mm`` gives its bits). The routes differ
+    by how two taps are summed: at most about 1 u8 level, more after
+    CLAHE's rounding; labels and masks are the same. ``pix_dtype``: the
+    pixels' compute and storage type through the program, fp32 or bf16
+    (the label geometry stays fp32; the train step takes bf16 inputs).
+    ``chunk``: the heavy work runs on chunks of :func:`chunk_size` canvases
+    one after another (bounds the temporaries); the output is the
+    unchunked one's. Each of the three is read from the environment when
+    not given (:func:`aug_defaults`: ``DYK_AUG_RESAMPLE``,
+    ``DYK_AUG_CHUNK``, ``DYK_AUG_DTYPE``; by default matmul, 8, fp32).
+
     Every random is drawn at full-batch shape, on the CPU, from five
     streams seeded from ``generator`` in JAX's order (mosaic, cutout,
     affine, HSV, flip); the cutout stream is drawn only with
     ``snowflake`` and moves none of the others. ``fn.heavy`` runs the
     transforms from given randoms, as JAX's ``heavy`` does, and
-    ``fn.draw(generator, nb)`` returns them.
+    ``fn.draw(generator, nb)`` returns them (``fn`` calls ``fn.draw``, so
+    that a caller may hand it randoms of its own). ``fn.chunk``,
+    ``fn.pix_dtype`` and ``fn.resample`` say what the function runs.
 
     ``shard``: (rank, ranks) under data parallelism. The inputs are still
     the global batch's; the randoms are drawn for all of it, then rank r
@@ -86,6 +138,9 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
     h1, w1 = int(src_hw[0] * r), int(src_hw[1] * r)
     separable = (hyp.get("degrees", 0.0) == 0.0
                  and hyp.get("shear", 0.0) == 0.0)
+    chunk, pix_dtype, resample = aug_defaults(chunk, pix_dtype, resample)
+    mm = resample == "matmul"
+    resize = resize_bilinear_mm if mm else resize_bilinear
 
     def draw(generator, nb: int) -> dict:
         seeds = torch.randint(0, 2 ** 62, (5,), generator=generator).tolist()
@@ -125,19 +180,20 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
         bw, bh = labels[..., 3] * w1, labels[..., 4] * h1
         lab = torch.stack([labels[..., 0], cx - bw / 2, cy - bh / 2,
                            cx + bw / 2, cy + bh / 2], -1)
-        v4t = resize_bilinear(v_u8[idx], h1, w1)           # (b, 4, h1, w1, 3)
-        l4t = resize_bilinear(l_u8[idx], h1, w1)
+        v4t = resize(v_u8[idx], h1, w1, dtype=pix_dtype)  # (b, 4, h1, w1, 3)
+        l4t = resize(l_u8[idx], h1, w1, dtype=pix_dtype)
         v4, l4, lab4, m4 = A.mosaic_place(v4t, l4t, lab[idx], lmask[idx],
                                           centers.to(dev), s)
         if snowflake or clahe:
-            v4, l4 = clahe_u8(v4), clahe_u8(l4)
+            v4 = clahe_u8(v4).to(pix_dtype)
+            l4 = clahe_u8(l4).to(pix_dtype)
         if snowflake:
             v4, l4, m4 = A.snowflake_cutout(None, v4, l4, lab4, m4,
                                             n_thr=N_THR, step=CUT_STEP,
                                             n_snow=N_SNOW, u=cut_u)
         v4, l4, lab4, m4 = A.random_affine_batch(
             None, v4, l4, lab4, m4, border=-s // 2, Ms=Ms,
-            separable=separable)
+            separable=separable, resample=resample)
         v4, l4 = A.hsv_jitter(None, v4, l4, 0, 0, 0, gains=hsv_r)
         targets = A.xyxy_to_norm_xywh(lab4, m4, (s, s))
         v4, l4, targets = A.flip_lr(None, v4, l4, targets, do=do)
@@ -152,7 +208,7 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
             labels, lmask = rest
         rows = labels.shape[0]
         nb = rows // 4 if epoch_partners else rows
-        d = draw(generator, nb)
+        d = fn.draw(generator, nb)
         if shard is not None:
             d, need = _rank_draws(d, nb, *shard)
             labels, lmask = labels[need.to(labels.device)], \
@@ -165,11 +221,26 @@ def make_train_augment_fn(src_hw, img_size: int, hyp: dict,
         if from_pool:
             v_u8 = v_u8.index_select(0, load_idx)
             l_u8 = l_u8.index_select(0, load_idx)
-        return heavy(v_u8, l_u8, labels, lmask, **d)
+        rows = d["do"].shape[0]
+        c = chunk_size(rows, chunk)
+        if c == rows:
+            return heavy(v_u8, l_u8, labels, lmask, **d)
+        parts = [heavy(v_u8, l_u8, labels, lmask, **_draw_rows(d, lo, lo + c))
+                 for lo in range(0, rows, c)]
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
     fn.heavy = heavy
     fn.draw = draw
+    fn.chunk, fn.pix_dtype, fn.resample = chunk, pix_dtype, resample
     return fn
+
+
+def _draw_rows(d: dict, lo: int, hi: int) -> dict:
+    """Rows [lo, hi) of the randoms ``d`` (their ``idx`` still index the
+    same input rows)."""
+    return {k: None if v is None
+            else tuple(t[lo:hi] for t in v) if isinstance(v, tuple)
+            else v[lo:hi] for k, v in d.items()}
 
 
 def _rank_draws(d: dict, nb: int, rank: int, ranks: int):
@@ -178,10 +249,7 @@ def _rank_draws(d: dict, nb: int, rank: int, ranks: int):
     indexes those rows."""
     if nb % ranks:
         raise ValueError(f"batch {nb} does not split over {ranks} ranks")
-    lo, hi = rank * nb // ranks, (rank + 1) * nb // ranks
-    out = {k: None if v is None
-           else tuple(t[lo:hi] for t in v) if isinstance(v, tuple)
-           else v[lo:hi] for k, v in d.items()}
+    out = _draw_rows(d, rank * nb // ranks, (rank + 1) * nb // ranks)
     need = torch.unique(out["idx"].reshape(-1), sorted=True)
     out["idx"] = torch.searchsorted(need, out["idx"])
     return out, need

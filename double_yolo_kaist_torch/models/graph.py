@@ -11,11 +11,18 @@ inference rewrites: :func:`stem_fusion_pairs`, :func:`s2d_candidates`,
 :func:`s2d_plan` and :func:`s2d_basis`, under its switches ``_FUSE_STEM``
 and ``_S2D_REGION`` (env ``DYK_FUSE_STEM``, ``DYK_S2D_REGION``, both on by
 default). They give the same dicts as the JAX package's for any cfg and
-size, and they set the int8 plans (``models/quantize.py``). The rewrites
-themselves (the fused stem, the s2d basis, split-concat) are exact
-rewrites for the TPU's 128 lanes; the port computes the same function in
-the plain basis, which the H100 A/B kept (PERF.md). The stem convs (3x3,
-stride 2, C_in 32) run through kernel K3 (:mod:`..ops.stem`).
+size, and they set the int8 plans (``models/quantize.py``). The fused
+stem and the s2d basis are exact rewrites for the TPU's 128 lanes; the
+port's inference computes the same function in the plain basis, which the
+H100 A/B kept (PERF.md). The JAX package's two opt-in rewrites are the
+port's too, off by default as there: ``_S2D_TRAIN`` (env
+``DYK_S2D_TRAIN=1``: :func:`apply` runs the s2d plan's thin-channel
+regions in the s2d basis, the stem pair as an e3 entry and an x3 exit,
+BN pooling the phases) and ``_SPLIT_CONCAT_CONV`` (env
+``DYK_SPLIT_CONCAT_CONV``: :func:`apply_folded` leaves a route concat that
+feeds one standard conv unbuilt and sums that conv over the pieces).
+The stem convs (3x3, stride 2, C_in 32) run through kernel K3
+(:mod:`..ops.stem`).
 
 Activations are NCHW in shape and channels-last in memory, so the convs run
 on cuDNN's NHWC kernels and the NHWC images the caller passes in are read
@@ -135,18 +142,20 @@ def _dropout_uniforms(node, x, seed, space):
 
 
 def _exec_node(node, p, s, x, x2, cache, *, train, seed, group=None,
-               space=None):
+               space=None, s2d_role=None):
     """One IR node of the unfolded forward. Returns (x, new BN state entry
     or None, head conv output or None). ``group``: BN's statistics group
     (:func:`.layers.batch_norm`); ``space``: the band's
-    :class:`..parallel.spatial.SpaceShard`."""
+    :class:`..parallel.spatial.SpaceShard`; ``s2d_role``: a conv's role
+    in the s2d basis (:func:`.layers.conv_bn_act`)."""
     kind = node.kind
     ns = head = None
     if kind == "conv":
         inp = x2 if node.takes_second_input else x
         x, bn_s = L.conv_bn_act(inp, p, s, stride=node.stride, pad=node.pad,
                                 groups=node.groups, act=node.act, bn=node.bn,
-                                train=train, group=group, space=space)
+                                train=train, group=group, space=space,
+                                s2d_role=s2d_role)
         if node.bn and train:
             ns = bn_s
     elif kind == "dwconv":
@@ -225,6 +234,13 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
         and decodes them, so that every rank of the row returns what one
         device returns for its images. A graph whose strides do not split
         the band raises before any collective runs, naming the node.
+
+    With ``_S2D_TRAIN`` (env ``DYK_S2D_TRAIN=1``, JAX graph.py:305-313) the
+    convs of ``s2d_plan(ir, H, W, exclude_stems=False)`` at the input's
+    size run in the s2d basis, in train and eval mode (JAX graph.py:175):
+    an exact rewrite, the params and state the plain basis's. On a band
+    (``space``) the plan of the image is not the band's, and the plain
+    basis computes the same function: the 2-D path keeps it.
     """
     params, state = variables["params"], variables["state"]
     if space is not None:
@@ -244,6 +260,9 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
         else:
             seed = int(torch.randint(0, 2 ** 62, (1,), generator=rng))
 
+    plan = (s2d_plan(ir, xv.shape[1], xv.shape[2], exclude_stems=False)
+            if _S2D_TRAIN and space is None else {})
+
     n = len(ir.nodes)
     if remat_segments and train:
         bounds = [round(i * n / remat_segments)
@@ -260,7 +279,8 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
             x, ns, head = _exec_node(node, params.get(key), state.get(key),
                                      x, x2, {**cache, **new_cache},
                                      train=train, seed=seed, group=group,
-                                     space=space)
+                                     space=space,
+                                     s2d_role=plan.get(node.index))
             if ns is not None:
                 seg_state[key] = ns
             if head is not None:
@@ -310,6 +330,19 @@ def apply(ir: GraphIR, variables: dict, xv, xl=None, *, train: bool = False,
 # or as the int8 pair of an artifact quantized with ``int8_stems``.
 _FUSE_STEM = os.environ.get("DYK_FUSE_STEM", "1") != "0"
 _S2D_REGION = os.environ.get("DYK_S2D_REGION", "1") != "0"
+
+# The JAX package's opt-in training-path s2d (JAX graph.py:305-313): with
+# ``DYK_S2D_TRAIN=1`` (and the s2d regions on) :func:`apply` runs the
+# s2d plan's convs in the s2d basis, BN pooling the phases. Off by
+# default, as in JAX.
+_S2D_TRAIN = (os.environ.get("DYK_S2D_TRAIN", "0") == "1") and _S2D_REGION
+
+# The JAX package's opt-in concat elimination (JAX graph.py:266-271): with
+# ``DYK_SPLIT_CONCAT_CONV`` set to anything but 0, the BN-folded fp
+# forward leaves a route concat that feeds one standard conv unbuilt, and
+# that conv sums partial convs over input-channel slices of its kernel:
+# conv(cat(a, b), W) == conv(a, W[:, :Ca]) + conv(b, W[:, Ca:]).
+_SPLIT_CONCAT_CONV = os.environ.get("DYK_SPLIT_CONCAT_CONV", "0") != "0"
 
 
 def stem_fusion_pairs(ir: GraphIR) -> dict:
@@ -570,7 +603,19 @@ def place_folded(ir: GraphIR, folded: dict, device, compute_dtype) -> dict:
 def conv_folded(node, inp, p):
     """One BN-folded standard conv + activation. The convs K3 takes (3x3,
     stride 2, pad 1, C_in 32, mish or leaky) go through it; the rest go to
-    ``F.conv2d``."""
+    ``F.conv2d``. ``inp`` may be a list, the pieces of a route concat left
+    unbuilt (``_SPLIT_CONCAT_CONV``): the conv is then the sum of the
+    pieces' convs with the kernel's input-channel slices, the bias added
+    to the sum (JAX graph.py:545-557)."""
+    if isinstance(inp, list):
+        y, c0 = None, 0
+        for seg in inp:
+            c = seg.shape[1]
+            part = L.conv2d(seg, p["w"][:, c0:c0 + c], stride=node.stride,
+                            pad=node.pad)
+            y = part if y is None else y + part
+            c0 += c
+        return activate(node.act, y + p["b"].to(y.dtype)[:, None, None])
     if K3.matches(node):
         return K3.stem_conv_s2(inp, p["k3"], node.act)
     return activate(node.act, L.conv2d(inp, p["w"], p["b"],
@@ -578,8 +623,20 @@ def conv_folded(node, inp, p):
                                          groups=node.groups))
 
 
+def _defer_concat(ir: GraphIR, node) -> bool:
+    """A route concat that ``_SPLIT_CONCAT_CONV`` leaves unbuilt (JAX
+    graph.py:559-567): several inputs, read by no later node but the next,
+    and the next a standard conv (groups 1) on the running activation."""
+    nxt = (ir.nodes[node.index + 1]
+           if node.index + 1 < len(ir.nodes) else None)
+    return (len(node.inputs) > 1 and node.index not in ir.consumed
+            and nxt is not None and nxt.kind == "conv" and nxt.groups == 1
+            and not nxt.takes_second_input)
+
+
 def run_graph(ir: GraphIR, params: dict, xv, xl=None, *, dtype,
-              conv=conv_folded, read=None, carry=None, after=None):
+              conv=conv_folded, read=None, carry=None, after=None,
+              split_concat: bool = False):
     """Walk the graph on NHWC images ``xv`` / ``xl`` in ``dtype``.
     ``conv(node, input, params)`` computes each standard conv node; every
     other node kind reads ``params["l<i>"]`` as BN-folded fp params.
@@ -589,6 +646,9 @@ def run_graph(ir: GraphIR, params: dict, xv, xl=None, *, dtype,
     its output, or None for the fp path (the int8 edges carry their codes);
     ``after(node, x)``, if given, sees each node's output and returns what
     goes on (calibration records it, the int8 executors re-emit s8 there).
+    ``split_concat``: the route concats :func:`_defer_concat` picks stay
+    lists of their pieces, which ``conv`` then receives (only
+    :func:`conv_folded` takes them; JAX's int8 forward never defers).
     Returns [(head conv output (bs, na*no, ny, nx), yolo node)]."""
     # NHWC -> NCHW shape over channels-last memory: a view, no copy
     x = xv.to(dtype).permute(0, 3, 1, 2)
@@ -627,7 +687,12 @@ def run_graph(ir: GraphIR, params: dict, xv, xl=None, *, dtype,
                 x = L.upsample_nearest(rd(x), node.scale)
             else:
                 feats = [rd(v) for v in vals]
-                x = feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
+                if len(feats) == 1:
+                    x = feats[0]
+                elif split_concat and _defer_concat(ir, node):
+                    x = feats        # the next conv sums over the pieces
+                else:
+                    x = torch.cat(feats, dim=1)
         elif kind == "avgpool":
             x = L.adaptive_avg_pool(rd(x), node.out_size)
         elif kind == "shortcut":
@@ -670,8 +735,11 @@ def apply_folded(ir: GraphIR, variables: dict, xv, xl=None, *,
       compute_dtype: dtype the activations run in (default: ``xv``'s).
 
     Returns (decoded (bs, total rows, no) fp32, raw heads), raw heads as
-    (bs, na, ny, nx, no) views of the head convs' outputs.
+    (bs, na, ny, nx, no) views of the head convs' outputs. Under
+    ``_SPLIT_CONCAT_CONV`` the concats feeding one standard conv stay
+    unbuilt (:func:`conv_folded`).
     """
     heads = run_graph(ir, variables["params"], xv, xl,
-                      dtype=compute_dtype or xv.dtype)
+                      dtype=compute_dtype or xv.dtype,
+                      split_concat=_SPLIT_CONCAT_CONV)
     return decode_heads(heads, xv.shape[0], xv.device)

@@ -162,7 +162,7 @@ def inception(x, params, state=None, *, train: bool = False, group=None,
 
 # ------------------------------------------------------- trainable conv ops
 
-def batch_norm(x, params, state, train: bool, group=None):
+def batch_norm(x, params, state, train: bool, group=None, phases: int = 1):
     """BatchNorm2d over NCHW. Returns (y in ``x``'s dtype, new state).
 
     In train mode the statistics are the batch's, in fp32 (or wider): the
@@ -177,16 +177,36 @@ def batch_norm(x, params, state, train: bool, group=None):
     the ranks' means, the mean of the ranks' squared deviations from it,
     and ``n`` the global count. The all-reduces are differentiable
     (:func:`..parallel.multihost.all_reduce_sum`), so the gradient flows
-    through the global statistics to every rank."""
+    through the global statistics to every rank.
+
+    ``phases``: 4 when ``x`` is a phase-minor s2d tensor (B, 4C, H/2,
+    W/2), channel 4c + phase (:func:`_s2d_w`'s order): the statistics
+    pool each channel's four phases with the batch and the plane, so that
+    they are the plain basis's per-channel ones, and broadcast back to the
+    phases; the state stays C-shaped. With ``group`` the phases are pooled
+    first, then the ranks."""
+
+    def pool(v):                # per channel: mean over N, H, W (+ phases)
+        if phases == 1:
+            return v.mean(dim=(0, 2, 3))
+        b, c, h, w = v.shape
+        return v.reshape(b, c // phases, phases, h, w).mean(
+            dim=(0, 2, 3, 4))
+
+    def bcast(v):               # (C,) -> (C phases, 1, 1)
+        if phases != 1:
+            v = v.repeat_interleave(phases)
+        return v[:, None, None]
+
     if train:
         xf = _at_least_f32(x)
-        mean = xf.mean(dim=(0, 2, 3))
-        n = x.shape[0] * x.shape[2] * x.shape[3]
+        mean = pool(xf)
+        n = x.shape[0] * x.shape[2] * x.shape[3] * phases
         if group is not None:
             from ..parallel.multihost import all_reduce_sum
             w = torch.distributed.get_world_size(group)
             mean = all_reduce_sum(mean, group) / w
-        var = torch.square(xf - mean[:, None, None]).mean(dim=(0, 2, 3))
+        var = pool(torch.square(xf - bcast(mean)))
         if group is not None:
             var = all_reduce_sum(var, group) / w
             n = n * w
@@ -200,15 +220,36 @@ def batch_norm(x, params, state, train: bool, group=None):
         mean, var = state["mean"], state["var"]
         new_state = state
     inv = torch.rsqrt(var + BN_EPS) * params["scale"]
-    y = ((_at_least_f32(x) - mean[:, None, None]) * inv[:, None, None]
-         + params["bias"][:, None, None])
+    y = ((_at_least_f32(x) - bcast(mean)) * bcast(inv)
+         + bcast(params["bias"]))
     return y.to(x.dtype), new_state
 
 
 def conv_bn_act(x, params, state, *, stride=(1, 1), pad=0, groups=1,
-                act="linear", bn=True, train=False, group=None, space=None):
+                act="linear", bn=True, train=False, group=None, space=None,
+                s2d_role=None):
     """Conv (output in ``x``'s dtype) + BN or bias + activation (JAX
-    layers.py:344-374). Returns (y, new BN state or ``state``)."""
+    layers.py:344-374). Returns (y, new BN state or ``state``).
+
+    ``s2d_role``: the conv runs in the phase-minor s2d basis as that role
+    (:func:`_s2d_w`, :data:`_S2D_GEOM`; ``graph.s2d_plan``), its kernel
+    transformed from the plain one on every call (so the gradient reaches
+    the plain kernel and the params, optimizer and checkpoints are the
+    plain basis's), and BN pools the phases (``phases=4``, an x3 exit's
+    plain output 1). An exact rewrite of the plain conv; not on a band
+    (``space``)."""
+    if s2d_role:
+        s, ((pt, pb), (pl, pr)) = _S2D_GEOM[s2d_role]
+        wt = _s2d_w(params["w"], s2d_role)
+        y = F.conv2d(F.pad(x, (pl, pr, pt, pb)), wt.to(x.dtype), stride=s)
+        phases = 1 if s2d_role == "x3" else 4
+        if bn:
+            y, state = batch_norm(y, params["bn"], state, train, group,
+                                  phases=phases)
+        else:
+            y = y + s2d_bias(params["b"], s2d_role).to(y.dtype)[:, None,
+                                                               None]
+        return activate(act, y.to(x.dtype)), state
     y = conv2d(x, params["w"], stride=stride, pad=pad, groups=groups,
                space=space)
     if bn:
@@ -257,8 +298,10 @@ def dropout(x, p: float, generator: torch.Generator, u=None):
 # all of its plain channel's weights: quantizing either per output channel
 # gives the same scale and the same codes. The int8 artifacts hold these
 # kernels (``models/quantize.py`` writes them and checks them on load). The
-# port executes every conv in the plain basis: on the H100 the s2d basis
-# lost its A/B (PERF.md, Findings).
+# port's inference executes every conv in the plain basis (on the H100 the
+# s2d basis lost its A/B, PERF.md, Findings); the training path runs the
+# basis under JAX's opt-in ``DYK_S2D_TRAIN`` (``conv_bn_act(s2d_role=)``,
+# ``batch_norm(phases=4)``, ``graph.apply``).
 
 def stem_pair_weights(w1, w2):
     """(O1, C, 3, 3) + (O2, O1, 3, 3) -> the fused stem pair's kernels (JAX

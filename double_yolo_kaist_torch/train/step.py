@@ -11,7 +11,9 @@ Several steps per dispatch (:func:`make_multi_step`,
 :func:`make_fused_multi_step`; JAX's ``lax.scan`` over K steps in one
 program) are, on CUDA, one CUDA graph of the whole step (forward, loss,
 backward, optimizer and EMA, the state updated in place) replayed K times
-(:class:`CapturedSteps`); on the CPU, K eager steps.
+(:class:`CapturedSteps`); on the CPU, K eager steps. The fused call's
+``double_buffer`` augments batch i + 1 on a side stream while step i
+replays.
 """
 
 from __future__ import annotations
@@ -214,6 +216,7 @@ class CapturedSteps:
         self.graphs: dict = {}
         self.pool = None
         self.replays = 0
+        self.side = None         # the double buffer's stream
 
     def _capture(self, state: TrainState, batch: dict, rng) -> _StepGraph:
         dev = next(iter(batch.values())).device
@@ -271,9 +274,17 @@ class CapturedSteps:
         return _StepGraph(graph, static_batch, static, metrics,
                           self.tx.lr_table, rng, held)
 
-    def __call__(self, state: TrainState, batch_at, k: int, rng=None):
+    def __call__(self, state: TrainState, batch_at, k: int, rng=None,
+                 double_buffer: bool = False):
         """K steps: ``batch_at(i)`` gives step i's batch. Returns (state,
-        stacked metrics (K,) a name)."""
+        stacked metrics (K,) a name).
+
+        ``double_buffer``: ``batch_at(i + 1)`` is launched on a side stream
+        just after step i's replay, and runs while it does (it waits only
+        for batch i's copy into the graph's buffers, an event on this
+        stream; its outputs are marked as used by this stream,
+        ``record_stream``); it is copied into the buffers after that
+        replay. The batches, and so the steps, are the plain loop's."""
         self.tx.ensure_lr_table(state.step + k)
         first = batch_at(0)
         sig = tuple((name, tuple(v.shape), v.dtype)
@@ -282,26 +293,54 @@ class CapturedSteps:
         if g is None or g.table is not self.tx.lr_table or g.rng is not rng:
             g = self.graphs[sig] = self._capture(state, first, rng)
         g.adopt(state)
+        dev = g.metrics.device
         out = torch.empty((k, len(METRICS)), dtype=torch.float32,
-                          device=g.metrics.device)
+                          device=dev)
+        main = torch.cuda.current_stream(dev)
+        if double_buffer and self.side is None:
+            self.side = torch.cuda.Stream(dev)
+        batch = first
         for i in range(k):
-            batch = first if i == 0 else batch_at(i)
             for name, buf in g.batch.items():
                 buf.copy_(batch[name], non_blocking=True)
+            ahead = double_buffer and i + 1 < k
+            if ahead:
+                copied = torch.cuda.Event()
+                copied.record(main)
             replay(g.graph, g.launches)
             self.replays += 1
             out[i].copy_(g.metrics)
+            if ahead:
+                # launched while the replay runs: the host's launches of
+                # the augment and its kernels overlap the step's
+                self.side.wait_event(copied)
+                with torch.cuda.stream(self.side):
+                    batch = batch_at(i + 1)
+                    for t in batch.values():
+                        t.record_stream(main)
+                ready = torch.cuda.Event()
+                ready.record(self.side)
+                main.wait_event(ready)
+            elif i + 1 < k:
+                batch = batch_at(i + 1)
         st = g.state
         return (TrainState(st.params, st.bn_state, st.opt_state,
                            state.step + k, st.ema),
                 {name: out[:, j] for j, name in enumerate(METRICS)})
 
 
-def _eager_steps(step_fn, state: TrainState, batch_at, k: int, rng=None):
+def _eager_steps(step_fn, state: TrainState, batch_at, k: int, rng=None,
+                 double_buffer: bool = False):
+    """K eager steps; ``double_buffer``: batch i + 1 is made before step
+    i runs (the CPU's form of the fused call's double buffer)."""
     ms = []
+    batch = batch_at(0)
     for i in range(k):
-        state, m = step_fn(state, batch_at(i), rng)
+        nxt = batch_at(i + 1) if double_buffer and i + 1 < k else None
+        state, m = step_fn(state, batch, rng)
         ms.append(m)
+        if i + 1 < k:
+            batch = nxt if nxt is not None else batch_at(i + 1)
     return state, {name: torch.stack([m[name] for m in ms])
                    for name in METRICS}
 
@@ -369,9 +408,9 @@ def make_fused_multi_step(ir, hyp: dict, tx, aug_fn, *, gr: float = 1.0,
                           compute_dtype=torch.bfloat16,
                           ema_decay: float = 0.9999, remat_segments: int = 0,
                           images_in: bool = False, multi_step=None,
-                          group=None):
+                          group=None, double_buffer: bool = False):
     """K steps a call with the augmentation in the same call (JAX
-    step.py:136-238, without its ``double_buffer``).
+    step.py:136-238).
 
     ``aug_fn``: :func:`..data.pipeline.make_train_augment_fn` with
     ``from_pool=not images_in``. The call is
@@ -389,7 +428,18 @@ def make_fused_multi_step(ir, hyp: dict, tx, aug_fn, *, gr: float = 1.0,
     graphs to share (the fused calls of several sizes then capture into
     one memory pool); by default a new one, over ``group``. Under data
     parallelism ``aug_fn`` is made with the rank's ``shard``: the call
-    takes the global batches' plans and each rank steps on its rows."""
+    takes the global batches' plans and each rank steps on its rows.
+
+    ``double_buffer`` (the pool path only, as in JAX: with ``images_in``
+    it raises): on CUDA, batch i + 1 is augmented on a side stream while
+    the captured step of batch i replays, and copied into the graph's
+    batch buffers after it (:class:`CapturedSteps`); on the CPU, the
+    augment of batch i + 1 runs before step i. The batches, generators
+    and step order are the plain fused path's, so the two train alike."""
+    if double_buffer and images_in:
+        raise ValueError("double_buffer is a pool-path experiment; "
+                         "combine it with images_in once it has a reason "
+                         "to exist there")
     multi = multi_step or make_multi_step(
         ir, hyp, tx, gr=gr, compute_dtype=compute_dtype,
         ema_decay=ema_decay, remat_segments=remat_segments, group=group)
@@ -404,8 +454,10 @@ def make_fused_multi_step(ir, hyp: dict, tx, aug_fn, *, gr: float = 1.0,
                           xs["tmask"][i].to(dev))
 
         if _on_cuda(state):
-            return multi.captured(state, batch_at, k, rng)
-        return _eager_steps(multi.step_fn, state, batch_at, k, rng)
+            return multi.captured(state, batch_at, k, rng,
+                                  double_buffer=double_buffer)
+        return _eager_steps(multi.step_fn, state, batch_at, k, rng,
+                            double_buffer=double_buffer)
 
     if images_in:
         def fused(state, xs, aug_seed, rng=None):
