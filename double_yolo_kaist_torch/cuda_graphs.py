@@ -7,6 +7,13 @@ host buffers requests are copied through; a :class:`Graph` replays one
 captured body and fetches its packed output once. Nothing here imports the
 model code, so a host that loads an exported program needs only this,
 ``export.py`` and ``ops/``.
+
+Spans (:mod:`.utils.profiling`, recorded only under a profiler window):
+``serve/stage`` (:meth:`Stage.load`) and its host-only leaf
+``serve/stage_copy`` (the copy into the staging buffers), ``serve/launch``
+(the replay and the output's copy enqueued), ``serve/fetch_wait`` (the
+wait for them) and ``serve/fetch_copy`` (the output's copy out of pinned
+memory).
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import numpy as np
 import torch
 
 from .ops import _build
+from .utils import profiling
 
 
 def capture(fn, device, pool=None):
@@ -71,23 +79,26 @@ class Stage:
         """Frames in, zeros after them; only the slots that changed move."""
         real = len(chunk_v)
         n = max(real, self.filled)
-        if self.host is not None:
-            with torch.cuda.device(self.dev[0].device):
+        with profiling.span("serve/stage"):
+            if self.host is not None:
+                with torch.cuda.device(self.dev[0].device):
+                    self._load(chunk_v, chunk_l, real, n)
+            else:
                 self._load(chunk_v, chunk_l, real, n)
-        else:
-            self._load(chunk_v, chunk_l, real, n)
         self.filled = real
 
     def _load(self, chunk_v, chunk_l, real: int, n: int) -> None:
         for i, chunk in enumerate((chunk_v, chunk_l)):
             dev = self.dev[i]
             if self.host is None:
-                dev[:real].copy_(torch.from_numpy(chunk))
-                dev[real:n].zero_()
+                with profiling.span("serve/stage_copy", timeline=True):
+                    dev[:real].copy_(torch.from_numpy(chunk))
+                    dev[real:n].zero_()
                 continue
             host = self.host[i].numpy()
-            host[:real] = chunk
-            host[real:n] = 0
+            with profiling.span("serve/stage_copy", timeline=True):
+                host[:real] = chunk
+                host[real:n] = 0
             dev[:n].copy_(self.host[i][:n], non_blocking=True)
 
 
@@ -113,12 +124,15 @@ class Graph:
         """Replay on the output's card and start the copy of the packed
         output to the host; :meth:`fetch` waits for it. A mesh launches
         every replica before it fetches any."""
-        with torch.cuda.device(self.out.device):
+        with profiling.span("serve/launch"), \
+                torch.cuda.device(self.out.device):
             replay(self.graph, self.launches)
             self.host.copy_(self.out, non_blocking=True)
         self.replays += 1
 
     def fetch(self, real: int) -> np.ndarray:
         """The first ``real`` rows of the launched replay's output."""
-        torch.cuda.current_stream(self.out.device).synchronize()
-        return self.host.numpy()[:real].copy()
+        with profiling.span("serve/fetch_wait", timeline=True):
+            torch.cuda.current_stream(self.out.device).synchronize()
+        with profiling.span("serve/fetch_copy", timeline=True):
+            return self.host.numpy()[:real].copy()

@@ -42,6 +42,7 @@ import torch
 
 from . import resolve_device
 from .utils import npz as NPZ
+from .utils import profiling
 
 FORMAT_VERSION = 1
 _META = "meta.json"
@@ -71,6 +72,33 @@ def unpack_detections(det, valid, real, ratio: float, pad, src_hw):
             boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, src_hw[0])
         out.append((boxes, d[:, 4], d[:, 5].astype(int)))
     return out
+
+
+def serve_chunk(lock, run, chunk_v, chunk_l, slots: int, ratio: float, pad,
+                src_hw) -> list:
+    """One chunk of a request, as ``serving.Predictor`` and
+    :class:`ExportedPredictor` serve it: ``run(chunk_v, chunk_l)`` (the
+    chunk's packed output) under ``lock``, then the letterbox undone for
+    its frames. Under a profiler window it records the request's root span
+    ``serve/request``, ``serve/lock_wait`` and ``serve/unpack``, and the
+    counters ``serve.requests``, ``serve.frames`` (real frames) and
+    ``serve.slots`` (``slots``, the bucket's, padding included)."""
+    with profiling.span("serve/request", request=True):
+        chunk_v = np.ascontiguousarray(chunk_v, np.uint8)
+        chunk_l = np.ascontiguousarray(chunk_l, np.uint8)
+        with profiling.span("serve/lock_wait", timeline=True):
+            lock.acquire()
+        try:
+            packed = run(chunk_v, chunk_l)
+        finally:
+            lock.release()
+        with profiling.span("serve/unpack", timeline=True):
+            dets = unpack_detections(packed[..., :6], packed[..., 6] > 0.5,
+                                     len(chunk_v), ratio, pad, src_hw)
+    profiling.count("serve.requests")
+    profiling.count("serve.frames", len(chunk_v))
+    profiling.count("serve.slots", slots)
+    return dets
 
 
 # ----------------------------------------------------------- tree <-> flat
@@ -240,7 +268,8 @@ class ExportedPredictor:
     exported for. On CUDA the loaded program is captured once as a CUDA
     graph on static inputs with pinned staging (:meth:`warmup`, or the
     first request) and every request replays it, as ``Predictor`` serves;
-    on the CPU it runs eagerly."""
+    on the CPU it runs eagerly. Under a profiler window it records
+    ``Predictor``'s spans and counters (:mod:`.serving`)."""
 
     def __init__(self, path: str, device=None):
         from .ops import library  # noqa: F401  (the program's K1-K4 nodes)
@@ -310,8 +339,10 @@ class ExportedPredictor:
             v, l = self._stage.dev
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            g, out, held = capture(lambda: self.run_batch(v, l),
-                                   self.device, self._pool)
+            with profiling.span("serve/capture"):
+                g, out, held = capture(lambda: self.run_batch(v, l),
+                                       self.device, self._pool)
+            profiling.count("serve.captures")
             self._graph = Graph(g, out, held)
         return self._stage
 
@@ -331,6 +362,7 @@ class ExportedPredictor:
         stage.load(chunk_v, chunk_l)
         if self._graph is not None:
             return self._graph.run(len(chunk_v))
+        profiling.count("serve.eager_batches")
         return self.run_batch(*stage.dev)[:len(chunk_v)].numpy()
 
     @torch.inference_mode()
@@ -348,14 +380,8 @@ class ExportedPredictor:
                 f"native frame size")
         out = []
         for b0 in range(0, len(v_imgs), self.batch):
-            chunk_v = np.ascontiguousarray(v_imgs[b0:b0 + self.batch],
-                                           np.uint8)
-            chunk_l = np.ascontiguousarray(l_imgs[b0:b0 + self.batch],
-                                           np.uint8)
-            with self._lock:
-                packed = self._run_chunk(chunk_v, chunk_l)
-            out.extend(unpack_detections(packed[..., :6],
-                                         packed[..., 6] > 0.5, len(chunk_v),
-                                         self._ratio, self._pad,
-                                         self.src_hw))
+            out.extend(serve_chunk(
+                self._lock, self._run_chunk, v_imgs[b0:b0 + self.batch],
+                l_imgs[b0:b0 + self.batch], self.batch, self._ratio,
+                self._pad, self.src_hw))
         return out

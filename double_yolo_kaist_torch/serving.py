@@ -26,6 +26,15 @@ placed on each replica's device once, a bucket is split into equal
 shards, one a replica, and each replica serves its shard from its own
 CUDA graph. Every replica's replay is launched before the first fetch;
 the shards' detections are concatenated in order.
+
+Under a ``torch.profiler`` window each request records its spans and
+counters (:mod:`.utils.profiling`): the root ``serve/request`` (one a
+chunk of ``__call__``), ``serve/lock_wait`` and ``serve/unpack``
+(``export.serve_chunk``), the staging, launch and fetch spans of
+:mod:`.cuda_graphs` and ``serve/capture``; the counters
+``serve.requests``, ``serve.frames`` (real frames), ``serve.slots``
+(bucket slots run), ``serve.captures`` and ``serve.eager_batches``
+(calibration batches and CPU bodies).
 """
 
 from __future__ import annotations
@@ -43,11 +52,12 @@ from .cuda_graphs import Graph as _Graph
 from .cuda_graphs import Stage as _Stage
 from .cuda_graphs import capture
 from .data.letterbox import make_letterbox_fn
-from .export import unpack_detections
+from .export import serve_chunk, unpack_detections  # noqa: F401
 from .models import graph
 from .models import quantize as Q
 from .ops.nms import non_max_suppression
 from .parallel import mesh as M
+from .utils import profiling
 
 
 def pack(det, valid):
@@ -303,9 +313,11 @@ class Predictor:
             with torch.cuda.device(dev):
                 self._pools[dev] = torch.cuda.graph_pool_handle()
         variables = self._vars(quant, r)
-        cuda_graph, out, held = capture(
-            lambda: self._body(v, l, quant, variables), dev,
-            self._pools[dev])
+        with profiling.span("serve/capture"):
+            cuda_graph, out, held = capture(
+                lambda: self._body(v, l, quant, variables), dev,
+                self._pools[dev])
+        profiling.count("serve.captures")
         g = self._graphs_r[r][key] = _Graph(cuda_graph, out, held)
         return g
 
@@ -324,9 +336,11 @@ class Predictor:
             # on the batch gathered on the first replica
             v, l = (torch.cat([st.dev[i].to(self.device) for st in stages])
                     for i in (0, 1))
+            profiling.count("serve.eager_batches")
             return pack(*self.run_batch(v, l))[:real].cpu().numpy()
         quant = self._int8
         if self.device.type != "cuda":
+            profiling.count("serve.eager_batches", n)
             outs = [self._body(*st.dev, quant, self._vars(quant, r))
                     for r, st in enumerate(stages)]
             return torch.cat(outs)[:real].numpy()
@@ -371,10 +385,9 @@ class Predictor:
         bucket = self._bucket(n)
         out = []
         for b0 in range(0, n, bucket):
-            chunk_v = np.ascontiguousarray(v_imgs[b0:b0 + bucket], np.uint8)
-            chunk_l = np.ascontiguousarray(l_imgs[b0:b0 + bucket], np.uint8)
-            with self._lock:
-                packed = self._run_chunk(bucket, src_hw, chunk_v, chunk_l)
-            out.extend(unpack_detections(packed[..., :6], packed[..., 6] > 0.5,
-                                         len(chunk_v), ratio[0], pad, src_hw))
+            out.extend(serve_chunk(
+                self._lock,
+                lambda v, l: self._run_chunk(bucket, src_hw, v, l),
+                v_imgs[b0:b0 + bucket], l_imgs[b0:b0 + bucket], bucket,
+                ratio[0], pad, src_hw))
         return out

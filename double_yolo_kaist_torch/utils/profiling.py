@@ -1,115 +1,181 @@
-"""Profiling and tracing utilities: the JAX package's
-``utils/profiling.py`` on the card.
+"""Profiling and tracing: the program's spans and counters, the operator's
+``torch.profiler`` window, and the train loop's step timer.
 
-  * :func:`device_sync` / :func:`device_sync_time`: wait for the device,
-    and time calls between CUDA events on the card (the host clock
-    around a synchronise on the CPU);
-  * :func:`trace`: a ``torch.profiler`` window that writes a Chrome trace;
-  * :func:`flops_estimate`: the analytic conv FLOP count from the IR;
+  * :func:`span` / :func:`count`: named intervals and counts, recorded
+    into one store in memory while a ``torch.profiler`` window is open,
+    and nothing otherwise; :func:`take` returns them and clears the store;
+  * :func:`trace`: the operator's window: a ``torch.profiler`` window that
+    writes a Chrome trace and the window's spans and counters;
   * :class:`StepTimer`: the train loop's rolling data / step time.
+
+Tracing is on exactly while a profiler window is open (the flag
+``torch.autograd.profiler._is_profiler_enabled``); when it is off, a span
+or a count reads that flag and does nothing else. Spans are stamped on
+the clock the profiler's host events carry (epoch ns, ``time.time_ns``),
+so a span lines up with the profiler's timeline. A span with
+``timeline=True`` also enters a profiler range of its name (the one
+``torch.compile`` uses, ``_RecordFunctionFast``, a tenth of
+``record_function``'s cost under a window): only host-side leaves take
+it, since the profiler repeats a range that encloses work on the card as
+an event on the card's timeline.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _profiler
+
+CAPACITY = 1 << 20          # spans the store holds; more count as dropped
+# the range a timeline span enters; ``record_function`` where torch lacks it
+_RANGE = (getattr(torch._C._profiler, "_RecordFunctionFast", None)
+          or _profiler.record_function)
 
 
-def _first_tensor(x):
-    if isinstance(x, torch.Tensor):
-        return x
-    if isinstance(x, dict):
-        x = list(x.values())
-    if isinstance(x, (list, tuple)):
-        for v in x:
-            t = _first_tensor(v)
-            if t is not None:
-                return t
-    return None
+class Span(NamedTuple):
+    """One recorded span. ``parent``: the id of the span it ran in (None
+    at a root); ``request``: the id shared by every span of one request
+    (None outside a request); ``thread``: ``threading.get_ident()``."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]
+    request: Optional[int]
+    thread: int
 
 
-def device_sync(x) -> None:
-    """Wait until the device has finished the work that made ``x`` (a
-    tensor or a tree of them): ``torch.cuda.synchronize`` of its device;
-    nothing on the CPU."""
-    t = _first_tensor(x)
-    if t is not None and t.is_cuda:
-        torch.cuda.synchronize(t.device)
+class _Store:
+    """The spans and counters recorded since the last :meth:`take`."""
+
+    def __init__(self):
+        self.capacity = CAPACITY
+        self.spans: list = []
+        self.counters: dict = {}
+        self.lock = threading.Lock()
+        self.ids = itertools.count(1)
+        self.requests = itertools.count(1)
+        self.local = threading.local()      # .stack: the open spans
+
+    def add(self, rec: Span) -> None:
+        with self.lock:
+            if len(self.spans) < self.capacity:
+                self.spans.append(rec)
+            else:
+                self.counters["dropped"] = self.counters.get("dropped", 0) + 1
+
+    def count(self, name: str, n) -> None:
+        with self.lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    def take(self) -> dict:
+        with self.lock:
+            spans, self.spans = self.spans, []
+            counters, self.counters = self.counters, {}
+        return {"spans": spans, "counters": counters}
 
 
-def device_sync_time(fn, *args, repeats: int = 1):
-    """Run ``fn(*args)`` once to warm up, then ``repeats`` times; return
-    (seconds per call, the last output). On CUDA the calls are timed
-    between two CUDA events on the current stream (the device's time for
-    them, host gaps included); on the CPU by the host clock."""
-    out = fn(*args)
-    t = _first_tensor(out)
-    if t is None or not t.is_cuda:
-        t0 = time.perf_counter()
-        for _ in range(repeats):
-            out = fn(*args)
-        return (time.perf_counter() - t0) / repeats, out
-    torch.cuda.synchronize(t.device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(repeats):
-        out = fn(*args)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 1e3 / repeats, out
+STORE = _Store()
+
+
+_OFF = contextlib.nullcontext()     # the span of a call with tracing off
+
+
+class _On:
+    """The span of a call made with tracing on."""
+    __slots__ = ("name", "request", "timeline", "id", "parent", "req",
+                 "start", "range")
+
+    def __init__(self, name: str, request: bool, timeline: bool):
+        self.name = name
+        self.request = request
+        self.timeline = timeline
+
+    def __enter__(self):
+        local = STORE.local
+        stack = getattr(local, "stack", None)
+        if stack is None:
+            stack = local.stack = []
+        up = stack[-1] if stack else None
+        self.id = next(STORE.ids)
+        self.parent = None if up is None else up.id
+        self.req = (next(STORE.requests) if self.request
+                    else None if up is None else up.req)
+        stack.append(self)
+        self.start = time.time_ns()
+        if self.timeline:
+            self.range = _RANGE(self.name)
+            self.range.__enter__()
+        return None
+
+    def __exit__(self, *exc):
+        if self.timeline:
+            self.range.__exit__(*exc)
+        end = time.time_ns()
+        STORE.local.stack.pop()
+        STORE.add(Span(self.name, self.start, end, self.id, self.parent,
+                       self.req, threading.get_ident()))
+        return False
+
+
+def span(name: str, *, request: bool = False, timeline: bool = False):
+    """A context manager that records the interval it encloses as ``name``
+    while tracing is on. ``request=True`` starts a request: the span and
+    every span inside it on this thread share a new request id.
+    ``timeline=True`` (host-only leaves: nothing inside may enqueue work on
+    the card) also enters a profiler range of ``name``."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _On(name, request, timeline)
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if not _profiler._is_profiler_enabled:
+        return
+    STORE.count(name, n)
+
+
+def take() -> dict:
+    """``{"spans": [Span, ...], "counters": {name: n}}`` recorded since the
+    last take, and clear the store. ``counters["dropped"]``: spans that did
+    not fit in the store's ``CAPACITY``."""
+    return STORE.take()
 
 
 @contextlib.contextmanager
 def trace(logdir: str = "runs/trace"):
     """A ``torch.profiler`` window over the host and, where there is one,
-    the CUDA device; on exit it writes ``<logdir>/trace.json`` (Chrome
-    trace format: chrome://tracing or Perfetto). Yields the profiler, whose
-    ``key_averages()`` sums the kernels by name."""
+    the CUDA device. On exit it writes ``<logdir>/trace.json`` (Chrome
+    trace format: chrome://tracing or Perfetto) and ``<logdir>/spans.json``
+    (the program's spans and counters of the window, as :func:`take`
+    gives them, each span a dict).
+    Yields the profiler, whose ``key_averages()`` sums the kernels by
+    name."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    take()                      # what an earlier window left
     with profile(activities=acts) as prof:
         yield prof
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def flops_estimate(ir, img_hw=(512, 640)) -> float:
-    """Analytic multiply-add FLOPs (x2) of one dual/single-stream forward."""
-    from ..config.ir import infer_shapes
-
-    shapes = infer_shapes(ir, *img_hw)
-    total = 0.0
-    for node in ir.nodes:
-        if node.kind == "conv":
-            c, h, w = shapes[node.index]
-            total += 2 * h * w * node.kernel ** 2 * (
-                node.in_ch // node.groups) * node.out_ch
-        elif node.kind == "dwconv":
-            c, h, w = shapes[node.index]
-            total += 2 * h * w * (node.kernel ** 2 * node.in_ch
-                                  + node.in_ch * node.out_ch)
-        elif node.kind == "inception":
-            c, h, w = shapes[node.index]
-            icp = node.icp
-            ci = node.in_ch
-            total += 2 * h * w * (
-                ci * icp["n1x1"] + ci * icp["n3x3_reduce"]
-                + 9 * icp["n3x3_reduce"] * icp["n3x3"]
-                + ci * icp["n5x5_reduce"] + 9 * icp["n5x5_reduce"] * icp["n5x5"]
-                + 9 * icp["n5x5"] ** 2 + ci * icp["pool_proj"])
-        elif node.kind == "se":
-            total += 2 * 2 * node.in_ch * node.squeeze_ch
-    return total
+    taken = take()
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump({"spans": [s._asdict() for s in taken["spans"]],
+                   "counters": taken["counters"]}, f)
 
 
 class StepTimer:
