@@ -37,6 +37,11 @@ result line):
      plan gives it, bf16 epilogue and once fp32, and at a shape off every
      tile (M 1000, K 144, N 80); times per family of shapes (A: K 1024,
      B: K 512, C: K 256) beside each bound and the library call's time;
+     then K5 (bias + activation epilogue) at the output of each conv of
+     the flagship it finishes (all but the stems: mish, leaky and the
+     heads' linear 18 channels), bs 8 at 512x640, bf16 and fp32, bit for
+     bit the eager ops, and one forward's 183 launches timed in bf16
+     beside their bound (bytes) and the eager ops' time;
   8. end to end: the flagship Double-YOLOv4-Fshare-Global-CSE3 at full
      width and depth with seeded weights, served in bf16 and then in int8
      (two calibration requests of 8 frames, then int8 requests of 1, 3 and
@@ -69,8 +74,9 @@ result line):
      through ``Predictor.__call__``, each one replay of its bucket's graph,
      must give exactly the detections of the eager path (``run_batch`` +
      ``unpack_detections``) on the same frames; one torch.profiler window
-     around one replay must show K1 once, K2 once, K3 twice (flagship) and
-     K4 ten times (int8) by kernel name; the median (min-max) request ms of
+     around one replay must show K1 once, K2 once, K3 twice (flagship),
+     K4 ten times (int8) and K5 37 (MNv3), 183 (flagship bf16) and 101
+     (flagship int8) times by kernel name; the median (min-max) request ms of
      graph and eager at bs 1 and 8 with their device busy shares;
  11. the entry points as subprocesses: ``serve`` (the MNv3 zoo name and a
      checkpoint directory) answering 32 concurrent raw-frame ``/detect``
@@ -1380,6 +1386,83 @@ def phase_qgemm(torch, ir, dev, launches):
             "bs1_device_ms": bs1_device_ms}
 
 
+def phase_bias_act(torch, ir, dev, launches):
+    """K5 at the output of every conv of the flagship it finishes (all but
+    the two stems: 145 mish, 35 leaky, 3 linear heads of 18 channels),
+    bs 8 at 512x640: bf16 and fp32, each bit for bit its plain version
+    (the eager ops); then one forward's 183 launches timed in bf16."""
+    from double_yolo_kaist_torch.config.ir import infer_shapes
+    from double_yolo_kaist_torch.ops import bias_act as K5
+    from double_yolo_kaist_torch.ops import stem as K3
+    bs = 8
+    shapes = infer_shapes(ir, 512, 640)
+    convs = [n for n in ir.nodes if n.kind == "conv" and n.groups == 1
+             and not K3.matches(n)]
+    acts = {a: sum(n.act == a for n in convs) for a in K5.ACTS}
+    if len(convs) != 183 or acts != {"linear": 3, "leaky": 35, "mish": 145}:
+        raise AssertionError(f"expected 183 convs for K5 (3 linear, 35 "
+                             f"leaky, 145 mish), got {len(convs)}: {acts}")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = {}                          # (C, H, W, act): the convs of it
+    for n in convs:
+        cases.setdefault((*shapes[n.index], n.act), []).append(n.index)
+    n0 = launches["bias_act"]
+    for dtype in (torch.bfloat16, torch.float32):
+        for (c, h, w, act), layers in cases.items():
+            y = (torch.randn((bs, c, h, w), generator=g, device=dev) * 4).to(
+                dtype).contiguous(memory_format=torch.channels_last)
+            b = torch.randn((c,), generator=g, device=dev).to(dtype)
+            got, want = K5.bias_act(y, b, act), K5.plain(y, b, act)
+            torch.cuda.synchronize()
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            differ = int((got.view(bits) != want.view(bits)).sum()) \
+                if got.shape == want.shape else -1
+            if differ or not got.is_contiguous(
+                    memory_format=torch.channels_last):
+                raise AssertionError(
+                    f"K5 {dtype} {act} ({bs}, {c}, {h}, {w}) (layers "
+                    f"{layers}): {differ} values differ from the eager ops")
+    checked = launches["bias_act"] - n0
+    print(f"K5 bs {bs}: {len(cases)} (C, H, W, act) cases of the "
+          f"flagship's 183 convs ({acts}; C {min(k[0] for k in cases)}-"
+          f"{max(k[0] for k in cases)}, the heads' 18 on the scalar walk), "
+          f"bf16 and fp32: {checked} launches, every value equal to the "
+          f"eager ops' bit for bit", flush=True)
+    if checked != 2 * len(cases):
+        raise AssertionError(f"K5 launched {checked} times for "
+                             f"{2 * len(cases)} calls")
+
+    # one forward's launches (each conv's own output and bias), bf16
+    outs = []
+    for n in convs:
+        c, h, w = shapes[n.index]
+        y = torch.randn((bs, c, h, w), generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        outs.append((y, torch.randn((c,), generator=g, device=dev).to(
+            torch.bfloat16), n.act))
+
+    def kernel():
+        for y, b, act in outs:
+            K5.bias_act(y, b, act)
+
+    def plain():
+        for y, b, act in outs:
+            K5.plain(y, b, act)
+
+    ms = _time_ms(torch, kernel, iters=5, reps=5)
+    device_ms = _device_ms(torch, kernel, "bias_act_kernel", iters=2)
+    plain_ms = _time_ms(torch, plain, iters=2, reps=5)
+    n_bytes = sum(2 * y.numel() * 2 + b.numel() * 2 for y, b, _ in outs)
+    bound, by = _bound_ms(n_bytes, 0, BF16_OPS_PER_S)
+    print(f"K5 bf16, one flagship forward's 183 launches at bs {bs} "
+          f"(512x640 frames): kernel {ms:.4f} ms (device {device_ms} ms), "
+          f"plain (the eager ops) {plain_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({by}: {n_bytes / 1e9:.3f} GB at 3.35 TB/s)", flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
 def _serve(torch, pred, frames, launches, n, want, n_heads):
     """One request of ``n`` frames; launch counts must equal ``want``, and
     K1's launches must have decoded ``n_heads`` heads each. Returns the
@@ -2284,7 +2367,8 @@ def phase_eval(torch, dev, launches, mnv3_ir, flagship_ir, results, root,
 
 # the substring of each kernel's name in a profile
 KERNEL_NAMES = {"K1": "decode_heads_kernel", "K2": "nms_kernel",
-                "K3": "stem_wg_kernel", "K4": "qgemm_wg_kernel"}
+                "K3": "stem_wg_kernel", "K4": "qgemm_wg_kernel",
+                "K5": "bias_act_kernel"}
 
 
 def _eager_request(torch, pred, v, l):
@@ -2371,7 +2455,7 @@ def phase_graphs(torch, launches, served):
         # one replay in a profiler window: the kernels by name
         g = pred._graphs[(pred._bucket(8), hw, quant)]
         want = {"K1": 1, "K2": 1, "K3": held.get("stem_conv_s2", 0),
-                "K4": held.get("qgemm", 0)}
+                "K4": held.get("qgemm", 0), "K5": held.get("bias_act", 0)}
         for tries in range(1, 7):               # a window may lose an event
             events = _kernel_events(torch, g.graph.replay, 1)
             got = {k: sum(c for name, c in events.items() if sub in name)
@@ -6160,7 +6244,8 @@ def _job_core(j, torch, dev, ir, fir):
                          ("K2", lambda: phase_nms(torch, dev)),
                          ("K3", lambda: phase_stem(torch, dev)),
                          ("K3 probes", lambda: phase_probes(torch, dev, L)),
-                         ("K4", lambda: phase_qgemm(torch, fir, dev, L))):
+                         ("K4", lambda: phase_qgemm(torch, fir, dev, L)),
+                         ("K5", lambda: phase_bias_act(torch, fir, dev, L))):
             r = j.run(name, fn)
             if r is not None:
                 results[name] = r
@@ -6184,11 +6269,12 @@ def _job_core(j, torch, dev, ir, fir):
         j.out["eval_kernels"] = r[1]
     held = {"decode_head": 1, "nms_indices": 1}
     r = j.run("graphs", lambda: phase_graphs(torch, L, [
-        ("MNv3 bf16", served["mnv3"][0], served["mnv3"][1], held),
+        ("MNv3 bf16", served["mnv3"][0], served["mnv3"][1],
+         dict(held, bias_act=37)),
         ("flagship bf16", *served["flagship bf16"],
-         dict(held, stem_conv_s2=2)),
+         dict(held, stem_conv_s2=2, bias_act=183)),
         ("flagship int8", *served["flagship int8"],
-         dict(held, stem_conv_s2=2, qgemm=10))]))
+         dict(held, stem_conv_s2=2, qgemm=10, bias_act=101))]))
     if r is not None:
         j.counts.update(r[0])
 
@@ -6706,6 +6792,10 @@ def _kernels_line(records):
          "source": "double_yolo_kaist_torch/ops/csrc/qgemm.cu",
          "replaces": "double_yolo_kaist_tpu/ops/pallas_qgemm.py:101",
          "launches": launched("qgemm"), **results["K4"], **ek["K4"]},
+        {"name": "K5 bias + activation epilogue", "route": "cuda",
+         "source": "double_yolo_kaist_torch/ops/csrc/bias_act.cu",
+         "replaces": None, "launches": launched("bias_act"),
+         **results["K5"]},
         # launches: one run of the probes' own entry point (breakdown)
         {"name": "K3 probes", "route": "cuda",
          "source": "double_yolo_kaist_torch/ops/csrc/stem.cu",

@@ -15,7 +15,7 @@ the program's inputs, and writes one zip:
     meta.json       shapes, letterbox undo constants, thresholds, digests,
                     the tensors' strides, ``"runtime": "torch"``
 
-Kernels K1-K4 are registered operators (:mod:`.ops.library`), so each is
+Kernels K1-K5 are registered operators (:mod:`.ops.library`), so each is
 one node of the program and runs the port's own hand kernel when the
 program runs; the other nodes are the same eager ATen operators
 ``Predictor`` runs. Nothing is recompiled (no AOTInductor, no
@@ -272,7 +272,7 @@ class ExportedPredictor:
     ``Predictor``'s spans and counters (:mod:`.serving`)."""
 
     def __init__(self, path: str, device=None):
-        from .ops import library  # noqa: F401  (the program's K1-K4 nodes)
+        from .ops import library  # noqa: F401  (the program's K1-K5 nodes)
 
         self.device = resolve_device(device)
         with zipfile.ZipFile(path) as zf:

@@ -22,7 +22,8 @@ BN pooling the phases) and ``_SPLIT_CONCAT_CONV`` (env
 ``DYK_SPLIT_CONCAT_CONV``: :func:`apply_folded` leaves a route concat that
 feeds one standard conv unbuilt and sums that conv over the pieces).
 The stem convs (3x3, stride 2, C_in 32) run through kernel K3
-(:mod:`..ops.stem`).
+(:mod:`..ops.stem`); on the card every other standard conv's bias and
+activation run through kernel K5 (:mod:`..ops.bias_act`).
 
 Activations are NCHW in shape and channels-last in memory, so the convs run
 on cuDNN's NHWC kernels and the NHWC images the caller passes in are read
@@ -44,6 +45,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config.ir import GraphIR, infer_shapes
+from ..ops import bias_act as K5
 from ..ops import decode as K1
 from ..ops import stem as K3
 from ..ops.act import activate
@@ -603,10 +605,16 @@ def place_folded(ir: GraphIR, folded: dict, device, compute_dtype) -> dict:
 def conv_folded(node, inp, p):
     """One BN-folded standard conv + activation. The convs K3 takes (3x3,
     stride 2, pad 1, C_in 32, mish or leaky) go through it; the rest go to
-    ``F.conv2d``. ``inp`` may be a list, the pieces of a route concat left
-    unbuilt (``_SPLIT_CONCAT_CONV``): the conv is then the sum of the
-    pieces' convs with the kernel's input-channel slices, the bias added
-    to the sum (JAX graph.py:545-557)."""
+    ``F.conv2d``. Where K5 takes the conv (:func:`..ops.bias_act.takes`)
+    and it has groups 1 (on the card ATen's cuDNN conv then adds the bias
+    as a pass of its own), the conv runs without its bias and K5 adds it
+    with the activation; elsewhere (the CPU, whose conv may add the bias
+    before rounding, a grouped conv, any other activation or dtype, a
+    gradient) the code is the eager one. ``inp`` may be a list, the
+    pieces of a route concat left unbuilt (``_SPLIT_CONCAT_CONV``): the
+    conv is then the sum of the pieces' convs with the kernel's
+    input-channel slices, the bias added to the sum (JAX
+    graph.py:545-557)."""
     if isinstance(inp, list):
         y, c0 = None, 0
         for seg in inp:
@@ -615,9 +623,13 @@ def conv_folded(node, inp, p):
                             pad=node.pad)
             y = part if y is None else y + part
             c0 += c
-        return activate(node.act, y + p["b"].to(y.dtype)[:, None, None])
+        epilogue = K5.bias_act if K5.takes(y, node.act, p["b"]) else K5.plain
+        return epilogue(y, p["b"], node.act)
     if K3.matches(node):
         return K3.stem_conv_s2(inp, p["k3"], node.act)
+    if node.groups == 1 and K5.takes(inp, node.act, p["w"], p["b"]):
+        return K5.bias_act(L.conv2d(inp, p["w"], stride=node.stride,
+                                    pad=node.pad), p["b"], node.act)
     return activate(node.act, L.conv2d(inp, p["w"], p["b"],
                                          stride=node.stride, pad=node.pad,
                                          groups=node.groups))

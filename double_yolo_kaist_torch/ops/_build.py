@@ -29,8 +29,9 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # qgemm.cu writes its epilogue with round-to-nearest intrinsics instead.
 # stem.cu (cp.async, wgmma) and nms.cu (clusters, distributed shared memory)
 # need sm_90a and nothing beyond the CUDA runtime: no flag of their own.
+# bias_act.cu must equal eager PyTorch bit for bit: no fast-math flag.
 SOURCES = {"decode.cu": [], "nms.cu": ["--fmad=false"], "stem.cu": [],
-           "qgemm.cu": []}
+           "qgemm.cu": [], "bias_act.cu": []}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

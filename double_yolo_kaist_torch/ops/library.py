@@ -1,4 +1,4 @@
-"""Kernels K1-K4 as PyTorch operators, in the namespace ``dyk``.
+"""Kernels K1-K5 as PyTorch operators, in the namespace ``dyk``.
 
 The kernels are bound with ``ctypes`` (:mod:`._build`), which
 ``torch.export`` cannot trace: a pointer from ``data_ptr()`` does not
@@ -10,7 +10,8 @@ program, and the program calls the same wrapper code when it runs:
     row offset),
   * ``dyk::nms_indices`` (K2),
   * ``dyk::stem_conv_s2`` (K3, its packed weights as their four tensors),
-  * ``dyk::qgemm`` (K4).
+  * ``dyk::qgemm`` (K4),
+  * ``dyk::bias_act`` (K5).
 
 For each, the CUDA implementation launches the hand kernel (the module's
 ``launch``, which counts its launches in ``_build.launches``, so a run of
@@ -22,8 +23,11 @@ runtime tensors' layout, never when a program is traced.
 
 The wrappers :func:`.decode.decode_heads`, :func:`.nms_kernel.nms_indices`,
 :func:`.stem.stem_conv_s2` and :func:`.qgemm.qgemm` check their arguments
-and call these operators on every path. Importing this module registers
-them; a host that loads an exported program imports it first.
+and call these operators on every path; :func:`.bias_act.bias_act`, run
+once a conv, calls its operator where a program is traced or the tensor
+is on the CPU, and launches K5 directly in an eager CUDA call. Importing
+this module registers them; a host that loads an exported program
+imports it first.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import Optional
 import torch
 from torch import Tensor
 
+from . import bias_act as K5
 from . import decode as K1
 from . import nms_kernel as K2
 from . import qgemm as K4
@@ -134,3 +139,23 @@ def _(x, w, scale, bias, act, out_inv_s, out_dtype):
 def _(x, w, scale, bias, act, out_inv_s, out_dtype):
     dtype = torch.int8 if out_inv_s is not None else out_dtype
     return x.new_empty(tuple(x.shape[:-1]) + (w.shape[0],), dtype=dtype)
+
+
+# ------------------------------------------------------------------ K5
+
+
+@torch.library.custom_op("dyk::bias_act", mutates_args=())
+def bias_act(y: Tensor, b: Tensor, act: str) -> Tensor:
+    if y.device.type != "cpu":
+        raise _not_here("bias_act", y.device)
+    return K5.plain(y, b, act).contiguous(memory_format=torch.channels_last)
+
+
+@bias_act.register_kernel("cuda")
+def _(y, b, act):
+    return K5.launch(y, b, act)
+
+
+@bias_act.register_fake
+def _(y, b, act):
+    return torch.empty_like(y, memory_format=torch.channels_last)
